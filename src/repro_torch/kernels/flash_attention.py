@@ -1,0 +1,129 @@
+"""Attention wrappers: ``flash_attention`` (prefill) and
+``decode_attention`` (one query token against a KV cache).
+
+Counterpart of ``repro/kernels/flash_attention.py``.  For tensors on the
+CPU each wrapper runs the plain version, ``ref.attention_ref``.  For CUDA
+tensors it launches the kernel of ``csrc/flash_attention.cu`` or raises:
+there is no fallback.  Each launch adds one to the wrapper's ``launches``.
+"""
+from __future__ import annotations
+
+import torch
+
+from . import ref
+
+_DTYPES = {torch.bfloat16: 0, torch.float32: 1}
+
+
+def _check(q, k, v, name):
+    if not (q.device.type == k.device.type == v.device.type == "cuda"):
+        raise ValueError(f"{name}: q, k, v must all lie on the CPU or all "
+                         f"on a CUDA device, got {q.device}, {k.device}, "
+                         f"{v.device}")
+    if not (q.device == k.device == v.device):
+        raise ValueError(f"{name}: q, k, v lie on different devices")
+    if q.dtype not in _DTYPES or not (q.dtype == k.dtype == v.dtype):
+        raise TypeError(f"{name}: q, k, v must share one dtype of "
+                        f"bfloat16/float32, got {q.dtype}, {k.dtype}, "
+                        f"{v.dtype}")
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError(f"{name}: want q (B, Sq, Hq, D) and k, v "
+                         f"(B, Skv, Hkv, D), got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    B, _, Hq, D = q.shape
+    if k.shape[0] != B or k.shape[3] != D or Hq % k.shape[2] != 0:
+        raise ValueError(f"{name}: k/v {tuple(k.shape)} do not match q "
+                         f"{tuple(q.shape)}")
+    if D % 8 != 0 or D > 256:
+        raise ValueError(f"{name}: head_dim {D} must be a multiple of 8 "
+                         f"and at most 256")
+    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
+        raise ValueError(f"{name}: q, k, v must be contiguous")
+
+
+def _per_batch(value, B, device):
+    """An int or a (B,) tensor -> (int32 device tensor or None, scalar)."""
+    if isinstance(value, torch.Tensor):
+        t = value.to(device=device, dtype=torch.int32).reshape(-1)
+        if t.numel() not in (1, B):
+            raise ValueError(f"want a (B,) = ({B},) tensor, got "
+                             f"{tuple(value.shape)}")
+        return t.expand(B).contiguous(), 0
+    return None, int(value)
+
+
+def _launch(fn_name, q, k, v, *, causal, window, softcap, scale, q_offset,
+            kv_len):
+    from . import _build
+
+    B, Sq, Hq, D = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    scale = (D ** -0.5) if scale is None else scale
+    kl, kl_all = _per_batch(Skv if kv_len is None else kv_len, B, q.device)
+    qo, qo_all = _per_batch(q_offset, B, q.device)
+    o = torch.empty_like(q)
+    lib = _build.load("flash_attention")
+    shape = (B, Sq, Skv, Hq, Hkv, D) if fn_name == "flash_attention_fwd" \
+        else (B, Skv, Hq, Hkv, D)
+    with torch.cuda.device(q.device):
+        err = getattr(lib, fn_name)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            None if kl is None else kl.data_ptr(), kl_all,
+            None if qo is None else qo.data_ptr(), qo_all,
+            *shape, _DTYPES[q.dtype], int(causal),
+            int(window is not None), 0 if window is None else int(window),
+            int(softcap is not None),
+            0.0 if softcap is None else float(softcap), float(scale),
+            torch.cuda.current_stream().cuda_stream)
+    _build.check(err, fn_name)
+    return o
+
+
+def flash_attention(q, k, v, *, causal=True, window=None, softcap=None,
+                    scale=None, q_offset=0, kv_len=None):
+    """q: (B, Sq, Hq, D); k, v: (B, Skv, Hkv, D) -> (B, Sq, Hq, D).
+
+    Same arguments and result as ``ref.attention_ref``; ``q_offset`` and
+    ``kv_len`` are ints or (B,) tensors.  On CUDA: bf16 or f32, contiguous,
+    head_dim a multiple of 8 up to 256.
+    """
+    if q.device.type == "cpu":
+        return ref.attention_ref(q, k, v, causal=causal, window=window,
+                                 softcap=softcap, scale=scale,
+                                 q_offset=q_offset, kv_len=kv_len)
+    _check(q, k, v, "flash_attention")
+    o = _launch("flash_attention_fwd", q, k, v, causal=causal,
+                window=window, softcap=softcap, scale=scale,
+                q_offset=q_offset, kv_len=kv_len)
+    flash_attention.launches += 1
+    return o
+
+
+flash_attention.launches = 0
+
+
+def decode_attention(q, k, v, *, causal=False, window=None, softcap=None,
+                     scale=None, q_offset=0, kv_len=None):
+    """Single-token decode: q (B, 1, Hq, D) against a (possibly ring-
+    buffered) KV cache k, v (B, max_seq, Hkv, D) -> (B, 1, Hq, D).
+
+    Held to ``ref.attention_ref`` with the same arguments, ``window``
+    included.  Causality at decode comes through ``kv_len`` (every cached
+    key up to it is valid), hence ``causal=False`` by default.
+    """
+    if q.shape[1] != 1:
+        raise ValueError(f"decode_attention: want one query token, got "
+                         f"q {tuple(q.shape)}")
+    if q.device.type == "cpu":
+        return ref.attention_ref(q, k, v, causal=causal, window=window,
+                                 softcap=softcap, scale=scale,
+                                 q_offset=q_offset, kv_len=kv_len)
+    _check(q, k, v, "decode_attention")
+    o = _launch("decode_attention_fwd", q, k, v, causal=causal,
+                window=window, softcap=softcap, scale=scale,
+                q_offset=q_offset, kv_len=kv_len)
+    decode_attention.launches += 1
+    return o
+
+
+decode_attention.launches = 0
