@@ -234,17 +234,10 @@ def time_ms(fn, flush, reps=25):
 
 def _sdpa(q, k, v, **kw):
     """scaled_dot_product_attention on (B, H, S, D) views, GQA by
-    enable_gqa or, on older PyTorch, by expanded k/v made beforehand."""
+    enable_gqa."""
     F = torch.nn.functional
-    try:
-        F.scaled_dot_product_attention(q, k, v, enable_gqa=True, **kw)
-        return lambda: F.scaled_dot_product_attention(q, k, v,
-                                                      enable_gqa=True, **kw)
-    except TypeError:
-        g = q.shape[1] // k.shape[1]
-        ke = k.repeat_interleave(g, 1)
-        ve = v.repeat_interleave(g, 1)
-        return lambda: F.scaled_dot_product_attention(q, ke, ve, **kw)
+    return lambda: F.scaled_dot_product_attention(q, k, v, enable_gqa=True,
+                                                  **kw)
 
 
 def bound(flops, nbytes):

@@ -10,7 +10,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from .lm import LM
+from .lm import LM, resolve_device
 
 
 def _flatten(tree: dict, prefix: str = ""):
@@ -22,7 +22,7 @@ def _flatten(tree: dict, prefix: str = ""):
 
 
 @torch.no_grad()
-def from_jax_params(tree: dict, cfg: ArchConfig, device="cpu") -> LM:
+def from_jax_params(tree: dict, cfg: ArchConfig, device="cuda") -> LM:
     """Build the port's parameters from the JAX package's tree.
 
     The stacked ``groups`` leaves (leading ``n_groups`` axis, one list entry
@@ -31,9 +31,10 @@ def from_jax_params(tree: dict, cfg: ArchConfig, device="cpu") -> LM:
     Weights keep their ``(d_in, d_out)`` layouts and their dtypes: bf16
     weights stay bf16 and f32 norm weights f32.  Leaves may be numpy arrays
     of any float dtype (bf16 leaves can come as float32: the widening and
-    the cast back are exact).
+    the cast back are exact).  ``device`` defaults to the card; with no
+    GPU it raises unless the caller passes ``device="cpu"``.
     """
-    params = LM(cfg, torch.device(device))
+    params = LM(cfg, resolve_device(device))
     P = len(cfg.layer_pattern)
     state = dict(_flatten({k: v for k, v in tree.items() if k != "groups"}))
     for i, group in enumerate(tree["groups"]):

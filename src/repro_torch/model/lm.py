@@ -57,22 +57,13 @@ def check_supported(cfg: ArchConfig) -> None:
 # ---------------------------------------------------------------------------
 
 def build_specs(cfg: ArchConfig) -> list[AttnSpec]:
-    specs = []
-    for ch in cfg.layer_pattern:
-        if ch == "L":
-            specs.append(AttnSpec(window=cfg.sliding_window,
-                                  softcap=cfg.attn_logit_softcap,
-                                  rope_theta=cfg.rope_theta))
-        elif ch in ("G", "X", "H"):
-            # gemma3 uses a larger theta for its global layers
-            theta = cfg.rope_theta * (50 if cfg.name.startswith("gemma3")
-                                      else 1)
-            specs.append(AttnSpec(window=None,
-                                  softcap=cfg.attn_logit_softcap,
-                                  rope_theta=theta))
-        else:
-            specs.append(AttnSpec())
-    return specs
+    """One spec per position of ``cfg.layer_pattern``: L is windowed, G
+    global; ``check_supported`` raises for any other kind."""
+    check_supported(cfg)
+    return [AttnSpec(window=cfg.sliding_window if ch == "L" else None,
+                     softcap=cfg.attn_logit_softcap,
+                     rope_theta=cfg.rope_theta)
+            for ch in cfg.layer_pattern]
 
 
 # ---------------------------------------------------------------------------

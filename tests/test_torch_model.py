@@ -56,7 +56,7 @@ def _models(variant):
     jcfg, tcfg = _configs(variant)
     jparams = jlm.init_params(jcfg, jax.random.PRNGKey(0))
     tree = jax.tree.map(lambda a: np.asarray(a.astype(jnp.float32)), jparams)
-    return jcfg, jparams, tcfg, convert.from_jax_params(tree, tcfg)
+    return jcfg, jparams, tcfg, convert.from_jax_params(tree, tcfg, device="cpu")
 
 
 def test_convert_keeps_values_layouts_and_dtypes():

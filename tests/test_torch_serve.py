@@ -1,6 +1,7 @@
 """The port's serving entry point on the CPU: the same printed lines as
 ``repro.launch.serve``, no silent fallback to the CPU, and no kernel
 launches for CPU tensors."""
+import dataclasses
 import re
 import sys
 
@@ -16,7 +17,7 @@ from repro_torch import configs  # noqa: E402
 from repro_torch.kernels import burst_gather as bg  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
-from repro_torch.model import lm  # noqa: E402
+from repro_torch.model import convert, lm  # noqa: E402
 
 FLAGS = ["--reduced", "--batch", "2", "--prompt-len", "8", "--gen", "5"]
 LINES = [r"prefill 8 tokens x 2: \d+\.\d\ds",
@@ -45,6 +46,8 @@ def test_entry_points_raise_without_a_gpu(monkeypatch):
         lm.init_cache(params, cfg, 1, 8)
     with pytest.raises(RuntimeError):
         serve.main(FLAGS)
+    with pytest.raises(RuntimeError):
+        convert.from_jax_params({}, cfg)
 
 
 def test_cpu_generation_launches_no_kernel():
@@ -67,3 +70,11 @@ def test_cpu_generation_launches_no_kernel():
 def test_unported_archs_name_their_roadmap_item(name):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         configs.get(name)
+
+
+@pytest.mark.parametrize("pattern", ["GX", "GM", "R"])
+def test_layer_specs_refuse_unported_layer_kinds(pattern):
+    cfg = dataclasses.replace(configs.get_reduced("granite-8b"),
+                              layer_pattern=pattern)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        lm.build_specs(cfg)
