@@ -10,17 +10,23 @@ Phases, each printing its own lines:
    with nvcc for sm_90a.
 3. kernels: each kernel against its plain PyTorch version on the card, in
    bf16 (tolerance rtol = atol = 2e-2, as in tests/test_kernels.py; one f32
-   case at 2e-5), the gather exactly.
-4. reference: granite-8b-reduced on the card (kernels) against the same
-   weights on the CPU (plain versions), teacher-forced, atol 2e-2.
-5. serve: granite-8b at full width (random weights from seed 0), 4 prompts
-   of 512 tokens, greedy prefill then 32 decode steps through
-   ``repro_torch.launch.serve``; checks finite logits and the launch count
-   of every kernel on the path.
-6. cache: a second prefill over prompt + first generated token must give
-   the first decode step's logits: in bf16 to a relative L2 error of 5e-2,
-   then, after the kernel timings, with the weights widened to f32,
-   elementwise to rtol = atol = 1e-3 (see ``check_cache``).
+   case at 2e-5), the gather exactly.  The two scans at the serve shapes
+   (prefill from a zero state, decode at S = 1 from a random one), at
+   S = 33, at head size 16 and at odd and largest sizes: y at 2e-2 and the
+   f32 state at 3e-2 in bf16; one f32 case each, y at 2e-5 (2e-4 for
+   rwkv6, as in tests/test_kernels.py) and the state at 1e-4.
+4. reference: granite-8b-, zamba2-7b- and rwkv6-reduced on the card
+   (kernels) against the same weights on the CPU (plain versions),
+   teacher-forced, atol 2e-2.
+5. serve, for granite-8b, zamba2-7b and rwkv6-1.6b in turn, each at full
+   width and depth (random weights from seed 0): 4 prompts of 512 tokens,
+   greedy prefill then 32 decode steps through ``repro_torch.launch.serve``;
+   checks finite logits and the exact launch count of every kernel.
+6. cache, for each model: a second prefill over prompt + first generated
+   token must give the first decode step's logits: in bf16 to a relative
+   L2 error of 5e-2, then, with the weights widened to f32, elementwise to
+   rtol = atol = 1e-3 (see ``check_cache``).  For zamba2 and rwkv6 this
+   checks the carried conv, ssd, token-shift and wkv states.
 7. a JSON line with each kernel's launches, error, times and bound, then
    the result line.
 
@@ -45,17 +51,34 @@ from repro_torch import configs  # noqa: E402
 from repro_torch.kernels import _build, ref  # noqa: E402
 from repro_torch.kernels import burst_gather as bg  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import mamba2_scan as m2  # noqa: E402
+from repro_torch.kernels import rwkv6_scan as r6  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.model import lm  # noqa: E402
 
-#: H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, HBM3
+#: H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, f32
+#: outside the tensor cores, HBM3
 PEAK_BF16_FLOPS = 989e12
+PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 BF16_TOL = dict(rtol=2e-2, atol=2e-2)
 F32_TOL = dict(rtol=2e-5, atol=2e-5)
+#: the scans' final f32 state (tests/test_kernels.py), and rwkv6's y in f32
+STATE_BF16_TOL = dict(rtol=3e-2, atol=3e-2)
+STATE_F32_TOL = dict(rtol=1e-4, atol=1e-4)
+RWKV_F32_TOL = dict(rtol=2e-4, atol=2e-4)
+ARCHS = ("granite-8b", "zamba2-7b", "rwkv6-1.6b")
+#: kernel name -> wrapper, each counting its launches
+COUNTERS = {"flash_attention": fa.flash_attention,
+            "decode_attention": fa.decode_attention,
+            "burst_gather": bg.burst_gather,
+            "mamba2_scan": m2.mamba2_scan,
+            "rwkv6_scan": r6.rwkv6_scan}
 CACHE_F32_TOL = dict(rtol=1e-3, atol=1e-3)
 CACHE_BF16_REL_L2 = 5e-2
 B, PROMPT, GEN = 4, 512, 32
+#: clock cycles the card idles before each timed call (~0.1 ms at 2 GHz)
+SPIN_CYCLES = 200_000
 
 
 def _phase(msg):
@@ -166,10 +189,85 @@ def check_gather(table, gen):
             raise AssertionError(f"burst_gather[{name}] is not exact")
 
 
-def check_reference():
-    """granite-8b-reduced: kernels on the card vs plain versions on the
+def mamba2_inputs(gen, b, s, h, p, n, dtype=torch.bfloat16, state=True,
+                  strided=False):
+    """x, dt, A, B, C, state of the SSD scan; ``strided`` cuts x, B and C
+    out of one fused tensor, as the model does."""
+    if strided:
+        fused = _rand((b, s, h * p + 2 * n), gen, dtype)
+        x, Bm, Cm = torch.split(fused, [h * p, n, n], dim=-1)
+        x = x.unflatten(2, (h, p))
+    else:
+        x = _rand((b, s, h, p), gen, dtype)
+        Bm, Cm = _rand((b, s, n), gen, dtype), _rand((b, s, n), gen, dtype)
+    dt = torch.nn.functional.softplus(_rand((b, s, h), gen, torch.float32))
+    A = -torch.exp(_rand((h,), gen, torch.float32))
+    h0 = _rand((b, h, p, n), gen, torch.float32) if state else None
+    return x, dt, A, Bm, Cm, h0
+
+
+def rwkv6_inputs(gen, b, s, h, d, dtype=torch.bfloat16, state=True):
+    """r, k, v, w, u, state of the WKV scan, w = exp(-exp(normal))."""
+    r, k, v = (_rand((b, s, h, d), gen, dtype) for _ in range(3))
+    w = torch.exp(-torch.exp(_rand((b, s, h, d), gen, torch.float32)))
+    u = 0.3 * _rand((h, d), gen, torch.float32)
+    s0 = _rand((b, h, d, d), gen, torch.float32) if state else None
+    return r, k, v, w.to(dtype), u, s0
+
+
+#: (case, shape, dtype, initial state, strided x/B/C)
+MAMBA2_CASES = [
+    ("serve-prefill", (B, PROMPT, 112, 64, 64), torch.bfloat16, False, True),
+    ("serve-decode", (B, 1, 112, 64, 64), torch.bfloat16, True, True),
+    ("s33", (2, 33, 8, 64, 64), torch.bfloat16, True, False),
+    ("p16", (2, 40, 4, 16, 16), torch.bfloat16, True, True),
+    ("odd-p24-n40", (1, 17, 3, 24, 40), torch.bfloat16, True, False),
+    ("p128-n128", (1, 9, 2, 128, 128), torch.bfloat16, True, False),
+    ("f32", (2, 33, 4, 64, 64), torch.float32, True, False),
+]
+#: (case, shape, dtype, initial state)
+RWKV6_CASES = [
+    ("serve-prefill", (B, PROMPT, 32, 64), torch.bfloat16, False),
+    ("serve-decode", (B, 1, 32, 64), torch.bfloat16, True),
+    ("s33", (2, 33, 8, 64), torch.bfloat16, True),
+    ("d16", (2, 40, 4, 16), torch.bfloat16, True),
+    ("odd-d24", (1, 17, 3, 24), torch.bfloat16, True),
+    ("d128", (1, 9, 2, 128), torch.bfloat16, True),
+    ("f32", (2, 33, 4, 64), torch.float32, True),
+]
+
+
+def _check_scan(name, got, want, f32, y_tol):
+    errs = [_assert_close(f"{name} y", got[0], want[0],
+                          y_tol if f32 else BF16_TOL),
+            _assert_close(f"{name} state", got[1], want[1],
+                          STATE_F32_TOL if f32 else STATE_BF16_TOL)]
+    return max(errs)
+
+
+def check_scans(gen):
+    """Both scans against their plain versions; returns the max error of
+    each at its serve prefill shape."""
+    errs = {}
+    for case, shape, dtype, state, strided in MAMBA2_CASES:
+        args = mamba2_inputs(gen, *shape, dtype=dtype, state=state,
+                             strided=strided)
+        errs[f"mamba2_scan[{case}]"] = _check_scan(
+            f"mamba2_scan[{case}]", m2.mamba2_scan(*args),
+            ref.mamba2_scan_ref(*args), dtype == torch.float32, F32_TOL)
+    for case, shape, dtype, state in RWKV6_CASES:
+        args = rwkv6_inputs(gen, *shape, dtype=dtype, state=state)
+        errs[f"rwkv6_scan[{case}]"] = _check_scan(
+            f"rwkv6_scan[{case}]", r6.rwkv6_scan(*args),
+            ref.rwkv6_scan_ref(*args), dtype == torch.float32, RWKV_F32_TOL)
+    return (errs["mamba2_scan[serve-prefill]"],
+            errs["rwkv6_scan[serve-prefill]"])
+
+
+def check_reference(arch):
+    """The reduced model: kernels on the card vs plain versions on the
     CPU, same weights, teacher-forced prefill 24 + 8 decode steps."""
-    cfg = configs.get_reduced("granite-8b")
+    cfg = configs.get_reduced(arch)
     cpu = lm.init_params(cfg, seed=0, device="cpu")
     gpu = lm.LM(cfg, "cuda")
     gpu.load_state_dict(cpu.state_dict())
@@ -186,9 +284,9 @@ def check_reference():
         err = _max_err(got.cpu(), want)
         worst = max(worst, err)
         if err > 2e-2:
-            raise AssertionError(f"reduced model: card vs CPU logits differ "
+            raise AssertionError(f"{cfg.name}: card vs CPU logits differ "
                                  f"by {err:.3e} > 2e-2")
-    _phase(f"check granite-8b-reduced card vs cpu (teacher-forced, 9 steps):"
+    _phase(f"check {cfg.name} card vs cpu (teacher-forced, 9 steps):"
            f" max_abs_err={worst:.3e} (atol=2e-2) ok")
 
 
@@ -197,14 +295,16 @@ def check_cache(dtype, params, cfg, prompts, res):
     of the first decode step.  In f32 the two paths differ only by the
     order of sums, so the check is elementwise and tight (rtol = atol =
     1e-3); a wrong cache slot, position or kv_len moves logits by O(0.1).
-    In bf16 36 layers of rounding at other GEMM shapes leave ~0.1 max abs
-    on logits of max ~6 for the plain versions too, so the 5e-2 of
-    tests/test_models_smoke.py bounds the relative L2 error instead."""
+    In bf16 granite-8b's 36 layers of rounding at other GEMM shapes leave
+    ~0.1 max abs on logits of max ~6 for the plain versions too, so the
+    5e-2 of tests/test_models_smoke.py bounds the relative L2 error
+    instead."""
     again = serve.generate(params, cfg,
                            torch.cat([prompts, res.tokens[:, :1]], 1), 0)
     got, want = again.logits[0].float(), res.logits[1].float()
     rel = float((got - want).norm() / want.norm())
-    name = f"cache ({dtype}): prefill of prompt+1 vs first decode step"
+    name = (f"cache {cfg.name} ({dtype}): prefill of prompt+1 vs first "
+            f"decode step")
     if dtype == "f32":
         _assert_close(name, got, want, CACHE_F32_TOL)
         return
@@ -217,11 +317,19 @@ def check_cache(dtype, params, cfg, prompts, res):
 
 
 def time_ms(fn, flush, reps=25):
-    """Median device time of one call, with L2 flushed before each."""
+    """Median device time of one call, with L2 flushed before each.
+
+    Before each call the card spins for ``SPIN_CYCLES`` (~0.1 ms), so the
+    host has enqueued the call, and its end event, before the card reaches
+    them: the events then time the call's kernels and not the host's
+    issuing of them, which for a wrapper around one short kernel is the
+    larger part.  A Python loop of launches, as the plain scans are, takes
+    longer to issue than the spin lasts, and its time stays its host's."""
     fn()
     times = []
     for _ in range(reps):
         flush.zero_()
+        torch.cuda._sleep(SPIN_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -246,9 +354,23 @@ def bound(flops, nbytes):
             "operations" if t_ops > t_bytes else "bytes")
 
 
-def kernel_line(params, prompts, launches, errs):
-    gen = torch.Generator(device="cuda").manual_seed(11)
-    flush = torch.empty(64 << 20, dtype=torch.int8, device="cuda")
+def _row(name, replaces, err, ms, plain, lib, bound_ms, bound_by):
+    """A row of the kernels line; ``main`` fills in its launches."""
+    return {"name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{SOURCE[name]}",
+            "replaces": replaces, "launches": None, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain, "library_ms": lib,
+            "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+SOURCE = {"flash_attention": "flash_attention.cu",
+          "decode_attention": "flash_attention.cu",
+          "burst_gather": "burst_gather.cu",
+          "mamba2_scan": "mamba2_scan.cu", "rwkv6_scan": "rwkv6_scan.cu"}
+
+
+def granite_rows(table, prompts, errs, flush, gen):
+    """The attention and gather rows, at granite-8b's serve shapes."""
     Hq, Hkv, D = 32, 8, 128
     rows = []
 
@@ -260,7 +382,7 @@ def kernel_line(params, prompts, launches, errs):
         time_ms(lambda: ref.attention_ref(q, k, v), flush)
     lib = time_ms(_sdpa(qt, kt, vt, is_causal=True), flush)
     rows.append(("flash_attention", "src/repro/kernels/flash_attention.py:90",
-                 launches["flash_attention"], errs[0], ms, plain, lib,
+                 errs[0], ms, plain, lib,
                  *bound(4 * pairs * D, 2 * (2 * q.numel() + 2 * k.numel()))))
 
     S = PROMPT + GEN
@@ -273,11 +395,11 @@ def kernel_line(params, prompts, launches, errs):
     lib = time_ms(_sdpa(qt, kt, vt), flush)
     rows.append(("decode_attention",
                  "src/repro/kernels/flash_attention.py:149",
-                 launches["decode_attention"], errs[1], ms, plain, lib,
+                 errs[1], ms, plain, lib,
                  *bound(4 * B * Hq * S * D,
                         2 * (2 * q.numel() + 2 * k.numel()))))
 
-    table, idx = params.embed, prompts.reshape(-1)
+    idx = prompts.reshape(-1)
     row_bytes = table.shape[1] * table.element_size()
     nbytes = row_bytes * (idx.unique().numel() + idx.numel()) + 4 * idx.numel()
     ms = time_ms(lambda: bg.burst_gather(table, idx), flush)
@@ -286,21 +408,112 @@ def kernel_line(params, prompts, launches, errs):
     err = _max_err(bg.burst_gather(table, idx),
                    ref.burst_gather_ref(table, idx))
     rows.append(("burst_gather", "src/repro/kernels/burst_gather.py:59",
-                 launches["burst_gather"], err, ms, plain, lib,
+                 err, ms, plain, lib,
                  *bound(0, nbytes)))
 
-    keys = ("name", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
-            "library_ms", "bound_ms", "bound_by")
-    source = {"flash_attention": "flash_attention.cu",
-              "decode_attention": "flash_attention.cu",
-              "burst_gather": "burst_gather.cu"}
-    out = []
-    for row in rows:
-        d = dict(zip(keys, row, strict=True))
-        d.update(route="cuda", source="src/repro_torch/kernels/csrc/"
-                 + source[d["name"]])
-        out.append(d)
-    return out
+    return [_row(*r) for r in rows]
+
+
+def _nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors
+               if t is not None)
+
+
+def scan_rows(errs, flush, gen):
+    """The two scans at their serve shapes: the row's times are the
+    prefill's (S = 512 from a zero state); a phase line gives the decode
+    step's (S = 1 from a random state) and the f32 FMA floor of the
+    sequential recurrence.  Bytes count each input read once and each
+    output written once; operations are the recurrence's f32 FLOPs, 5 per
+    state element and step for mamba2, 7 for rwkv6."""
+    rows = []
+    cases = {
+        "mamba2_scan": (m2.mamba2_scan, ref.mamba2_scan_ref,
+                        lambda S, st: mamba2_inputs(gen, B, S, 112, 64, 64,
+                                                    state=st),
+                        lambda a: 5 * a[0].numel() * a[3].shape[-1],
+                        "src/repro/kernels/mamba2_scan.py:71"),
+        "rwkv6_scan": (r6.rwkv6_scan, ref.rwkv6_scan_ref,
+                       lambda S, st: rwkv6_inputs(gen, B, S, 32, 64,
+                                                  state=st),
+                       lambda a: 7 * a[0].numel() * a[0].shape[-1],
+                       "src/repro/kernels/rwkv6_scan.py:76"),
+    }
+    for name, (kernel, plain_fn, inputs, flops, replaces) in cases.items():
+        timed = {}
+        for phase, S, state in (("prefill", PROMPT, False), ("decode", 1,
+                                                              True)):
+            args = inputs(S, state)
+            y, st = kernel(*args)
+            nbytes = _nbytes(*args, y, st)
+            timed[phase] = (time_ms(lambda: kernel(*args), flush),
+                            time_ms(lambda: plain_fn(*args), flush, reps=5),
+                            *bound(flops(args), nbytes),
+                            flops(args) / PEAK_F32_FLOPS * 1e3, nbytes)
+        for phase, (ms, plain, b_ms, b_by, f32_ms, nbytes) in timed.items():
+            _phase(f"time {name}[{phase}]: {ms:.4f} ms, plain {plain:.3f} "
+                   f"ms, bound {b_ms:.4f} ms ({b_by}; {nbytes / 1e6:.1f} "
+                   f"MB), f32 FMA floor {f32_ms:.4f} ms")
+        ms, plain, b_ms, b_by, _, _ = timed["prefill"]
+        rows.append(_row(name, replaces, errs[name], ms, plain, None, b_ms,
+                         b_by))
+    return rows
+
+
+def _params_b(params):
+    return sum(p.numel() for p in params.parameters()) / 1e9
+
+
+def serve_phase(arch, gen):
+    """Serve ``arch`` at full width and depth; check the launch counts,
+    the logits and the bf16 cache.  Returns (params, prompts, launches),
+    the params still in bf16."""
+    cfg = configs.get(arch)
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    _phase(f"init {arch}: {_params_b(params):.2f} B params, "
+           f"{time.perf_counter() - t0:.1f}s")
+    if arch == "granite-8b":
+        check_gather(params.embed, gen)
+
+    prompts = serve.make_prompts(cfg, B, PROMPT, "cuda")
+    for fn in COUNTERS.values():
+        fn.launches = 0
+    res = serve.generate(params, cfg, prompts, GEN)
+    launches = {n: fn.launches for n, fn in COUNTERS.items()}
+    kinds = [cfg.layer_pattern[i % len(cfg.layer_pattern)]
+             for i in range(cfg.n_layers)]
+    n_attn = sum(k in "GLH" for k in kinds)
+    want = {"flash_attention": n_attn,
+            "decode_attention": n_attn * GEN,
+            "burst_gather": 1 + GEN,
+            "mamba2_scan": sum(k in "MH" for k in kinds) * (1 + GEN),
+            "rwkv6_scan": kinds.count("R") * (1 + GEN)}
+    _phase(f"serve {arch} on {torch.cuda.get_device_name(0)}: "
+           f"{_params_b(params):.2f} B params, {cfg.n_layers} layers, "
+           f"d_model {cfg.d_model}: prefill {PROMPT} tokens x {B}: "
+           f"{res.prefill_s:.3f}s; decoded {GEN} x {B} tokens in "
+           f"{res.decode_s:.3f}s ({GEN * B / res.decode_s:.1f} tok/s); "
+           f"launches {launches}")
+    _phase(f"sample token ids: {res.tokens[0, :12].tolist()}")
+    if launches != want:
+        raise AssertionError(f"{arch}: launch counts {launches}, want {want}")
+    if tuple(res.logits.shape) != (GEN + 1, B, cfg.vocab_padded) or \
+            not bool(torch.isfinite(res.logits.float()).all()):
+        raise AssertionError(f"serve {arch}: logits not finite or of the "
+                             f"wrong shape")
+    check_cache("bf16", params, cfg, prompts, res)
+    return params, prompts, launches
+
+
+def check_cache_f32(params, arch, prompts):
+    """The f32 cache check; widens ``params`` in place."""
+    cfg = configs.get(arch)
+    params.to(torch.float32)
+    torch.cuda.empty_cache()
+    check_cache("f32", params, cfg, prompts,
+                serve.generate(params, cfg, prompts, 1))
 
 
 def main() -> int:
@@ -322,44 +535,26 @@ def main() -> int:
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     errs = check_attention(gen)
-    check_reference()
+    scan_errs = check_scans(gen)
+    for arch in ARCHS:
+        check_reference(arch)
 
-    cfg = configs.get("granite-8b")
-    t0 = time.perf_counter()
-    params = lm.init_params(cfg, seed=0, device="cuda")
-    torch.cuda.synchronize()
-    _phase(f"init granite-8b: {cfg.param_count() / 1e9:.2f} B params, "
-           f"{time.perf_counter() - t0:.1f}s")
-    check_gather(params.embed, gen)
-
-    prompts = serve.make_prompts(cfg, B, PROMPT, "cuda")
-    counters = {"flash_attention": fa.flash_attention,
-                "decode_attention": fa.decode_attention,
-                "burst_gather": bg.burst_gather}
-    for fn in counters.values():
-        fn.launches = 0
-    res = serve.generate(params, cfg, prompts, GEN)
-    launches = {n: fn.launches for n, fn in counters.items()}
-    want = {"flash_attention": cfg.n_layers,
-            "decode_attention": cfg.n_layers * GEN,
-            "burst_gather": 1 + GEN}
-    _phase(f"serve granite-8b on {name}: prefill {PROMPT} tokens x {B}: "
-           f"{res.prefill_s:.3f}s; decoded {GEN} x {B} tokens in "
-           f"{res.decode_s:.3f}s ({GEN * B / res.decode_s:.1f} tok/s); "
-           f"launches {launches}")
-    _phase(f"sample token ids: {res.tokens[0, :12].tolist()}")
-    if launches != want:
-        raise AssertionError(f"launch counts {launches}, want {want}")
-    if tuple(res.logits.shape) != (GEN + 1, B, cfg.vocab_padded) or \
-            not bool(torch.isfinite(res.logits.float()).all()):
-        raise AssertionError("serve: logits not finite or of the wrong shape")
-
-    check_cache("bf16", params, cfg, prompts, res)
-    kernels = kernel_line(params, prompts, launches, errs)
-    params.to(torch.float32)
-    torch.cuda.empty_cache()
-    check_cache("f32", params, cfg, prompts,
-                serve.generate(params, cfg, prompts, 1))
+    flush = torch.empty(64 << 20, dtype=torch.int8, device="cuda")
+    tgen = torch.Generator(device="cuda").manual_seed(11)
+    kernels, launches = [], dict.fromkeys(COUNTERS, 0)
+    for arch in ARCHS:
+        params, prompts, counted = serve_phase(arch, gen)
+        launches = {n: launches[n] + counted[n] for n in COUNTERS}
+        if arch == "granite-8b":
+            kernels += granite_rows(params.embed, prompts, errs, flush, tgen)
+        check_cache_f32(params, arch, prompts)
+        del params
+        torch.cuda.empty_cache()
+    kernels += scan_rows(dict(zip(("mamba2_scan", "rwkv6_scan"), scan_errs)),
+                         flush, tgen)
+    # each kernel's launches, summed over the three serve runs
+    for row in kernels:
+        row["launches"] = launches[row["name"]]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

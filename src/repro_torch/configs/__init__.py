@@ -11,16 +11,15 @@ import importlib
 
 from .base import ArchConfig
 
-ARCHS = ["granite-8b"]
+ARCHS = ["granite-8b", "zamba2-7b", "rwkv6-1.6b"]
 
-_MODULES = {"granite-8b": "granite_8b"}
+_MODULES = {"granite-8b": "granite_8b", "zamba2-7b": "zamba2_7b",
+            "rwkv6-1.6b": "rwkv6_1p6b"}
 
 #: architecture -> the ROADMAP port-queue item that brings it
 _PENDING = {
-    "zamba2-7b": "port queue item 3 (mamba2_scan and the M/H blocks)",
-    "rwkv6-1.6b": "port queue item 4 (rwkv6_scan and the R blocks)",
-    "granite-moe-3b-a800m": "port queue item 5 (moe_gmm and the MoE blocks)",
-    "arctic-480b": "port queue item 5 (moe_gmm and the MoE blocks)",
+    "granite-moe-3b-a800m": "port queue item 4 (moe_gmm and the MoE blocks)",
+    "arctic-480b": "port queue item 4 (moe_gmm and the MoE blocks)",
     "gemma2-27b": "port queue item 6 (the other attention families)",
     "gemma3-12b": "port queue item 6 (the other attention families)",
     "chatglm3-6b": "port queue item 6 (the other attention families)",

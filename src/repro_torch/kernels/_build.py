@@ -20,7 +20,7 @@ from pathlib import Path
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("flash_attention", "burst_gather")
+SOURCES = ("flash_attention", "burst_gather", "mamba2_scan", "rwkv6_scan")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC")
 
@@ -35,6 +35,12 @@ _SIGNATURES = {
     },
     "burst_gather": {
         "burst_gather_fwd": [_P, _P, _P, _LL, _LL, _LL, _P],
+    },
+    "mamba2_scan": {
+        "mamba2_scan_fwd": [_P] * 8 + [_I] * 5 + [_LL] * 7 + [_I, _P],
+    },
+    "rwkv6_scan": {
+        "rwkv6_scan_fwd": [_P] * 8 + [_I] * 5 + [_P],
     },
 }
 

@@ -9,6 +9,8 @@ from __future__ import annotations
 
 from . import burst_gather as _bg
 from . import flash_attention as _fa
+from . import mamba2_scan as _m2
+from . import rwkv6_scan as _r6
 
 
 def attention(q, k, v, *, causal=True, window=None, softcap=None, scale=None,
@@ -18,6 +20,14 @@ def attention(q, k, v, *, causal=True, window=None, softcap=None, scale=None,
     fn = _fa.flash_attention if q.shape[1] > 1 else _fa.decode_attention
     return fn(q, k, v, causal=causal, window=window, softcap=softcap,
               scale=scale, q_offset=q_offset, kv_len=kv_len)
+
+
+def mamba2_scan(x, dt, A, B, C, state=None):
+    return _m2.mamba2_scan(x, dt, A, B, C, state)
+
+
+def rwkv6_scan(r, k, v, w, u, state=None):
+    return _r6.rwkv6_scan(r, k, v, w, u, state)
 
 
 def burst_gather(table, idx):

@@ -1,11 +1,12 @@
 """Where the serving path's device time goes, by kernel, on one GPU.
 
-  PYTHONPATH=src python -m repro_torch.launch.profile_serve
+  PYTHONPATH=src python -m repro_torch.launch.profile_serve [--arch ARCH]
 
-Runs granite-8b at full width, at ``chip_smoke.py``'s serve shapes (B=4
-prompts of 512 tokens), under ``torch.profiler``: one greedy prefill and
-four decode steps, after an untraced warm-up of the same shapes. For the
-prefill and for the decode steps it prints:
+Runs one architecture (default granite-8b) at full width and depth, at
+``chip_smoke.py``'s serve shapes (B=4 prompts of 512 tokens), under
+``torch.profiler``: one greedy prefill and four decode steps, after an
+untraced warm-up of the same shapes. For the prefill and for the decode
+steps it prints:
 
 - the wall time;
 - the device-busy share;
@@ -15,6 +16,7 @@ It needs a CUDA device.
 """
 from __future__ import annotations
 
+import argparse
 import time
 
 import torch
@@ -57,9 +59,12 @@ def _traced(fn):
     return prof, wall
 
 
-def main():
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="granite-8b", choices=configs.ARCHS)
+    args = ap.parse_args(argv)
     device = lm.resolve_device("cuda")
-    cfg = configs.get("granite-8b")
+    cfg = configs.get(args.arch)
     params = lm.init_params(cfg, seed=0, device=device)
     prompts = serve.make_prompts(cfg, B, PROMPT, device)
     max_seq = PROMPT + 2 * STEPS
@@ -76,7 +81,7 @@ def main():
             tok = torch.argmax(state["logits"], -1)[:, None].to(torch.int32)
             state["logits"], _ = lm.step(params, cfg, cache, tok)
 
-    print(torch.cuda.get_device_name(0))
+    print(f"{cfg.name} on {torch.cuda.get_device_name(0)}")
     _report(f"prefill {PROMPT} x {B}", *_traced(prefill))
     _report(f"decode {STEPS} steps x {B}", *_traced(decode))
 

@@ -13,9 +13,12 @@ from repro_torch.configs.base import ArchConfig
 from .lm import LM, resolve_device
 
 
-def _flatten(tree: dict, prefix: str = ""):
-    for key, value in tree.items():
-        if isinstance(value, dict):
+def _flatten(tree, prefix: str = ""):
+    """(dotted name, leaf) for every leaf of nested dicts and lists; list
+    entries are named by their index, as ``nn.ModuleList`` names them."""
+    items = tree.items() if isinstance(tree, dict) else enumerate(tree)
+    for key, value in items:
+        if isinstance(value, (dict, list)):
             yield from _flatten(value, f"{prefix}{key}.")
         else:
             yield f"{prefix}{key}", value
@@ -28,7 +31,8 @@ def from_jax_params(tree: dict, cfg: ArchConfig, device="cuda") -> LM:
     The stacked ``groups`` leaves (leading ``n_groups`` axis, one list entry
     per position in ``cfg.layer_pattern``) are split into per-layer
     tensors: layer ``n * len(pattern) + i`` takes ``groups[i][...][n]``.
-    Weights keep their ``(d_in, d_out)`` layouts and their dtypes: bf16
+    Other lists (zamba2's ``shared`` blocks) are indexed by position:
+    ``shared[1]["attn"]["wq"]`` becomes ``shared.1.attn.wq``.  Weights keep their ``(d_in, d_out)`` layouts and their dtypes: bf16
     weights stay bf16 and f32 norm weights f32.  Leaves may be numpy arrays
     of any float dtype (bf16 leaves can come as float32: the widening and
     the cast back are exact).  ``device`` defaults to the card; with no

@@ -29,6 +29,11 @@ def _weight(shape, device) -> nn.Parameter:
                         requires_grad=False)
 
 
+def _f32(shape, device) -> nn.Parameter:
+    return nn.Parameter(torch.empty(shape, dtype=torch.float32,
+                                    device=device), requires_grad=False)
+
+
 # ---------------------------------------------------------------------------
 # RMSNorm
 # ---------------------------------------------------------------------------
@@ -48,6 +53,22 @@ class RMSNorm(nn.Module):
 
     def forward(self, x):
         return rmsnorm(x, self.w)
+
+
+# ---------------------------------------------------------------------------
+# activations, with the reference's rounding
+# ---------------------------------------------------------------------------
+
+def sigmoid(x):
+    """``jax.nn.sigmoid``'s op graph, 1 / (1 + exp(-x)), each op rounding
+    in x's dtype.  ``torch.sigmoid`` rounds once; in bf16 that alone moves
+    the reduced zamba2's logits by up to 1e-2 against the JAX package."""
+    return 1 / (1 + torch.exp(-x))
+
+
+def silu(x):
+    """``jax.nn.silu``: x * sigmoid(x), rounding as ``sigmoid``."""
+    return x * sigmoid(x)
 
 
 # ---------------------------------------------------------------------------
@@ -200,7 +221,7 @@ class MLP(nn.Module):
             self.w_gate = _weight((cfg.d_model, d_ff), device)
 
     def forward(self, x, cfg: ArchConfig):
-        act = F.silu if cfg.mlp_act == "silu" else \
+        act = silu if cfg.mlp_act == "silu" else \
             (lambda a: F.gelu(a, approximate="tanh"))
         up = x @ self.w_up
         if cfg.gated_mlp:

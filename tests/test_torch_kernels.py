@@ -24,7 +24,9 @@ from repro.kernels.flash_attention import (  # noqa: E402
     decode_attention as jax_decode, flash_attention as jax_flash)
 from repro_torch.kernels import burst_gather as bg  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import mamba2_scan as m2  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.kernels import rwkv6_scan as r6  # noqa: E402
 
 TOL = {"float32": dict(rtol=2e-5, atol=2e-5),
        "bfloat16": dict(rtol=2e-2, atol=2e-2)}
@@ -204,6 +206,15 @@ def test_wrappers_do_not_fall_back_off_the_cpu():
     with pytest.raises(ValueError):
         bg.burst_gather(torch.empty((8, 4), device="meta"),
                         torch.zeros(3, dtype=torch.int32))
+    with pytest.raises(ValueError):
+        m2.mamba2_scan(q, torch.empty((1, 4, 2), device="meta"),
+                       torch.empty((2,), device="meta"),
+                       torch.empty((1, 4, 8), device="meta"),
+                       torch.empty((1, 4, 8), device="meta"))
+    with pytest.raises(ValueError):
+        r6.rwkv6_scan(q, q, q, q, torch.empty((2, 16), device="meta"))
     assert fa.flash_attention.launches == 0
     assert fa.decode_attention.launches == 0
     assert bg.burst_gather.launches == 0
+    assert m2.mamba2_scan.launches == 0
+    assert r6.rwkv6_scan.launches == 0

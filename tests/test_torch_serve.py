@@ -16,6 +16,8 @@ from repro.launch import serve as jserve  # noqa: E402
 from repro_torch import configs  # noqa: E402
 from repro_torch.kernels import burst_gather as bg  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import mamba2_scan as m2  # noqa: E402
+from repro_torch.kernels import rwkv6_scan as r6  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.model import convert, lm  # noqa: E402
 
@@ -25,15 +27,25 @@ LINES = [r"prefill 8 tokens x 2: \d+\.\d\ds",
          r"sample token ids: \[(\d+, ){4}\d+\]"]
 
 
-def test_serve_prints_the_lines_of_the_jax_entry_point(capsys, monkeypatch):
-    monkeypatch.setattr(sys, "argv", ["serve", *FLAGS])
+def _same_lines_as_jax(capsys, monkeypatch, flags):
+    monkeypatch.setattr(sys, "argv", ["serve", *flags])
     jserve.main()
     jax_lines = capsys.readouterr().out.splitlines()
-    serve.main([*FLAGS, "--device", "cpu"])
+    serve.main([*flags, "--device", "cpu"])
     lines = capsys.readouterr().out.splitlines()
     for got, want, pattern in zip(lines, jax_lines, LINES, strict=True):
         assert re.fullmatch(pattern, want), want
         assert re.fullmatch(pattern, got), got
+
+
+def test_serve_prints_the_lines_of_the_jax_entry_point(capsys, monkeypatch):
+    _same_lines_as_jax(capsys, monkeypatch, FLAGS)
+
+
+@pytest.mark.parametrize("arch", ["zamba2-7b", "rwkv6-1.6b"])
+def test_serve_prints_the_lines_of_the_jax_entry_point_for_ssm_archs(
+        capsys, monkeypatch, arch):
+    _same_lines_as_jax(capsys, monkeypatch, ["--arch", arch, *FLAGS])
 
 
 def test_entry_points_raise_without_a_gpu(monkeypatch):
@@ -50,10 +62,14 @@ def test_entry_points_raise_without_a_gpu(monkeypatch):
         convert.from_jax_params({}, cfg)
 
 
-def test_cpu_generation_launches_no_kernel():
-    for fn in (fa.flash_attention, fa.decode_attention, bg.burst_gather):
+KERNELS = (fa.flash_attention, fa.decode_attention, bg.burst_gather,
+           m2.mamba2_scan, r6.rwkv6_scan)
+
+
+def _generate_launches_no_kernel(arch):
+    for fn in KERNELS:
         fn.launches = 0
-    cfg = configs.get_reduced("granite-8b")
+    cfg = configs.get_reduced(arch)
     params = lm.init_params(cfg, seed=3, device="cpu")
     prompts = serve.make_prompts(cfg, 2, 8, "cpu")
     res = serve.generate(params, cfg, prompts, 4)
@@ -61,18 +77,26 @@ def test_cpu_generation_launches_no_kernel():
     assert res.logits.shape == (5, 2, cfg.vocab_padded)
     assert torch.isfinite(res.logits.float()).all()
     assert int(res.tokens.max()) < cfg.vocab
-    assert (fa.flash_attention.launches, fa.decode_attention.launches,
-            bg.burst_gather.launches) == (0, 0, 0)
+    assert [fn.launches for fn in KERNELS] == [0] * len(KERNELS)
 
 
-@pytest.mark.parametrize("name", ["zamba2-7b", "rwkv6-1.6b", "arctic-480b",
-                                  "gemma2-27b"])
+def test_cpu_generation_launches_no_kernel():
+    _generate_launches_no_kernel("granite-8b")
+
+
+@pytest.mark.parametrize("arch", ["zamba2-7b", "rwkv6-1.6b"])
+def test_cpu_generation_of_ssm_archs_launches_no_kernel(arch):
+    _generate_launches_no_kernel(arch)
+
+
+@pytest.mark.parametrize("name", ["granite-moe-3b-a800m", "chatglm3-6b",
+                                  "arctic-480b", "gemma2-27b"])
 def test_unported_archs_name_their_roadmap_item(name):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         configs.get(name)
 
 
-@pytest.mark.parametrize("pattern", ["GX", "GM", "R"])
+@pytest.mark.parametrize("pattern", ["GX", "XG", "LX"])
 def test_layer_specs_refuse_unported_layer_kinds(pattern):
     cfg = dataclasses.replace(configs.get_reduced("granite-8b"),
                               layer_pattern=pattern)
