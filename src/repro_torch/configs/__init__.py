@@ -11,15 +11,16 @@ import importlib
 
 from .base import ArchConfig
 
-ARCHS = ["granite-8b", "zamba2-7b", "rwkv6-1.6b"]
+ARCHS = ["granite-8b", "zamba2-7b", "rwkv6-1.6b", "granite-moe-3b-a800m",
+         "arctic-480b"]
 
 _MODULES = {"granite-8b": "granite_8b", "zamba2-7b": "zamba2_7b",
-            "rwkv6-1.6b": "rwkv6_1p6b"}
+            "rwkv6-1.6b": "rwkv6_1p6b",
+            "granite-moe-3b-a800m": "granite_moe_3b",
+            "arctic-480b": "arctic_480b"}
 
 #: architecture -> the ROADMAP port-queue item that brings it
 _PENDING = {
-    "granite-moe-3b-a800m": "port queue item 4 (moe_gmm and the MoE blocks)",
-    "arctic-480b": "port queue item 4 (moe_gmm and the MoE blocks)",
     "gemma2-27b": "port queue item 6 (the other attention families)",
     "gemma3-12b": "port queue item 6 (the other attention families)",
     "chatglm3-6b": "port queue item 6 (the other attention families)",

@@ -20,7 +20,8 @@ from pathlib import Path
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("flash_attention", "burst_gather", "mamba2_scan", "rwkv6_scan")
+SOURCES = ("flash_attention", "burst_gather", "mamba2_scan", "rwkv6_scan",
+           "moe_gmm")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC")
 
@@ -41,6 +42,9 @@ _SIGNATURES = {
     },
     "rwkv6_scan": {
         "rwkv6_scan_fwd": [_P] * 8 + [_I] * 5 + [_P],
+    },
+    "moe_gmm": {
+        "moe_gmm_fwd": [_P] * 7 + [_I] * 5 + [_P],
     },
 }
 

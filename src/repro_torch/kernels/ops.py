@@ -10,6 +10,7 @@ from __future__ import annotations
 from . import burst_gather as _bg
 from . import flash_attention as _fa
 from . import mamba2_scan as _m2
+from . import moe_gmm as _gmm
 from . import rwkv6_scan as _r6
 
 
@@ -32,3 +33,7 @@ def rwkv6_scan(r, k, v, w, u, state=None):
 
 def burst_gather(table, idx):
     return _bg.burst_gather(table, idx)
+
+
+def moe_gmm(x, w, group_ids):
+    return _gmm.moe_gmm(x, w, group_ids)

@@ -1,8 +1,8 @@
 """Plain PyTorch versions of the kernels on the serving path.
 
 Counterpart of ``repro/kernels/ref.py`` (``attention_ref``,
-``mamba2_scan_ref``, ``rwkv6_scan_ref``, ``burst_gather_ref``), with the
-same signatures and layouts.  They are the
+``mamba2_scan_ref``, ``rwkv6_scan_ref``, ``burst_gather_ref``,
+``moe_gmm_ref``), with the same signatures and layouts.  They are the
 semantics contract: the CUDA kernels in ``csrc/`` are held to them on the
 card, and the wrappers run them for tensors that lie on the CPU.
 """
@@ -129,3 +129,23 @@ def burst_gather_ref(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     token ids below the vocabulary size.
     """
     return torch.index_select(table, 0, idx)
+
+
+def moe_gmm_ref(x: torch.Tensor, w: torch.Tensor,
+                group_ids: torch.Tensor) -> torch.Tensor:
+    """Grouped matmul: row i of the output is ``x[i] @ w[group_ids[i]]``.
+
+    x: (T, K); w: (E, K, N); group_ids: (T,) integer, in any order ->
+    (T, N) in x.dtype, accumulated in f32.  A row whose id lies outside
+    [0, E) is zero, as ``one_hot`` makes it in the JAX reference.  Written
+    as a loop over the experts present: the reference's one-hot einsum
+    would be T x E x K x N.
+    """
+    T = x.shape[0]
+    E, _, N = w.shape
+    ids = group_ids.to(torch.int64)
+    out = torch.zeros((T, N), dtype=torch.float32, device=x.device)
+    for e in torch.unique(ids[(ids >= 0) & (ids < E)]).tolist():
+        rows = torch.nonzero(ids == e).squeeze(1)
+        out[rows] = x[rows].float() @ w[e].float()
+    return out.to(x.dtype)

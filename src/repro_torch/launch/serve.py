@@ -2,9 +2,9 @@
 with the KV cache.
 
 Counterpart of ``repro/launch/serve.py``, with the same flags and printed
-lines, plus ``--device`` (default ``cuda``).  On the card every attention
-and embedding lookup runs through the hand-written CUDA kernels; with
-``--device cpu`` the plain PyTorch versions run instead.
+lines, plus ``--device`` (default ``cuda``).  On the card every attention,
+scan, expert FFN and embedding lookup runs through the hand-written CUDA
+kernels; with ``--device cpu`` the plain PyTorch versions run instead.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-8b
   PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu

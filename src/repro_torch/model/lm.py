@@ -8,10 +8,12 @@ today:
   M  mamba2 block                  H  mamba2 + shared attention (zamba2)
   R  rwkv6 block (time-mix + channel-mix)
 
-The JAX package scans over stacked group params; here the layers are an
-``nn.ModuleList`` walked by a Python loop, run eagerly.  The X kind, MoE,
-encoders and the features of the other families raise
-``NotImplementedError`` naming the ROADMAP item that brings them.
+A G or L layer's FFN is the MLP or, with ``cfg.n_experts``, the MoE (plus
+the MLP as arctic's dense residual).  The JAX package scans over stacked
+group params; here the layers are an ``nn.ModuleList`` walked by a Python
+loop, run eagerly.  The X kind, encoders and the features of the other
+families raise ``NotImplementedError`` naming the ROADMAP item that
+brings them.
 """
 from __future__ import annotations
 
@@ -23,6 +25,7 @@ from repro_torch.kernels import ops
 from .layers import (MLP, PDTYPE, Attention, AttnSpec, RMSNorm, _weight,
                      attn_cache_init, rope_dim, rope_tables)
 from .mamba2 import Mamba2, mamba2_cache_init
+from .moe import MoE
 from .rwkv6 import RWKV6, rwkv6_cache_init
 
 
@@ -40,7 +43,6 @@ def check_supported(cfg: ArchConfig) -> None:
     """Raise ``NotImplementedError`` for what the port does not serve yet."""
     pattern = set(cfg.layer_pattern)
     checks = [
-        (cfg.n_experts, "MoE blocks", 4),
         ("X" in pattern or cfg.n_enc_layers or cfg.cross_attn_period
          or cfg.frontend_tokens, "cross-attention, encoders, frontends", 6),
         (cfg.post_norms or cfg.final_logit_softcap
@@ -86,20 +88,35 @@ def shared_indices(cfg: ArchConfig) -> list[int]:
 # ---------------------------------------------------------------------------
 
 class Block(nn.Module):
-    """A G or L layer: pre-norm attention and pre-norm MLP, residual."""
+    """A G or L layer: pre-norm attention and a pre-norm FFN, residual.
+    The FFN is the MLP, or with ``cfg.n_experts`` the MoE, plus the MLP
+    under ``cfg.dense_residual`` (arctic)."""
 
     def __init__(self, cfg: ArchConfig, device):
         super().__init__()
         self.ln_attn = RMSNorm(cfg.d_model, device)
         self.attn = Attention(cfg, device)
         self.ln_mlp = RMSNorm(cfg.d_model, device)
-        self.mlp = MLP(cfg, device)
+        if cfg.n_experts:
+            self.moe = MoE(cfg, device)
+        if not cfg.n_experts or cfg.dense_residual:
+            self.mlp = MLP(cfg, device)
+
+    def ffn(self, h, cfg: ArchConfig):
+        """The JAX package's ``_ffn``.  Serving drops the MoE's aux loss,
+        as ``repro.model.lm.step`` does."""
+        if not cfg.n_experts:
+            return self.mlp(h, cfg)
+        y, _ = self.moe(h, cfg)
+        if cfg.dense_residual:
+            y = y + self.mlp(h, cfg)
+        return y
 
     def forward(self, x, cfg: ArchConfig, spec: AttnSpec, rope, *,
                 cache=None, pos: int = 0):
         x = x + self.attn(self.ln_attn(x), cfg, spec, rope, cache=cache,
                           pos=pos)
-        return x + self.mlp(self.ln_mlp(x), cfg)
+        return x + self.ffn(self.ln_mlp(x), cfg)
 
 
 class MambaBlock(nn.Module):
@@ -201,7 +218,7 @@ class LM(nn.Module):
 
 #: std of the normal draw where it is not 1/sqrt(fan_in), as in the JAX
 #: package's init
-_STD = {"embed": 0.02, "conv_w": 0.2, "w_B": 0.01, "u": 0.3}
+_STD = {"embed": 0.02, "conv_w": 0.2, "w_B": 0.01, "u": 0.3, "router": 0.02}
 #: constant parameters: norm weights and mamba2's skip D are ones, the
 #: mamba2 dt bias zeros, the rwkv6 decay base -6
 _CONST = {"w": 1.0, "D": 1.0, "dt_bias": 0.0, "w_base": -6.0}
@@ -214,9 +231,12 @@ def init_params(cfg: ArchConfig, seed: int = 0, device="cuda") -> LM:
     Each weight is drawn in f32 and cast to its dtype, one tensor at a
     time, so the transient f32 buffer is one tensor (under 1 GB at
     granite-8b's width).  The distributions are the JAX package's: normal
-    at std 1/sqrt(fan_in) unless ``_STD`` says otherwise, uniform on [0, 1)
+    at std 1/sqrt(fan_in) unless ``_STD`` says otherwise (fan_in is
+    ``shape[0]``, as the JAX package's ``_dense_init`` takes it: for the
+    expert stacks (E, d, f) and (E, f, d) that is E), uniform on [0, 1)
     for the rwkv6 token-shift mixes ``mu``, ``A_log = log(linspace(1, 16,
-    H))``, and the constants of ``_CONST``.  The numbers differ from the
+    H))``, and the constants of ``_CONST``.  The f32 MoE router is drawn
+    through bf16, as the JAX package draws it.  The numbers differ from the
     JAX package's; parity tests carry its weights across with
     ``convert.from_jax_params``.
     """
@@ -234,8 +254,9 @@ def init_params(cfg: ArchConfig, seed: int = 0, device="cuda") -> LM:
             p.copy_(torch.rand(p.shape, generator=gen, device=device))
         else:
             std = _STD.get(leaf, p.shape[0] ** -0.5)          # fan_in
-            p.copy_(torch.randn(p.shape, generator=gen, dtype=torch.float32,
-                                device=device).mul_(std))
+            draw = torch.randn(p.shape, generator=gen, dtype=torch.float32,
+                               device=device).mul_(std)
+            p.copy_(draw.to(PDTYPE) if leaf == "router" else draw)
     return params
 
 

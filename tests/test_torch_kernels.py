@@ -25,6 +25,7 @@ from repro.kernels.flash_attention import (  # noqa: E402
 from repro_torch.kernels import burst_gather as bg  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import mamba2_scan as m2  # noqa: E402
+from repro_torch.kernels import moe_gmm as gmm  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels import rwkv6_scan as r6  # noqa: E402
 
@@ -213,8 +214,13 @@ def test_wrappers_do_not_fall_back_off_the_cpu():
                        torch.empty((1, 4, 8), device="meta"))
     with pytest.raises(ValueError):
         r6.rwkv6_scan(q, q, q, q, torch.empty((2, 16), device="meta"))
+    with pytest.raises(ValueError):
+        gmm.moe_gmm(torch.empty((4, 16), device="meta"),
+                    torch.empty((2, 16, 8), device="meta"),
+                    torch.zeros(4, dtype=torch.int32, device="meta"))
     assert fa.flash_attention.launches == 0
     assert fa.decode_attention.launches == 0
     assert bg.burst_gather.launches == 0
     assert m2.mamba2_scan.launches == 0
     assert r6.rwkv6_scan.launches == 0
+    assert gmm.moe_gmm.launches == 0

@@ -17,6 +17,7 @@ from repro_torch import configs  # noqa: E402
 from repro_torch.kernels import burst_gather as bg  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import mamba2_scan as m2  # noqa: E402
+from repro_torch.kernels import moe_gmm as gmm  # noqa: E402
 from repro_torch.kernels import rwkv6_scan as r6  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.model import convert, lm  # noqa: E402
@@ -48,22 +49,37 @@ def test_serve_prints_the_lines_of_the_jax_entry_point_for_ssm_archs(
     _same_lines_as_jax(capsys, monkeypatch, ["--arch", arch, *FLAGS])
 
 
-def test_entry_points_raise_without_a_gpu(monkeypatch):
+@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m", "arctic-480b"])
+def test_serve_prints_the_lines_of_the_jax_entry_point_for_moe_archs(
+        capsys, monkeypatch, arch):
+    _same_lines_as_jax(capsys, monkeypatch, ["--arch", arch, *FLAGS])
+
+
+def _raise_without_a_gpu(monkeypatch, arch, flags):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    cfg = configs.get_reduced("granite-8b")
+    cfg = configs.get_reduced(arch)
     with pytest.raises(RuntimeError):
         lm.init_params(cfg)
     params = lm.init_params(cfg, device="cpu")
     with pytest.raises(RuntimeError):
         lm.init_cache(params, cfg, 1, 8)
     with pytest.raises(RuntimeError):
-        serve.main(FLAGS)
+        serve.main(flags)
     with pytest.raises(RuntimeError):
         convert.from_jax_params({}, cfg)
 
 
+def test_entry_points_raise_without_a_gpu(monkeypatch):
+    _raise_without_a_gpu(monkeypatch, "granite-8b", FLAGS)
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m", "arctic-480b"])
+def test_entry_points_raise_without_a_gpu_for_moe_archs(monkeypatch, arch):
+    _raise_without_a_gpu(monkeypatch, arch, ["--arch", arch, *FLAGS])
+
+
 KERNELS = (fa.flash_attention, fa.decode_attention, bg.burst_gather,
-           m2.mamba2_scan, r6.rwkv6_scan)
+           m2.mamba2_scan, r6.rwkv6_scan, gmm.moe_gmm)
 
 
 def _generate_launches_no_kernel(arch):
@@ -89,8 +105,13 @@ def test_cpu_generation_of_ssm_archs_launches_no_kernel(arch):
     _generate_launches_no_kernel(arch)
 
 
-@pytest.mark.parametrize("name", ["granite-moe-3b-a800m", "chatglm3-6b",
-                                  "arctic-480b", "gemma2-27b"])
+@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m", "arctic-480b"])
+def test_cpu_generation_of_moe_archs_launches_no_kernel(arch):
+    _generate_launches_no_kernel(arch)
+
+
+@pytest.mark.parametrize("name", ["gemma3-12b", "chatglm3-6b",
+                                  "whisper-tiny", "gemma2-27b"])
 def test_unported_archs_name_their_roadmap_item(name):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         configs.get(name)
