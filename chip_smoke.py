@@ -8,16 +8,23 @@ Phases, each printing its own lines:
 1. device: needs CUDA; prints the card's name and power limit.
 2. build: compiles the CUDA sources of ``src/repro_torch/kernels/csrc``
    with nvcc for sm_90a.
+   Prints each kernel's registers and spills (ptxas -v) and its count of
+   tensor-core instructions (cuobjdump -sass); the bf16 prefill attention
+   must have HMMA/HGMMA instructions and no spill at head sizes <= 128.
 3. kernels: each kernel against its plain PyTorch version on the card, in
    bf16 (tolerance rtol = atol = 2e-2, as in tests/test_kernels.py; one f32
-   case at 2e-5), the gather exactly.  The two scans at the serve shapes
-   (prefill from a zero state, decode at S = 1 from a random one), at
-   S = 33, at head size 16 and at odd and largest sizes: y at 2e-2 and the
-   f32 state at 3e-2 in bf16; one f32 case each, y at 2e-5 (2e-4 for
-   rwkv6, as in tests/test_kernels.py) and the state at 1e-4.  The grouped
-   matmul in bf16 and f32 at granite-moe-3b's prefill and decode shapes,
-   at ragged sizes, on unsorted and out-of-range ids, and at one
-   arctic-480b layer's expert shapes.
+   case at 2e-5), the gather exactly.  Prefill attention at the three
+   served shapes (granite-8b, zamba2-7b's H layers, granite-moe) and edge
+   cases; decode at the served shapes (g = 4, 1, 3), g = 16, with kv_len
+   on and beside the split boundaries, 0, a window and softcap, one f32
+   case, and the serve-shape decode run twice, bit for bit.  The two
+   scans at the serve shapes (prefill from a zero state, decode at S = 1
+   from a random one), at S = 33, at head size 16 and at odd and largest
+   sizes: y at 2e-2 and the f32 state at 3e-2 in bf16; one f32 case each,
+   y at 2e-5 (2e-4 for rwkv6, as in tests/test_kernels.py) and the state
+   at 1e-4.  The grouped matmul in bf16 and f32 at granite-moe-3b's
+   prefill and decode shapes, at ragged sizes, on unsorted and
+   out-of-range ids, and at one arctic-480b layer's expert shapes.
 4. reference: granite-8b-, zamba2-7b-, rwkv6- and granite-moe-3b-reduced
    on the card (kernels) against the same weights on the CPU (plain
    versions), teacher-forced, atol 2e-2; for the MoE model a batch row may
@@ -35,7 +42,10 @@ Phases, each printing its own lines:
    L2 error of 5e-2, then, with the weights widened to f32, elementwise to
    rtol = atol = 1e-3 (see ``check_cache``).  For zamba2 and rwkv6 this
    checks the carried conv, ssd, token-shift and wkv states.
-8. a JSON line with each kernel's launches, error, times and bound, then
+8. times: both attention kernels at each served model's shapes beside
+   SDPA and their bound (``time flash_attention[<model>]``,
+   ``time decode_attention[<model>]``), the scans and the grouped matmul;
+   a JSON line with each kernel's launches, error, times and bound, then
    the result line.
 
 Exits non-zero, printing no result line, if any phase fails or there is no
@@ -87,8 +97,10 @@ COUNTERS = {"flash_attention": fa.flash_attention,
 CACHE_F32_TOL = dict(rtol=1e-3, atol=1e-3)
 CACHE_BF16_REL_L2 = 5e-2
 B, PROMPT, GEN = 4, 512, 32
-#: clock cycles the card idles before each timed call (~0.1 ms at 2 GHz)
-SPIN_CYCLES = 200_000
+#: clock cycles the card idles before each timed call (~0.5 ms at 2 GHz):
+#: longer than the host takes to issue the slowest wrapper timed here, the
+#: split-KV decode with its scratch and two launches, on a slow host
+SPIN_CYCLES = 1_000_000
 
 
 def _phase(msg):
@@ -135,6 +147,8 @@ def check_attention(gen):
         ("d64", (2, 256, 256, 8, 2, 64), dict(causal=True)),
         ("d112", (2, 256, 256, 8, 2, 112), dict(causal=True, window=100)),
         ("d256", (2, 256, 256, 8, 2, 256), dict(causal=True, softcap=30.0)),
+        ("granite-moe", (4, 512, 512, 24, 8, 64), dict(causal=True)),
+        ("zamba2-h", (4, 512, 512, 32, 32, 112), dict(causal=True)),
     ]
     for name, (b, sq, skv, hq, hkv, d), kw in prefill:
         kw = {k: torch.tensor(v, dtype=torch.int32, device="cuda")
@@ -150,6 +164,7 @@ def check_attention(gen):
     _assert_close("flash_attention[f32]", fa.flash_attention(q, k, v),
                   ref.attention_ref(q, k, v), F32_TOL)
 
+    _, chunk = fa.decode_splits(4, 8, 544, fa._sm_count(0))
     decode = [
         ("serve", (4, 544, 32, 8, 128), dict(kv_len=[544, 300, 17, 1])),
         ("softcap-window", (4, 544, 32, 8, 128), dict(
@@ -158,16 +173,37 @@ def check_attention(gen):
         ("mqa-d64", (2, 200, 32, 2, 64), dict(kv_len=[200, 77])),
         ("d256", (2, 130, 8, 2, 256), dict(kv_len=[130, 9])),
         ("empty", (2, 64, 8, 8, 128), dict(kv_len=[0, 64])),
+        # kv_len on and beside the split boundaries of the serve plan
+        ("split-bounds", (4, 544, 32, 8, 128), dict(
+            kv_len=[chunk, chunk + 1, 1, 544])),
+        ("g1-zamba2", (4, 544, 32, 32, 112), dict(kv_len=[544, 513, 33, 1])),
+        ("g3-granite-moe", (4, 544, 24, 8, 64), dict(
+            kv_len=[544, 512, 100, 31])),
+        # the window starts inside a split, and whole splits lie before it
+        ("window", (4, 544, 32, 8, 128), dict(
+            causal=True, window=200, q_offset=[543, 420, 130, 40],
+            kv_len=[544, 421, 131, 41])),
+        ("f32", (2, 200, 8, 2, 40), dict(kv_len=[200, 65])),
     ]
     for name, (b, skv, hq, hkv, d), kw in decode:
         kw = {k: torch.tensor(v, dtype=torch.int32, device="cuda")
               if isinstance(v, list) else v for k, v in kw.items()}
-        q = _rand((b, 1, hq, d), gen)
-        k, v = _rand((b, skv, hkv, d), gen), _rand((b, skv, hkv, d), gen)
+        dtype = torch.float32 if name == "f32" else torch.bfloat16
+        q = _rand((b, 1, hq, d), gen, dtype)
+        k = _rand((b, skv, hkv, d), gen, dtype)
+        v = _rand((b, skv, hkv, d), gen, dtype)
         got = fa.decode_attention(q, k, v, **kw)
         want = ref.attention_ref(q, k, v, **{"causal": False, **kw})
         errs[f"decode-{name}"] = _assert_close(
-            f"decode_attention[{name}]", got, want, BF16_TOL)
+            f"decode_attention[{name}]", got, want,
+            F32_TOL if name == "f32" else BF16_TOL)
+        if name == "serve":
+            # the splits merge in a fixed order: the same bits every run
+            if not torch.equal(got, fa.decode_attention(q, k, v, **kw)):
+                raise AssertionError("decode_attention[serve]: two runs "
+                                     "differ")
+            _phase("check decode_attention[serve]: two runs give the same "
+                   "bits ok")
     return errs["serve"], errs["decode-serve"]
 
 
@@ -488,7 +524,7 @@ def check_cache(dtype, params, cfg, prompts, res):
 def time_ms(fn, flush, reps=25):
     """Median device time of one call, with L2 flushed before each.
 
-    Before each call the card spins for ``SPIN_CYCLES`` (~0.1 ms), so the
+    Before each call the card spins for ``SPIN_CYCLES`` (~0.5 ms), so the
     host has enqueued the call, and its end event, before the card reaches
     them: the events then time the call's kernels and not the host's
     issuing of them, which for a wrapper around one short kernel is the
@@ -539,35 +575,64 @@ SOURCE = {"flash_attention": "flash_attention.cu",
           "moe_gmm": "moe_gmm.cu"}
 
 
+#: (model, Hq, Hkv, D) of each served model's attention layers
+ATTN_SHAPES = (("granite-8b", 32, 8, 128), ("zamba2-7b", 32, 32, 112),
+               ("granite-moe-3b-a800m", 24, 8, 64))
+
+
+def attention_times(flush, gen):
+    """Both attention kernels at each served model's shapes (prefill of
+    B x 512 causal, decode against a cache of 544), beside SDPA and the
+    bound, on a line each.  Bytes count q, k, v and o once; operations are
+    4 D per (query, key) pair.  Returns granite-8b's ``(ms, plain,
+    library, bound_ms, bound_by)`` for prefill and for decode."""
+    n_sm = fa._sm_count(0)
+    S = PROMPT + GEN
+    rows = {}
+    for model, Hq, Hkv, D in ATTN_SHAPES:
+        for kind, sq, skv, kw in (("flash_attention", PROMPT, PROMPT, {}),
+                                  ("decode_attention", 1, S,
+                                   dict(kv_len=S))):
+            q = _rand((B, sq, Hq, D), gen)
+            k, v = _rand((B, skv, Hkv, D), gen), _rand((B, skv, Hkv, D), gen)
+            qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+            if kind == "flash_attention":
+                pairs = B * Hq * PROMPT * (PROMPT + 1) // 2  # causal (q, k)
+                fn = fa.flash_attention
+                lib = time_ms(_sdpa(qt, kt, vt, is_causal=True), flush)
+                nq = -(-PROMPT // 64)
+                grid = f"grid {Hq} x {B} x {nq} = {Hq * B * nq} blocks"
+            else:
+                pairs = B * Hq * S
+                fn = fa.decode_attention
+                lib = time_ms(_sdpa(qt, kt, vt), flush)
+                n_split, chunk = fa.decode_splits(B, Hkv, S, n_sm)
+                grid = (f"grid {n_split} x {Hkv} x {B} = "
+                        f"{n_split * Hkv * B} blocks (chunk {chunk}) + "
+                        f"combine {Hkv * B}")
+            ms = time_ms(lambda: fn(q, k, v, **kw), flush)
+            plain = time_ms(lambda: ref.attention_ref(
+                q, k, v, causal=kind == "flash_attention", **kw), flush) \
+                if model == "granite-8b" else None
+            b_ms, b_by = bound(4 * pairs * D,
+                               2 * (2 * q.numel() + 2 * k.numel()))
+            _phase(f"time {kind}[{model}] (B, Sq, Skv, Hq, Hkv, D) = "
+                   f"{(B, sq, skv, Hq, Hkv, D)}: {ms:.4f} ms, SDPA "
+                   f"{lib:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
+                   f"{4 * pairs * D / ms / 1e9:.1f} TFLOP/s, {grid}")
+            if model == "granite-8b":
+                rows[kind] = (ms, plain, lib, b_ms, b_by)
+            del q, k, v, qt, kt, vt
+    return rows["flash_attention"], rows["decode_attention"]
+
+
 def granite_rows(table, prompts, errs, flush, gen):
     """The attention and gather rows, at granite-8b's serve shapes."""
-    Hq, Hkv, D = 32, 8, 128
-    rows = []
-
-    q = _rand((B, PROMPT, Hq, D), gen)
-    k, v = _rand((B, PROMPT, Hkv, D), gen), _rand((B, PROMPT, Hkv, D), gen)
-    pairs = B * Hq * PROMPT * (PROMPT + 1) // 2          # causal (q, k)
-    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-    ms, plain = time_ms(lambda: fa.flash_attention(q, k, v), flush), \
-        time_ms(lambda: ref.attention_ref(q, k, v), flush)
-    lib = time_ms(_sdpa(qt, kt, vt, is_causal=True), flush)
-    rows.append(("flash_attention", "src/repro/kernels/flash_attention.py:90",
-                 errs[0], ms, plain, lib,
-                 *bound(4 * pairs * D, 2 * (2 * q.numel() + 2 * k.numel()))))
-
-    S = PROMPT + GEN
-    q = _rand((B, 1, Hq, D), gen)
-    k, v = _rand((B, S, Hkv, D), gen), _rand((B, S, Hkv, D), gen)
-    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-    ms = time_ms(lambda: fa.decode_attention(q, k, v, kv_len=S), flush)
-    plain = time_ms(lambda: ref.attention_ref(q, k, v, causal=False,
-                                              kv_len=S), flush)
-    lib = time_ms(_sdpa(qt, kt, vt), flush)
-    rows.append(("decode_attention",
-                 "src/repro/kernels/flash_attention.py:149",
-                 errs[1], ms, plain, lib,
-                 *bound(4 * B * Hq * S * D,
-                        2 * (2 * q.numel() + 2 * k.numel()))))
+    prefill, decode = attention_times(flush, gen)
+    rows = [("flash_attention", "src/repro/kernels/flash_attention.py:90",
+             errs[0], *prefill),
+            ("decode_attention", "src/repro/kernels/flash_attention.py:149",
+             errs[1], *decode)]
 
     idx = prompts.reshape(-1)
     row_bytes = table.shape[1] * table.element_size()
@@ -740,6 +805,29 @@ def serve_phase(arch, gen):
     return params, prompts, launches
 
 
+def check_build_report():
+    """Registers and spills (``ptxas -v``) and tensor-core instructions
+    (HMMA/HGMMA lines of ``cuobjdump -sass``) of every kernel.  The bf16
+    prefill must run on the tensor cores at every head-size bucket, and
+    must not spill at DP <= 128, which covers the served head sizes."""
+    for name in _build.SOURCES:
+        for kernel, r in sorted(_build.kernel_report(name).items()):
+            _phase(f"ptxas {name}.cu {kernel}: {r.get('registers')} "
+                   f"registers, spill stores {r.get('spill_stores')} B, "
+                   f"spill loads {r.get('spill_loads')} B; SASS HMMA/HGMMA "
+                   f"{r.get('tensor_core')}")
+    attn = _build.kernel_report("flash_attention")
+    for dp in (64, 128, 256):
+        r = attn.get(f"flash_fwd_bf16<{dp}>", {})
+        if not r.get("tensor_core"):
+            raise AssertionError(f"flash_fwd_bf16<{dp}>: no tensor-core "
+                                 f"instruction in its SASS")
+        if dp <= 128 and (r.get("spill_stores") or r.get("spill_loads")):
+            raise AssertionError(f"flash_fwd_bf16<{dp}> spills: {r}")
+    _phase("check flash_fwd_bf16: HGMMA in the SASS of every instantiation, "
+           "no spill at DP <= 128 ok")
+
+
 def check_no_sync(params, cfg, prompts):
     """A prefill and a decode step under PyTorch's sync debug mode set to
     "error": the serving path never makes the host wait for the card
@@ -783,6 +871,7 @@ def main() -> int:
            f"{torch.version.cuda}")
 
     _phase(f"build: {_build.build_all():.1f}s (nvcc, sm_90a)")
+    check_build_report()
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     errs = check_attention(gen)

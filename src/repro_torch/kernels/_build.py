@@ -6,13 +6,16 @@ so it builds in seconds.  Libraries go to ``build/repro_torch/`` at the
 root of the checkout (listed in ``.gitignore``), named by a hash of the
 source and the flags, so an edited source is rebuilt and an unchanged one
 is loaded as it is.  Nothing is built when the module is imported: the
-first call of ``load`` (or ``build_all``) builds.
+first call of ``load`` (or ``build_all``) builds.  ``ptxas -v``'s report
+(registers, spills) is kept beside each library; ``kernel_report`` reads it
+with the count of tensor-core instructions in the library's SASS.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -23,7 +26,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("flash_attention", "burst_gather", "mamba2_scan", "rwkv6_scan",
            "moe_gmm")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-         "-shared", "-Xcompiler", "-fPIC")
+         "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_float
@@ -32,7 +35,7 @@ _ATTN = [_P, _P, _P, _P, _P, _I, _P, _I]
 _SIGNATURES = {
     "flash_attention": {
         "flash_attention_fwd": _ATTN + [_I] * 11 + [_F, _F, _P],
-        "decode_attention_fwd": _ATTN + [_I] * 10 + [_F, _F, _P],
+        "decode_attention_fwd": _ATTN + [_I] * 10 + [_F, _F, _P, _I, _I, _P],
     },
     "burst_gather": {
         "burst_gather_fwd": [_P, _P, _P, _LL, _LL, _LL, _P],
@@ -91,6 +94,7 @@ def build_all() -> float:
             tmp.unlink(missing_ok=True)
         else:
             os.replace(tmp, target)
+            target.with_suffix(".log").write_text(log)
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
     return time.perf_counter() - t0
@@ -115,3 +119,53 @@ def check(err: int, what: str) -> None:
     """Raise if a launch returned a CUDA error."""
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err} at launch")
+
+
+def _kernel_name(mangled: str) -> str:
+    """``_ZN<len><namespace><len>flash_fwd_bf16ILi128EEEv...`` ->
+    ``flash_fwd_bf16<128>``: the innermost name, with template arguments
+    of int, float and bf16."""
+    pos, name = (3, mangled) if mangled.startswith("_ZN") else (2, mangled)
+    while m := re.match(r"\d+", mangled[pos:]):
+        start = pos + m.end()
+        name, pos = mangled[start:start + int(m.group())], start + int(
+            m.group())
+    rest = mangled[pos:]
+    if not rest.startswith("I") or "EE" not in rest:
+        return name
+    args = re.findall(r"Li(\d+)E|(13__nv_bfloat16)|(?<=I)(f)(?=E)",
+                      rest[:rest.index("EE") + 2])
+    return name + "<" + ", ".join(
+        i or ("bf16" if b else "f32") for i, b, _ in args) + ">"
+
+
+def kernel_report(name: str) -> dict[str, dict[str, int]]:
+    """Per kernel of the built ``csrc/<name>.cu``: ``registers``,
+    ``spill_stores`` and ``spill_loads`` (bytes) from ``ptxas -v``, and
+    ``tensor_core``, the count of tensor-core instructions (``HMMA``,
+    from ``mma.sync``, and ``HGMMA``, from ``wgmma``) in
+    ``cuobjdump -sass`` of the library."""
+    target = _target(name)
+    if not target.exists():
+        build_all()
+    report: dict[str, dict[str, int]] = {}
+    current = None
+    for line in target.with_suffix(".log").read_text().splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?(\w+)", line)
+        if m:
+            current = report.setdefault(_kernel_name(m.group(1)), {})
+        elif current is not None and "spill stores" in line:
+            st, ld = re.findall(r"(\d+) bytes spill (?:stores|loads)", line)
+            current.update(spill_stores=int(st), spill_loads=int(ld))
+        elif current is not None and "Used" in line:
+            current["registers"] = int(re.search(r"Used (\d+) registers",
+                                                 line).group(1))
+    sass = subprocess.run(
+        [str(Path(_nvcc()).parent / "cuobjdump"), "-sass", str(target)],
+        capture_output=True, text=True, check=True).stdout
+    for chunk in re.split(r"\n\s*Function : ", sass)[1:]:
+        kernel = _kernel_name(chunk.split()[0])
+        report.setdefault(kernel, {})["tensor_core"] = len(
+            re.findall(r"\b(?:HMMA|HGMMA)\b", chunk))
+    return report

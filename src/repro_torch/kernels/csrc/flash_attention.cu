@@ -1,47 +1,107 @@
 // Attention for the serving path: prefill (flash_attention_fwd) and
 // single-token decode (decode_attention_fwd), CUDA C++ for sm_90a.
 //
-// Replaces: src/repro/kernels/flash_attention.py, `flash_attention` (the
-// Pallas `_kernel`, pallas_call at :126) and `decode_attention` (:149).
-// Semantics are those of repro_torch/kernels/ref.py::attention_ref: GQA
-// (KV head = h / (Hq/Hkv)), tanh logit softcap before masking, causal
+// Replaces: src/repro/kernels/flash_attention.py, `flash_attention` (:90,
+// the Pallas `_kernel`, pallas_call at :126) and `decode_attention` (:149,
+// which reuses that pallas_call).  Semantics are those of
+// repro_torch/kernels/ref.py::attention_ref: GQA (KV head = h / (Hq/Hkv)),
+// `scale`, then the tanh logit softcap, then the masks: causal
 // `kpos <= q_offset[b] + qpos`, window `kpos > q_offset[b] + qpos - window`,
 // `kpos < kv_len[b]`; a row with no valid key writes zeros.
 //
-// What bounds it on an H100: at granite-8b's prefill (B=4, S=512, Hq=32,
-// Hkv=8, D=128, causal) the work is ~8.6 GFLOP against ~42 MB of q/k/v/o,
-// so the bf16 tensor-core bound (~9 us) and the byte bound (~13 us) are
-// close.  Decode reads the whole valid K/V cache once per step (~8.9 MB
-// per layer at cache 544) and does ~2 FLOP per byte: it is bound by bytes.
+// What bounds it on an H100 (3.35 TB/s, 989 TFLOP/s bf16 dense):
+//  * prefill at the served shapes (B=4, S=512, causal, bf16) moves each of
+//    q, k, v, o once: granite-8b (Hq/Hkv/D = 32/8/128) 42 MB, 12.5 us,
+//    against 8.6 GFLOP, 8.7 us on the tensor cores; zamba2-7b's H layers
+//    (32/32/112) 59 MB, 17.5 us; granite-moe (24/8/64) 17 MB, 5.0 us.  The
+//    byte and tensor-core bounds are close, so the products must run on
+//    the tensor cores and the tiles must come in while they run.
+//  * decode reads the valid K/V cache once per step and does ~2 FLOP per
+//    byte: granite-8b (B=4, cache 544, Hkv=8, D=128) 8.9 MB, 2.7 us;
+//    zamba2-7b (Hkv=32, D=112) 31 MB, 9.3 us.  It is bound by bytes, and by
+//    how many SMs are streaming them.
 //
-// What the design does about it (first version: right and simple; wgmma,
-// TMA and split-KV decode come later):
-//  * prefill: one block per (64-row q tile, query head, batch).  The TPU's
-//    sequential KV grid axis becomes a loop over 64-key tiles inside the
-//    block, with the running (m, l, acc) in f32 registers.  KV tiles wholly
-//    past the causal bound, before the window, or past kv_len are never
-//    loaded.  Q/K/V tiles are staged in shared memory as f32 (16-byte
-//    global loads, rows padded by 4 floats so the float4 reads are free of
-//    bank conflicts); each of the 256 threads owns a 4x4 block of scores
-//    and a 4 x (D/16) block of the output, all on FMA pipes.
-//  * decode: one block per (batch, KV head) takes that head's g = Hq/Hkv
-//    query heads together, so each K/V row is read from device memory once
-//    for all g heads, looping over the cache only up to kv_len[b].
+// What the design does about it:
+//  * bf16 prefill (flash_fwd_bf16), FlashAttention-2's algorithm on
+//    Hopper's instructions.  One block per (query head, batch, 64-row q
+//    tile): a consumer warpgroup (16 query rows a warp) and a producer
+//    warp.  The producer's lane 0 loads Q once and the K/V tiles (32 keys,
+//    64 at DP = 64) into a two-stage ring with TMA, in 64-column panels in
+//    the 128-byte swizzle; an mbarrier per stage says when a tile has
+//    landed and another when the consumers are done with it, so the math
+//    warps issue no copies.  S = Q K^T is a wgmma with both operands in
+//    shared memory; O += P V is a wgmma with P from registers (the S
+//    accumulators after the softmax, rounded to bf16, as FlashAttention
+//    does; P never goes through shared memory) and V read as its MN-major
+//    operand.  m, l and O stay f32.  The online softmax runs in registers
+//    (quad shuffles for the row max, the row sum reduced once at the end;
+//    O is rescaled only when a row's max moved).  D is zero-padded
+//    to DP = 64, 128 or 256 by TMA's out-of-bounds fill (zamba2's 112 runs
+//    at 128).  KV tiles wholly past the causal bound or kv_len, or before
+//    the window, are never loaded, and tiles that need no mask skip the
+//    mask arithmetic.  The q tile is the slowest grid axis, taken in
+//    reverse, so the longest causal tiles are issued first and the last
+//    wave holds short ones.
+//  * f32 prefill (flash_fwd_f32): full f32 on the FMA pipes, for the f32
+//    checks (tensor-core TF32 would not meet them).  Q/K/V tiles are staged
+//    as f32; each of 256 threads owns a 4x4 block of scores.
+//  * decode, split-KV (decode_partial + decode_combine), both dtypes:
+//    block (split, KV head, batch) takes one chunk of the cache (a multiple
+//    of the 32-key tile; the wrapper picks the chunk so that about two
+//    blocks per SM stream the cache).  It copies each K/V row of its chunk
+//    once, 16 bytes a thread with cp.async in the stored dtype
+//    (double-buffered, no f32 copy), for all g = Hq/Hkv query heads of its
+//    KV head: one warp per head, one key per lane for the scores, the
+//    softmax by warp shuffles, P V into registers, all in f32.  It writes
+//    an unnormalised partial (acc, m, l); a chunk with no valid key writes
+//    m = -inf, l = 0.  decode_combine, one block per (KV head, batch),
+//    merges the splits in split order: the same bits on every run, no
+//    atomics.  It is launched as a programmatic dependent of the partials,
+//    so its launch overlaps them.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <cudaTypedefs.h>
 #include <math.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int BQ = 64;          // prefill: query rows per block
-constexpr int BK = 64;          // prefill: keys per tile
-constexpr int NT = 256;         // prefill: threads per block (16 x 16)
-constexpr int DK = 64;          // decode: keys per tile (two per lane)
-constexpr int DNT = 128;        // decode: threads per block
 constexpr int kMaxSmem = 232448;
+constexpr float kLog2e = 1.4426950408889634f;
 
-// Load 16 bytes of T and widen to f32.
+// ---------------------------------------------------------------- helpers
+
+__device__ inline uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16-byte asynchronous copy to shared memory; `bytes` is 16, or 0 to write
+// zeros without reading `src`.
+__device__ inline void cp_async16(void* dst, const void* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+
+__device__ inline void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N of this thread's groups are pending; other threads'
+// copies are visible only after the __syncthreads that follows.
+template <int N>
+__device__ inline void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ inline uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+
+// Load 16 bytes of T and widen to f32 in registers.
 __device__ inline void load16(const __nv_bfloat16* p, float* out) {
   uint4 u = *reinterpret_cast<const uint4*>(p);
   const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
@@ -58,40 +118,472 @@ __device__ inline void load16(const float* p, float* out) {
   out[0] = f.x; out[1] = f.y; out[2] = f.z; out[3] = f.w;
 }
 
-// Store 4 consecutive f32 values as T (8- or 16-byte aligned).
-__device__ inline void store4(__nv_bfloat16* p, float a, float b, float c,
-                              float d) {
-  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(p);
-  h[0] = __floats2bfloat162_rn(a, b);
-  h[1] = __floats2bfloat162_rn(c, d);
+__device__ inline void store1(__nv_bfloat16* p, float x) {
+  *p = __float2bfloat16_rn(x);
 }
 
-__device__ inline void store4(float* p, float a, float b, float c, float d) {
-  *reinterpret_cast<float4*>(p) = make_float4(a, b, c, d);
-}
+__device__ inline void store1(float* p, float x) { *p = x; }
 
-// Stage `rows` rows from row0 on of one head of a (B, S, H, D) tensor into
-// shared memory as f32 times `mul`, row stride LD.  Rows at or past
-// `nvalid` and columns at or past D are zero.  D is a multiple of 8, so a
-// 16-byte chunk that starts below D ends at or below D.
-template <typename T, int DP, int LD, int THREADS>
-__device__ inline void load_tile(float* s, const T* base, int rows, int row0,
-                                 int nvalid, long long row_stride, int D,
-                                 float mul) {
-  constexpr int V = 16 / sizeof(T);
-  constexpr int CH = DP / V;
-  for (int i = threadIdx.x; i < rows * CH; i += THREADS) {
-    const int r = i / CH;
-    const int c = (i % CH) * V;
-    float vals[V];
-    if (r < nvalid && c < D) {
-      load16(base + (long long)(row0 + r) * row_stride + c, vals);
-    } else {
+__device__ inline float warp_max(float x) {
 #pragma unroll
-      for (int j = 0; j < V; ++j) vals[j] = 0.f;
+  for (int off = 16; off > 0; off >>= 1)
+    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
+  return x;
+}
+
+__device__ inline float warp_sum(float x) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    x += __shfl_xor_sync(0xffffffffu, x, off);
+  return x;
+}
+
+// Issue the 16-byte copies of `rows` rows from row0 on of one head of a
+// (B, S, H, D) tensor into shared memory (row stride LD elements).  Rows at
+// or past `nvalid` and columns at or past D are zero-filled.  D is a
+// multiple of 16 / sizeof(T), so a chunk that starts below D ends at or
+// below D.
+template <typename T, int THREADS>
+__device__ inline void copy_tile(T* s, const T* base, int rows, int cols,
+                                 int LD, int row0, int nvalid,
+                                 long long row_stride, int D) {
+  constexpr int V = 16 / sizeof(T);
+  const int ch = cols / V;
+  for (int i = threadIdx.x; i < rows * ch; i += THREADS) {
+    const int r = i / ch;
+    const int c = (i % ch) * V;
+    const bool ok = r < nvalid && c < D;
+    cp_async16(s + r * LD + c,
+               ok ? base + (long long)(row0 + r) * row_stride + c : base,
+               ok ? 16 : 0);
+  }
+}
+
+// -------------------------------------------- bf16 prefill: wgmma, TMA
+
+constexpr int GQ = 64;    // query rows per block: one warpgroup, 16 a warp
+constexpr int GNT = 128;  // consumer threads per block
+
+// A tile of R rows and DP columns in shared memory as DP / 64 panels of R
+// rows x 128 bytes, each panel in the 128-byte swizzle of wgmma (the 16-byte
+// chunk c of row r at chunk c ^ (r % 8)); panels start 1024-byte aligned.
+template <int DP>
+struct WgCfg {
+  static constexpr int NP = DP / 64;            // panels
+  static constexpr int BK = DP > 64 ? 32 : 64;  // keys per tile
+  static constexpr int ST = 2;                  // K/V stages
+  static constexpr int Q_BYTES = GQ * DP * 2;
+  static constexpr int KV_BYTES = BK * DP * 2;
+  static constexpr size_t smem = 1024 + 2 * ST * KV_BYTES + Q_BYTES;
+};
+
+// wgmma shared-memory descriptor, 128-byte swizzle; offsets in bytes
+__device__ inline uint64_t wg_desc(const void* p, uint32_t lbo,
+                                   uint32_t sbo) {
+  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) |
+         ((uint64_t)(lbo >> 4) << 16) | ((uint64_t)(sbo >> 4) << 32) |
+         (1ull << 62);
+}
+
+__device__ inline void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ inline void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ inline void wg_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// keep the compiler from moving reads or writes of the accumulators across
+// the asynchronous products
+template <int N = 32>
+__device__ inline void wg_touch(float* d) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d (64xN f32) = (scale_d ? d : 0) + A (64x16, smem, K-major) *
+// B (16xN, smem, K-major)
+template <int N>
+__device__ inline void wgmma_ss(float* d, uint64_t da, uint64_t db,
+                                int scale_d);
+
+template <>
+__device__ inline void wgmma_ss<32>(float* d, uint64_t da, uint64_t db,
+                                     int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+template <>
+__device__ inline void wgmma_ss<64>(float* d, uint64_t da, uint64_t db,
+                                     int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d (64x64 f32) += A (64x16 bf16, registers) * B (16x64, smem, MN-major)
+__device__ inline void wgmma_rs(float* d, const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ inline void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ inline void mbar_expect(uint64_t* bar, int bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ inline void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+// Wait until the barrier's phase of this parity has completed.  A phase
+// that never completes (a lost arrival) traps after ~2^31 polls instead of
+// hanging the card.
+__device__ inline void mbar_wait(uint64_t* bar, int parity) {
+  for (uint32_t n = 0;; ++n) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (n == 0x80000000u) __trap();
+  }
+}
+
+// One 64-column x R-row panel of a (B, S, H, D) tensor through its map,
+// into shared memory in the 128-byte swizzle; completes on `bar`.
+__device__ inline void tma_panel(void* dst, const CUtensorMap* map,
+                                 uint64_t* bar, int d0, int h, int row0,
+                                 int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(
+          smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(d0),
+      "r"(h), "r"(row0), "r"(b)
+      : "memory");
+}
+
+// The 64 x BK scores of one warpgroup at key tile kt0, NV = BK / 2 of them
+// in this thread (rows qrow and qrow + 8): scale, softcap, masks, then the
+// online softmax update of m and l.  Leaves P, rounded to bf16, in pa as
+// the A fragments of P V, and the factor for the rows' O in alpha.  Without
+// a softcap, m is kept in unscaled units and the scale goes into the
+// exponent's multiplier.
+template <int NV>
+__device__ __forceinline__ void softmax_tile(
+    float* s, uint32_t (*pa)[4], float* m, float* l, float* alpha, int kt0,
+    bool full, int kend, int qrow, int tq, int causal, int has_window,
+    int window, int has_softcap, float softcap, float scale) {
+  const float sl2 = has_softcap ? kLog2e : scale * kLog2e;
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    float x = s[i];
+    if (has_softcap) x = tanhf(x * scale / softcap) * softcap;
+    if (!full) {
+      const int kp = kt0 + (i >> 2) * 8 + 2 * tq + (i & 1);
+      const int qp = qrow + ((i >> 1) & 1) * 8;
+      bool ok = kp < kend;
+      if (causal) ok = ok && kp <= qp;
+      if (has_window) ok = ok && kp > qp - window;
+      if (!ok) x = -INFINITY;
+    }
+    s[i] = x;
+  }
+  // row qrow holds s[4j], s[4j+1]; row qrow + 8 holds s[4j+2], s[4j+3]
+  float mb[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float mx = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < NV / 4; ++j)
+      mx = fmaxf(mx, fmaxf(s[4 * j + 2 * r], s[4 * j + 2 * r + 1]));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    const float mnew = fmaxf(m[r], mx);
+    // a row with no valid key so far keeps O = l = 0 and alpha = 1
+    alpha[r] = mnew == -INFINITY ? 1.f : exp2f((m[r] - mnew) * sl2);
+    mb[r] = mnew == -INFINITY ? 0.f : mnew * sl2;
+    m[r] = mnew;
+    l[r] *= alpha[r];
+  }
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    const float p = exp2f(fmaf(s[i], sl2, -mb[(i >> 1) & 1]));
+    l[(i >> 1) & 1] += p;
+    s[i] = p;
+  }
+#pragma unroll
+  for (int kk = 0; kk < NV / 8; ++kk) {
+    pa[kk][0] = pack_bf16(s[8 * kk + 0], s[8 * kk + 1]);
+    pa[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+    pa[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+    pa[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+  }
+}
+
+// Block (query head, batch, q tile): one consumer warpgroup of 64 query
+// rows and one producer warp whose lane 0 issues the TMA loads of Q and of
+// the K/V tiles into a ring of ST stages.  Stage s is full when its bytes
+// have landed (full[s]) and free again when every consumer thread has
+// arrived on empty[s].  The q tile is the slowest grid axis, taken in
+// reverse: the longest causal tiles go first.
+template <int DP>
+__global__ void __launch_bounds__(GNT + 32)
+flash_fwd_bf16(const __grid_constant__ CUtensorMap map_q,
+              const __grid_constant__ CUtensorMap map_k,
+              const __grid_constant__ CUtensorMap map_v,
+              __nv_bfloat16* __restrict__ o, const int* __restrict__ kv_len,
+              int kv_len_all, const int* __restrict__ q_off, int q_off_all,
+              int Sq, int Skv, int Hq, int Hkv, int D, int causal,
+              int has_window, int window, int has_softcap, float softcap,
+              float scale) {
+  using C = WgCfg<DP>;
+  constexpr int NP = C::NP;
+  constexpr int ST = C::ST;
+  constexpr int BK = C::BK;
+  constexpr int NV = BK / 2;  // scores of a thread per tile
+  extern __shared__ __align__(16) unsigned char wsm[];
+  __shared__ uint64_t full[ST], empty[ST], qbar;
+  unsigned char* base = wsm + ((1024 - (smem_u32(wsm) & 1023)) & 1023);
+  unsigned char* sK = base;                   // [ST][KV_BYTES]
+  unsigned char* sV = sK + ST * C::KV_BYTES;  // [ST][KV_BYTES]
+  unsigned char* sQ = sV + ST * C::KV_BYTES;  // [Q_BYTES]
+
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * GQ;
+  const int hk = h / (Hq / Hkv);
+  const int qoff = q_off ? q_off[b] : q_off_all;
+  int kend = min(kv_len ? kv_len[b] : kv_len_all, Skv);
+  if (causal) kend = min(kend, qoff + min(q0 + GQ, Sq));
+  int kbeg = 0;
+  if (has_window) kbeg = max(0, qoff + q0 - window + 1) / BK * BK;
+  const int nt = kend > kbeg ? (kend - kbeg + BK - 1) / BK : 0;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], GNT);
+    }
+    mbar_init(&qbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= GNT) {  // the producer warp
+    if (threadIdx.x == GNT && nt > 0) {
+      mbar_expect(&qbar, C::Q_BYTES);
+      for (int p = 0; p < NP; ++p)
+        tma_panel(sQ + p * GQ * 128, &map_q, &qbar, 64 * p, h, q0, b);
+      for (int t = 0; t < nt; ++t) {
+        const int s = t % ST;
+        if (t >= ST) mbar_wait(&empty[s], (t / ST - 1) & 1);
+        mbar_expect(&full[s], 2 * C::KV_BYTES);
+        for (int p = 0; p < NP; ++p) {
+          tma_panel(sK + s * C::KV_BYTES + p * BK * 128, &map_k, &full[s],
+                    64 * p, hk, kbeg + t * BK, b);
+          tma_panel(sV + s * C::KV_BYTES + p * BK * 128, &map_v, &full[s],
+                    64 * p, hk, kbeg + t * BK, b);
+        }
+      }
+    }
+    return;
+  }
+
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int gq = lane >> 2;
+  const int tq = lane & 3;
+  const int qrow = qoff + q0 + warp * 16 + gq;
+  // tiles that need no mask: all keys valid for every row of the block
+  auto is_full = [&](int kt0) {
+    return kt0 + BK <= kend && (!causal || kt0 + BK - 1 <= qoff + q0) &&
+           (!has_window || kt0 > qoff + q0 + GQ - 1 - window);
+  };
+  // S = Q K^T of stage st: DP / 16 k-steps of 16 columns, 32 bytes within
+  // a panel row
+  auto issue_s = [&](float* s, int st) {
+    const unsigned char* cK = sK + st * C::KV_BYTES;
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk)
+      wgmma_ss<BK>(s,
+               wg_desc(sQ + (kk >> 2) * GQ * 128 + (kk & 3) * 32, 16, 1024),
+               wg_desc(cK + (kk >> 2) * BK * 128 + (kk & 3) * 32, 16, 1024),
+               kk > 0);
+  };
+  // O += P V of stage st: P from registers, V as the MN-major B operand,
+  // one panel of 64 output columns a product
+  auto issue_pv = [&](float (*acc)[32], uint32_t (*pa)[4], int st) {
+    const unsigned char* cV = sV + st * C::KV_BYTES;
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+      for (int p = 0; p < NP; ++p)
+        wgmma_rs(acc[p], pa[kk],
+                 wg_desc(cV + p * BK * 128 + kk * 2048, BK * 128, 1024));
+  };
+
+  float acc[NP][32];
+#pragma unroll
+  for (int p = 0; p < NP; ++p)
+#pragma unroll
+    for (int e = 0; e < 32; ++e) acc[p][e] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY};
+  float l[2] = {0.f, 0.f};
+  float s[NV], alpha[2] = {1.f, 1.f};
+  uint32_t pa[BK / 16][4];
+
+  for (int t = 0; t < nt; ++t) {
+    const int st = t % ST;
+    const int kt0 = kbeg + t * BK;
+    if (t == 0) mbar_wait(&qbar, 0);
+    mbar_wait(&full[st], (t / ST) & 1);
+#pragma unroll
+    for (int i = 0; i < NV; ++i) s[i] = 0.f;
+    wg_fence();
+    issue_s(s, st);
+    wg_commit();
+    wg_wait0();
+    wg_touch<NV>(s);
+    softmax_tile<NV>(s, pa, m, l, alpha, kt0, is_full(kt0), kend, qrow, tq,
+                     causal, has_window, window, has_softcap, softcap,
+                     scale);
+    if (alpha[0] != 1.f || alpha[1] != 1.f) {  // a row's max moved
+#pragma unroll
+      for (int p = 0; p < NP; ++p)
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            acc[p][4 * j + 2 * r] *= alpha[r];
+            acc[p][4 * j + 2 * r + 1] *= alpha[r];
+          }
     }
 #pragma unroll
-    for (int j = 0; j < V; ++j) s[r * LD + c + j] = vals[j] * mul;
+    for (int p = 0; p < NP; ++p) wg_touch(acc[p]);
+    wg_fence();
+    issue_pv(acc, pa, st);
+    wg_commit();
+    wg_wait0();
+#pragma unroll
+    for (int p = 0; p < NP; ++p) wg_touch(acc[p]);
+    mbar_arrive(&empty[st]);  // this thread is done with stage st
+  }
+  // the warpgroup's last products have read Q
+  asm volatile("bar.sync 1, %0;\n" ::"n"(GNT) : "memory");
+
+  // normalise, stage the warp's 16 rows in its own rows of the Q tile (same
+  // swizzled layout; Q is no longer read), store 16 bytes a thread
+  float inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float ls = l[r];
+    ls += __shfl_xor_sync(0xffffffffu, ls, 1);
+    ls += __shfl_xor_sync(0xffffffffu, ls, 2);
+    inv[r] = ls > 0.f ? 1.f / ls : 0.f;
+  }
+#pragma unroll
+  for (int p = 0; p < NP; ++p)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = warp * 16 + gq + 8 * r;
+        *reinterpret_cast<uint32_t*>(sQ + p * GQ * 128 + row * 128 +
+                                     ((j ^ (row & 7)) << 4) + tq * 4) =
+            pack_bf16(acc[p][4 * j + 2 * r] * inv[r],
+                      acc[p][4 * j + 2 * r + 1] * inv[r]);
+      }
+  __syncwarp();
+  constexpr int CH = DP / 8;
+  const long long qs = (long long)Hq * D;
+  for (int i = lane; i < 16 * CH; i += 32) {
+    const int r = warp * 16 + i / CH;
+    const int c = i % CH;
+    const int qi = q0 + r;
+    if (qi < Sq && c * 8 < D)
+      *reinterpret_cast<uint4*>(o + ((long long)b * Sq + qi) * qs +
+                                (long long)h * D + c * 8) =
+          *reinterpret_cast<const uint4*>(sQ + (c >> 3) * GQ * 128 +
+                                          r * 128 +
+                                          (((c & 7) ^ (r & 7)) << 4));
+  }
+}
+
+// ------------------------------------------------- f32 prefill, FMA pipes
+
+constexpr int BQ = 64;   // query rows per block
+constexpr int BK = 64;   // keys per tile
+constexpr int NT = 256;  // threads per block (16 x 16)
+
+// Stage `rows` rows from row0 on of one head of a (B, S, H, D) f32 tensor
+// into shared memory times `mul`, row stride LD.  Rows at or past
+// `nvalid` and columns at or past D are zero.
+template <int DP, int LD, int THREADS>
+__device__ inline void load_tile(float* s, const float* base, int rows,
+                                 int row0, int nvalid, long long row_stride,
+                                 int D, float mul) {
+  constexpr int CH = DP / 4;
+  for (int i = threadIdx.x; i < rows * CH; i += THREADS) {
+    const int r = i / CH;
+    const int c = (i % CH) * 4;
+    float vals[4] = {0.f, 0.f, 0.f, 0.f};
+    if (r < nvalid && c < D)
+      load16(base + (long long)(row0 + r) * row_stride + c, vals);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) s[r * LD + c + j] = vals[j] * mul;
   }
 }
 
@@ -107,19 +599,19 @@ __device__ inline float comp(float4 a, int u) {
 }
 
 template <int DP>
-constexpr size_t flash_smem_bytes() {
+constexpr size_t flash_f32_smem_bytes() {
   return sizeof(float) * ((size_t)(BQ + 2 * BK) * (DP + 4) +
                           (size_t)BQ * (BK + 4));
 }
 
-template <typename T, int DP>
+template <int DP>
 __global__ void __launch_bounds__(NT)
-flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
-          const T* __restrict__ v, T* __restrict__ o,
-          const int* __restrict__ kv_len, int kv_len_all,
-          const int* __restrict__ q_off, int q_off_all, int Sq, int Skv,
-          int Hq, int Hkv, int D, int causal, int has_window, int window,
-          int has_softcap, float softcap, float scale) {
+flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
+              const float* __restrict__ v, float* __restrict__ o,
+              const int* __restrict__ kv_len, int kv_len_all,
+              const int* __restrict__ q_off, int q_off_all, int Sq, int Skv,
+              int Hq, int Hkv, int D, int causal, int has_window, int window,
+              int has_softcap, float softcap, float scale) {
   constexpr int LD = DP + 4;
   constexpr int LDP = BK + 4;
   constexpr int CG = DP / 64;           // float4 output columns per thread
@@ -144,10 +636,10 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
 
   const long long qs = (long long)Hq * D;
   const long long ks = (long long)Hkv * D;
-  const T* kb = k + (long long)b * Skv * ks + (long long)hk * D;
-  const T* vb = v + (long long)b * Skv * ks + (long long)hk * D;
-  load_tile<T, DP, LD, NT>(sQ, q + (long long)b * Sq * qs + (long long)h * D,
-                           BQ, q0, Sq - q0, qs, D, scale);
+  const float* kb = k + (long long)b * Skv * ks + (long long)hk * D;
+  const float* vb = v + (long long)b * Skv * ks + (long long)hk * D;
+  load_tile<DP, LD, NT>(sQ, q + (long long)b * Sq * qs + (long long)h * D,
+                        BQ, q0, Sq - q0, qs, D, scale);
 
   float m[4], l[4], acc[4][CG * 4];
 #pragma unroll
@@ -160,8 +652,8 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
 
   for (int kt0 = kbeg; kt0 < kend; kt0 += BK) {
     __syncthreads();
-    load_tile<T, DP, LD, NT>(sK, kb, BK, kt0, kend - kt0, ks, D, 1.f);
-    load_tile<T, DP, LD, NT>(sV, vb, BK, kt0, kend - kt0, ks, D, 1.f);
+    load_tile<DP, LD, NT>(sK, kb, BK, kt0, kend - kt0, ks, D, 1.f);
+    load_tile<DP, LD, NT>(sV, vb, BK, kt0, kend - kt0, ks, D, 1.f);
     __syncthreads();
 
     float s[4][4];
@@ -258,189 +750,399 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
     const int qi = q0 + ty + 16 * i;
     if (qi >= Sq) continue;
     const float inv = l[i] > 0.f ? 1.f / l[i] : 0.f;
-    T* orow = o + ((long long)b * Sq + qi) * qs + (long long)h * D;
+    float* orow = o + ((long long)b * Sq + qi) * qs + (long long)h * D;
 #pragma unroll
     for (int cg = 0; cg < CG; ++cg) {
       const int c = cg * 64 + tx * 4;
       if (c < D)
-        store4(orow + c, acc[i][cg * 4] * inv, acc[i][cg * 4 + 1] * inv,
-               acc[i][cg * 4 + 2] * inv, acc[i][cg * 4 + 3] * inv);
+        *reinterpret_cast<float4*>(orow + c) =
+            make_float4(acc[i][cg * 4] * inv, acc[i][cg * 4 + 1] * inv,
+                        acc[i][cg * 4 + 2] * inv, acc[i][cg * 4 + 3] * inv);
     }
   }
 }
 
-template <int DP>
-size_t decode_smem_bytes(int g) {
-  return sizeof(float) * ((size_t)g * (DP + 4) + 2 * (size_t)DK * (DP + 4) +
-                          (size_t)g * DK + (size_t)g * DP + 3 * (size_t)g);
+// ---------------------------------------------------- split-KV decode
+
+constexpr int DK = 32;    // decode: keys per tile, one per lane
+constexpr int DNS = 2;    // decode: K/V stages
+constexpr int DNT = 128;  // decode: threads per block, 4 warps
+constexpr int DHW = 4;    // decode: query heads per warp, so g <= 16
+constexpr int CNT = 512;  // combine: threads per block
+
+template <typename T>
+size_t decode_smem_bytes(int g, int D) {
+  const size_t LD = D + 16 / sizeof(T);
+  return 2 * DNS * DK * LD * sizeof(T) + sizeof(float) * (size_t)g * D;
 }
 
-template <typename T, int DP>
+// q (B, 1, Hq, D); k, v (B, Skv, Hkv, D).  Block (split, hk, b) covers the
+// keys [split * chunk, split * chunk + chunk); warp w takes the query heads
+// w, w + 4, ... of the KV head's g.  Scratch rows are (B, Hkv, n_split, g):
+// acc (rows x D), then m (rows), then l (rows).
+template <typename T>
 __global__ void __launch_bounds__(DNT)
-decode_fwd(const T* __restrict__ q, const T* __restrict__ k,
-           const T* __restrict__ v, T* __restrict__ o,
-           const int* __restrict__ kv_len, int kv_len_all,
-           const int* __restrict__ q_off, int q_off_all, int Skv, int Hq,
-           int Hkv, int D, int causal, int has_window, int window,
-           int has_softcap, float softcap, float scale) {
-  constexpr int LD = DP + 4;
+decode_partial(const T* __restrict__ q, const T* __restrict__ k,
+               const T* __restrict__ v, float* __restrict__ scratch,
+               const int* __restrict__ kv_len, int kv_len_all,
+               const int* __restrict__ q_off, int q_off_all, int Skv, int Hq,
+               int Hkv, int D, int chunk, int causal, int has_window,
+               int window, int has_softcap, float softcap, float scale) {
+  // the combine may launch now; it waits for this grid's writes
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+  constexpr int V = 16 / sizeof(T);  // elements per 16-byte chunk
+  const int LD = D + V;
+  const int CH = D / V;               // 16-byte chunks per row
   const int g = Hq / Hkv;
-  extern __shared__ float smem[];
-  float* sQ = smem;                    // g x LD
-  float* sK = sQ + g * LD;             // DK x LD
-  float* sV = sK + DK * LD;            // DK x LD
-  float* sS = sV + DK * LD;            // g x DK
-  float* sAcc = sS + g * DK;           // g x DP
-  float* sM = sAcc + g * DP;           // g
-  float* sL = sM + g;                  // g
-  float* sAlpha = sL + g;              // g
-
-  const int hk = blockIdx.x;
-  const int b = blockIdx.y;
+  const int split = blockIdx.x;
+  const int hk = blockIdx.y;
+  const int b = blockIdx.z;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
+  const long long rows = (long long)gridDim.z * Hkv * gridDim.x * g;
+  const long long row0 = (((long long)b * Hkv + hk) * gridDim.x + split) * g;
+  float* part_m = scratch + rows * D;
+  float* part_l = part_m + rows;
 
+  // the valid keys of this split: one interval, the same for all g heads
   const int qp = q_off ? q_off[b] : q_off_all;
-  int kend = min(kv_len ? kv_len[b] : kv_len_all, Skv);
-  if (causal) kend = min(kend, qp + 1);
-  int kbeg = 0;
-  if (has_window) kbeg = max(0, qp - window + 1);
+  int hi = min(kv_len ? kv_len[b] : kv_len_all, Skv);
+  if (causal) hi = min(hi, qp + 1);
+  int lo = has_window ? max(0, qp - window + 1) : 0;
+  lo = max(lo, split * chunk);
+  hi = min(hi, split * chunk + chunk);
+  if (lo >= hi) {
+    for (int r = threadIdx.x; r < g; r += DNT) {
+      part_m[row0 + r] = -INFINITY;
+      part_l[row0 + r] = 0.f;
+    }
+    return;
+  }
+
+  extern __shared__ __align__(16) unsigned char dsmem[];
+  T* sK = reinterpret_cast<T*>(dsmem);  // [DNS][DK][LD]
+  T* sV = sK + DNS * DK * LD;           // [DNS][DK][LD]
+  float* sQ = reinterpret_cast<float*>(sV + DNS * DK * LD);  // g x D, scaled
 
   const long long ks = (long long)Hkv * D;
   const T* kb = k + (long long)b * Skv * ks + (long long)hk * D;
   const T* vb = v + (long long)b * Skv * ks + (long long)hk * D;
+  // Tiles start at multiples of DK (so does the chunk): rows of a tile
+  // before lo are cache rows the scores mask, rows at or past hi are zeros.
+  // A ring of DNS stages: tile t goes to stage t % DNS, one copy group per
+  // tile (empty past the last), DNS - 1 tiles ahead of the one in use.
+  const int t_first = lo / DK * DK;
+  const int nt = (hi - t_first + DK - 1) / DK;
+  auto issue = [&](int t) {
+    if (t < nt) {
+      const int r0 = t_first + t * DK;
+      copy_tile<T, DNT>(sK + (t % DNS) * DK * LD, kb, DK, D, LD, r0,
+                        hi - r0, ks, D);
+      copy_tile<T, DNT>(sV + (t % DNS) * DK * LD, vb, DK, D, LD, r0,
+                        hi - r0, ks, D);
+    }
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int t = 0; t < DNS - 1; ++t) issue(t);
   // the g query heads of this KV head are consecutive rows of length D
-  load_tile<T, DP, LD, DNT>(sQ, q + ((long long)b * Hq + (long long)hk * g) * D,
-                            g, 0, g, D, D, scale);
-  for (int i = threadIdx.x; i < g * DP; i += DNT) sAcc[i] = 0.f;
-  for (int r = threadIdx.x; r < g; r += DNT) {
-    sM[r] = -INFINITY;
-    sL[r] = 0.f;
+  const T* qh = q + ((long long)b * Hq + (long long)hk * g) * D;
+  for (int i = threadIdx.x; i < g * CH; i += DNT) {
+    float x[V];
+    load16(qh + i * V, x);
+#pragma unroll
+    for (int u = 0; u < V; ++u) sQ[i * V + u] = x[u] * scale;
   }
 
-  for (int kt0 = kbeg; kt0 < kend; kt0 += DK) {
-    __syncthreads();
-    load_tile<T, DP, LD, DNT>(sK, kb, DK, kt0, kend - kt0, ks, D, 1.f);
-    load_tile<T, DP, LD, DNT>(sV, vb, DK, kt0, kend - kt0, ks, D, 1.f);
-    __syncthreads();
+  // P V lanes: CW lanes cover one row (CW a power of two >= CH, at most
+  // 32), KQ = 32 / CW rows at a time; lane chunk c = lane % CW (+ 32)
+  const int CW = CH > 16 ? 32 : CH > 8 ? 16 : CH > 4 ? 8 : CH > 2 ? 4 : 2;
+  const int KQ = 32 / CW;
+  const int c0 = lane % CW;
+  float m[DHW], l[DHW], acc[DHW][8];  // acc: chunks c0 and c0 + 32
+#pragma unroll
+  for (int i = 0; i < DHW; ++i) {
+    m[i] = -INFINITY;
+    l[i] = 0.f;
+#pragma unroll
+    for (int u = 0; u < 8; ++u) acc[i][u] = 0.f;
+  }
 
-    for (int i = threadIdx.x; i < g * DK; i += DNT) {
-      const int r = i / DK;
-      const int j = i % DK;
-      const int kp = kt0 + j;
-      float x = 0.f;
-#pragma unroll 8
-      for (int d = 0; d < DP; d += 4)
-        x = dot4(*reinterpret_cast<const float4*>(&sQ[r * LD + d]),
-                 *reinterpret_cast<const float4*>(&sK[j * LD + d]), x);
+  for (int t = 0; t < nt; ++t) {
+    const int t0 = t_first + t * DK;
+    issue(t + DNS - 1);  // its stage was last read at t - 1
+    cp_async_wait<DNS - 1>();
+    __syncthreads();
+    const T* cK = sK + (t % DNS) * DK * LD;
+    const T* cV = sV + (t % DNS) * DK * LD;
+    const bool live = t0 + lane >= lo && t0 + lane < hi;
+
+#pragma unroll
+    for (int i = 0; i < DHW; ++i) {
+      const int h = warp + 4 * i;
+      if (h >= g) break;
+      // the score of key t0 + lane, in four chains
+      const T* kr = cK + lane * LD;
+      const float* qr = sQ + h * D;
+      float xs[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll 2
+      for (int c = 0; c < D; c += V) {
+        float kv[V];
+        load16(kr + c, kv);
+#pragma unroll
+        for (int u = 0; u < V; u += 4) {
+          const float4 qv = *reinterpret_cast<const float4*>(qr + c + u);
+          xs[0] = fmaf(qv.x, kv[u], xs[0]);
+          xs[1] = fmaf(qv.y, kv[u + 1], xs[1]);
+          xs[2] = fmaf(qv.z, kv[u + 2], xs[2]);
+          xs[3] = fmaf(qv.w, kv[u + 3], xs[3]);
+        }
+      }
+      float x = (xs[0] + xs[1]) + (xs[2] + xs[3]);
       if (has_softcap) x = tanhf(x / softcap) * softcap;
-      bool ok = kp < kend;
-      if (has_window) ok = ok && kp > qp - window;
-      sS[i] = ok ? x : -INFINITY;
-    }
-    __syncthreads();
+      if (!live) x = -INFINITY;
 
-    for (int r = warp; r < g; r += DNT / 32) {
-      float a = sS[r * DK + lane];
-      float c = sS[r * DK + lane + 32];
-      float mx = fmaxf(a, c);
+      // online softmax across the warp (every tile has a live key)
+      const float mnew = fmaxf(m[i], warp_max(x));
+      const float alpha = mnew == -INFINITY ? 1.f : expf(m[i] - mnew);
+      const float p = x == -INFINITY ? 0.f : expf(x - mnew);
+      l[i] = l[i] * alpha + warp_sum(p);
+      m[i] = mnew;
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float mprev = sM[r];
-      const float mnew = fmaxf(mprev, mx);
-      float alpha = 1.f;
-      if (mnew != -INFINITY) {
-        alpha = expf(mprev - mnew);
-        a = a == -INFINITY ? 0.f : expf(a - mnew);
-        c = c == -INFINITY ? 0.f : expf(c - mnew);
-      } else {
-        a = 0.f;
-        c = 0.f;
-      }
-      sS[r * DK + lane] = a;
-      sS[r * DK + lane + 32] = c;
-      float sum = a + c;
+      for (int u = 0; u < 8; ++u) acc[i][u] *= alpha;
+
+      // acc += p V: rows jj + lane / CW, the weight from the row's lane
+      for (int jj = 0; jj < DK; jj += KQ) {
+        const int jr = jj + lane / CW;
+        const float pj = __shfl_sync(0xffffffffu, p, jr);
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      if (lane == 0) {
-        sL[r] = sL[r] * alpha + sum;
-        sM[r] = mnew;
-        sAlpha[r] = alpha;
+        for (int n = 0; n < 8 / V; ++n) {
+          const int c = c0 + 32 * n;
+          if (c < CH) {
+            float vv[V];
+            load16(cV + jr * LD + c * V, vv);
+#pragma unroll
+            for (int u = 0; u < V; ++u)
+              acc[i][n * V + u] = fmaf(pj, vv[u], acc[i][n * V + u]);
+          }
+        }
       }
     }
-    __syncthreads();
-
-    for (int i = threadIdx.x; i < g * DP; i += DNT) {
-      const int r = i / DP;
-      const int d = i % DP;
-      float a = sAcc[i] * sAlpha[r];
-#pragma unroll 8
-      for (int j = 0; j < DK; ++j) a = fmaf(sS[r * DK + j], sV[j * LD + d], a);
-      sAcc[i] = a;
-    }
+    __syncthreads();  // this stage is refilled at t + 1
   }
-  __syncthreads();
 
-  for (int i = threadIdx.x; i < g * (D / 4); i += DNT) {
-    const int r = i / (D / 4);
-    const int c = (i % (D / 4)) * 4;
-    const float inv = sL[r] > 0.f ? 1.f / sL[r] : 0.f;
-    const float* a = sAcc + r * DP + c;
-    store4(o + ((long long)b * Hq + (long long)hk * g + r) * D + c,
-           a[0] * inv, a[1] * inv, a[2] * inv, a[3] * inv);
+  // sum the KQ row groups; lanes below CW hold their chunks' totals
+#pragma unroll
+  for (int i = 0; i < DHW; ++i) {
+    const int h = warp + 4 * i;
+    if (h >= g) break;
+#pragma unroll
+    for (int u = 0; u < 8; ++u)
+      for (int off = CW; off < 32; off <<= 1)
+        acc[i][u] += __shfl_xor_sync(0xffffffffu, acc[i][u], off);
+    float* out = scratch + (row0 + h) * D;
+#pragma unroll
+    for (int n = 0; n < 8 / V; ++n) {
+      const int c = c0 + 32 * n;
+      if (lane < CW && c < CH)
+#pragma unroll
+        for (int u = 0; u < V; ++u) out[c * V + u] = acc[i][n * V + u];
+    }
+    if (lane == 0) {
+      part_m[row0 + h] = m[i];
+      part_l[row0 + h] = l[i];
+    }
   }
 }
 
-template <typename T, int DP>
-int launch_flash(const void* q, const void* k, const void* v, void* o,
-                 const int* kv_len, int kv_len_all, const int* q_off,
-                 int q_off_all, int B, int Sq, int Skv, int Hq, int Hkv,
-                 int D, int causal, int has_window, int window,
-                 int has_softcap, float softcap, float scale,
-                 cudaStream_t stream) {
+// Merge the splits of one (KV head, batch) in split order; o (B, 1, Hq, D).
+// First one warp per head finds the splits' weights exp(m_s - M) / L in
+// shared memory (n_split x g floats), then each thread sums its outputs
+// over the splits.
+template <typename T>
+__global__ void __launch_bounds__(CNT)
+decode_combine(const float* __restrict__ scratch, T* __restrict__ o,
+               int n_split, int Hq, int Hkv, int D) {
+  // launched early (programmatic dependent launch): wait until the
+  // partials are written
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+  extern __shared__ float sW[];  // [n_split][g]
+  const int g = Hq / Hkv;
+  const int hk = blockIdx.x;
+  const int b = blockIdx.y;
+  const int lane = threadIdx.x & 31;
+  const long long rows = (long long)gridDim.y * Hkv * n_split * g;
+  const float* part_m = scratch + rows * D;
+  const float* part_l = part_m + rows;
+  const long long row0 = ((long long)b * Hkv + hk) * n_split * g;
+  for (int h = threadIdx.x >> 5; h < g; h += CNT / 32) {
+    float M = -INFINITY;
+    for (int s = lane; s < n_split; s += 32)
+      M = fmaxf(M, part_m[row0 + (long long)s * g + h]);
+    M = warp_max(M);
+    float L = 0.f;
+    for (int s = lane; s < n_split; s += 32) {
+      const long long r = row0 + (long long)s * g + h;
+      // an empty split (m = -inf) weighs 0; its acc, never written, is
+      // selected away below
+      const float w = part_m[r] == -INFINITY ? 0.f : expf(part_m[r] - M);
+      sW[s * g + h] = w;
+      L += part_l[r] * w;
+    }
+    L = warp_sum(L);
+    const float inv = L > 0.f ? 1.f / L : 0.f;
+    __syncwarp();
+    for (int s = lane; s < n_split; s += 32) sW[s * g + h] *= inv;
+  }
+  __syncthreads();
+  const float* acc = scratch + row0 * D;
+  for (int i = threadIdx.x; i < g * D; i += CNT) {
+    const int h = i / D;
+    float a = 0.f;
+#pragma unroll 8
+    for (int s = 0; s < n_split; ++s) {
+      const float w = sW[s * g + h];
+      const float x = acc[(long long)s * g * D + i];  // garbage where w = 0
+      a = fmaf(w != 0.f ? x : 0.f, w, a);
+    }
+    store1(o + ((long long)b * Hq + (long long)hk * g) * D + i, a);
+  }
+}
+
+// ----------------------------------------------------------- launchers
+
+// cuTensorMapEncodeTiled from the driver, found at run time: the library
+// links against the runtime only
+static PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
+  static PFN_cuTensorMapEncodeTiled_v12000 fn = nullptr;
+  if (fn == nullptr) {
+    cudaDriverEntryPointQueryResult found;
+    void* p = nullptr;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault, &found) == cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(p);
+  }
+  return fn;
+}
+
+// The map of a (B, S, H, D) bf16 tensor read as 64-column x `rows`-row
+// panels of one head, in the 128-byte swizzle; reads past S or D give 0.
+static bool panel_map(CUtensorMap* map, const void* x, int B, int S, int H,
+                      int D, int rows) {
+  PFN_cuTensorMapEncodeTiled_v12000 encode = tensor_map_encoder();
+  if (encode == nullptr) return false;
+  cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)S,
+                        (cuuint64_t)B};
+  cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)H * D * 2,
+                           (cuuint64_t)S * H * D * 2};
+  cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
+  cuuint32_t unit[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                const_cast<void*>(x), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int DP>
+int launch_flash_bf16(const void* q, const void* k, const void* v, void* o,
+                      const int* kv_len, int kv_len_all, const int* q_off,
+                      int q_off_all, int B, int Sq, int Skv, int Hq, int Hkv,
+                      int D, int causal, int has_window, int window,
+                      int has_softcap, float softcap, float scale,
+                      cudaStream_t stream) {
+  constexpr size_t smem = WgCfg<DP>::smem;
   static bool configured = false;
-  const size_t smem = flash_smem_bytes<DP>();
   if (!configured) {
     cudaError_t e = cudaFuncSetAttribute(
-        flash_fwd<T, DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        flash_fwd_bf16<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    configured = true;
+  }
+  if (Skv == 0)  // no key: every row is zero
+    return (int)cudaMemsetAsync(o, 0, (size_t)B * Sq * Hq * D * 2, stream);
+  CUtensorMap mq, mk, mv;
+  if (!panel_map(&mq, q, B, Sq, Hq, D, GQ) ||
+      !panel_map(&mk, k, B, Skv, Hkv, D, WgCfg<DP>::BK) ||
+      !panel_map(&mv, v, B, Skv, Hkv, D, WgCfg<DP>::BK))
+    return (int)cudaErrorInvalidValue;
+  dim3 grid(Hq, B, (Sq + GQ - 1) / GQ);
+  flash_fwd_bf16<DP><<<grid, GNT + 32, smem, stream>>>(
+      mq, mk, mv, static_cast<__nv_bfloat16*>(o), kv_len, kv_len_all, q_off,
+      q_off_all, Sq, Skv, Hq, Hkv, D, causal, has_window, window,
+      has_softcap, softcap, scale);
+  return (int)cudaGetLastError();
+}
+
+template <int DP>
+int launch_flash_f32(const void* q, const void* k, const void* v, void* o,
+                     const int* kv_len, int kv_len_all, const int* q_off,
+                     int q_off_all, int B, int Sq, int Skv, int Hq, int Hkv,
+                     int D, int causal, int has_window, int window,
+                     int has_softcap, float softcap, float scale,
+                     cudaStream_t stream) {
+  static bool configured = false;
+  const size_t smem = flash_f32_smem_bytes<DP>();
+  if (!configured) {
+    cudaError_t e = cudaFuncSetAttribute(
+        flash_fwd_f32<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (e != cudaSuccess) return (int)e;
     configured = true;
   }
   dim3 grid((Sq + BQ - 1) / BQ, Hq, B);
-  flash_fwd<T, DP><<<grid, NT, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), kv_len, kv_len_all,
-      q_off, q_off_all, Sq, Skv, Hq, Hkv, D, causal, has_window, window,
-      has_softcap, softcap, scale);
+  flash_fwd_f32<DP><<<grid, NT, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), kv_len,
+      kv_len_all, q_off, q_off_all, Sq, Skv, Hq, Hkv, D, causal, has_window,
+      window, has_softcap, softcap, scale);
   return (int)cudaGetLastError();
 }
 
-template <typename T, int DP>
+template <typename T>
 int launch_decode(const void* q, const void* k, const void* v, void* o,
                   const int* kv_len, int kv_len_all, const int* q_off,
                   int q_off_all, int B, int Skv, int Hq, int Hkv, int D,
                   int causal, int has_window, int window, int has_softcap,
-                  float softcap, float scale, cudaStream_t stream) {
+                  float softcap, float scale, float* scratch, int n_split,
+                  int chunk, cudaStream_t stream) {
   static bool configured = false;
-  const size_t smem = decode_smem_bytes<DP>(Hq / Hkv);
-  if (smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidConfiguration;
+  const size_t smem = decode_smem_bytes<T>(Hq / Hkv, D);
+  const size_t combine_smem = sizeof(float) * (size_t)n_split * (Hq / Hkv);
+  if (smem > (size_t)kMaxSmem || combine_smem > 48 * 1024)
+    return (int)cudaErrorInvalidConfiguration;
   if (!configured) {
     cudaError_t e = cudaFuncSetAttribute(
-        decode_fwd<T, DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        decode_partial<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         kMaxSmem);
     if (e != cudaSuccess) return (int)e;
     configured = true;
   }
-  dim3 grid(Hkv, B);
-  decode_fwd<T, DP><<<grid, DNT, smem, stream>>>(
+  decode_partial<T><<<dim3(n_split, Hkv, B), DNT, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), kv_len, kv_len_all,
-      q_off, q_off_all, Skv, Hq, Hkv, D, causal, has_window, window,
+      static_cast<const T*>(v), scratch, kv_len, kv_len_all, q_off,
+      q_off_all, Skv, Hq, Hkv, D, chunk, causal, has_window, window,
       has_softcap, softcap, scale);
-  return (int)cudaGetLastError();
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  // programmatic dependent launch: the combine's blocks start while the
+  // partials run and wait for them (griddepcontrol.wait), so its launch
+  // latency overlaps theirs
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(Hkv, B);
+  cfg.blockDim = dim3(CNT);
+  cfg.dynamicSmemBytes = combine_smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return (int)cudaLaunchKernelEx(&cfg, decode_combine<T>,
+                                 static_cast<const float*>(scratch),
+                                 static_cast<T*>(o), n_split, Hq, Hkv, D);
 }
 
 }  // namespace
@@ -461,42 +1163,41 @@ extern "C" int flash_attention_fwd(
   q, k, v, o, kv_len, kv_len_all, q_off, q_off_all, B, Sq, Skv, Hq, Hkv, D, \
       causal, has_window, window, has_softcap, softcap, scale, s
   if (dtype == 0) {
-    if (D <= 64) return launch_flash<__nv_bfloat16, 64>(FLASH_ARGS);
-    if (D <= 128) return launch_flash<__nv_bfloat16, 128>(FLASH_ARGS);
-    return launch_flash<__nv_bfloat16, 256>(FLASH_ARGS);
+    if (D <= 64) return launch_flash_bf16<64>(FLASH_ARGS);
+    if (D <= 128) return launch_flash_bf16<128>(FLASH_ARGS);
+    return launch_flash_bf16<256>(FLASH_ARGS);
   }
   if (dtype == 1) {
-    if (D <= 64) return launch_flash<float, 64>(FLASH_ARGS);
-    if (D <= 128) return launch_flash<float, 128>(FLASH_ARGS);
-    return launch_flash<float, 256>(FLASH_ARGS);
+    if (D <= 64) return launch_flash_f32<64>(FLASH_ARGS);
+    if (D <= 128) return launch_flash_f32<128>(FLASH_ARGS);
+    return launch_flash_f32<256>(FLASH_ARGS);
   }
 #undef FLASH_ARGS
   return (int)cudaErrorInvalidValue;
 }
 
 // q: (B, 1, Hq, D); k, v: (B, Skv, Hkv, D).  Same conventions as above.
+// scratch: (B * Hq * n_split * (D + 2)) f32 from the caller; the keys are
+// cut into n_split chunks of `chunk` (a multiple of 32) that cover Skv.
 extern "C" int decode_attention_fwd(
     const void* q, const void* k, const void* v, void* o, const int* kv_len,
     int kv_len_all, const int* q_off, int q_off_all, int B, int Skv, int Hq,
     int Hkv, int D, int dtype, int causal, int has_window, int window,
-    int has_softcap, float softcap, float scale, void* stream) {
-  if (D % 8 != 0 || D > 256 || Hkv <= 0 || Hq % Hkv != 0)
+    int has_softcap, float softcap, float scale, void* scratch, int n_split,
+    int chunk, void* stream) {
+  if (D % 8 != 0 || D > 256 || Hkv <= 0 || Hq % Hkv != 0 ||
+      Hq / Hkv > 4 * DHW || n_split < 1 ||
+      chunk < DK || chunk % DK != 0 || (long long)n_split * chunk < Skv)
     return (int)cudaErrorInvalidValue;
   if (B == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* sc = static_cast<float*>(scratch);
 #define DECODE_ARGS                                                       \
   q, k, v, o, kv_len, kv_len_all, q_off, q_off_all, B, Skv, Hq, Hkv, D,     \
-      causal, has_window, window, has_softcap, softcap, scale, s
-  if (dtype == 0) {
-    if (D <= 64) return launch_decode<__nv_bfloat16, 64>(DECODE_ARGS);
-    if (D <= 128) return launch_decode<__nv_bfloat16, 128>(DECODE_ARGS);
-    return launch_decode<__nv_bfloat16, 256>(DECODE_ARGS);
-  }
-  if (dtype == 1) {
-    if (D <= 64) return launch_decode<float, 64>(DECODE_ARGS);
-    if (D <= 128) return launch_decode<float, 128>(DECODE_ARGS);
-    return launch_decode<float, 256>(DECODE_ARGS);
-  }
+      causal, has_window, window, has_softcap, softcap, scale, sc, n_split, \
+      chunk, s
+  if (dtype == 0) return launch_decode<__nv_bfloat16>(DECODE_ARGS);
+  if (dtype == 1) return launch_decode<float>(DECODE_ARGS);
 #undef DECODE_ARGS
   return (int)cudaErrorInvalidValue;
 }

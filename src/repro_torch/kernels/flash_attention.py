@@ -3,16 +3,45 @@
 
 Counterpart of ``repro/kernels/flash_attention.py``.  For tensors on the
 CPU each wrapper runs the plain version, ``ref.attention_ref``.  For CUDA
-tensors it launches the kernel of ``csrc/flash_attention.cu`` or raises:
-there is no fallback.  Each launch adds one to the wrapper's ``launches``.
+tensors it launches the kernels of ``csrc/flash_attention.cu`` or raises:
+there is no fallback.  Each wrapper call adds one to the wrapper's
+``launches``.  A decode call launches two kernels, a split-KV pass and the
+combine, on a plan from ``decode_splits``.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
 from . import ref
 
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
+#: keys per tile of the split-KV decode (``DK`` in csrc/flash_attention.cu)
+DECODE_TILE = 32
+#: query heads per KV head the decode kernel takes: 4 warps of 4 heads
+DECODE_MAX_GROUP = 16
+
+
+def decode_splits(B: int, Hkv: int, Skv: int, n_sm: int) -> tuple[int, int]:
+    """Plan the split-KV decode over a cache of ``Skv`` keys:
+    ``(n_split, chunk)``.
+
+    Split s takes the keys [s * chunk, (s + 1) * chunk); ``chunk`` is a
+    multiple of ``DECODE_TILE`` and the splits cover [0, Skv) with no empty
+    one at the end.  The grid is n_split x Hkv x B blocks, aimed at about
+    two per SM where the cache has that many tiles.  Only host-known sizes
+    go in: the valid length ``kv_len`` stays on the card.
+    """
+    tiles = max(1, -(-Skv // DECODE_TILE))
+    want = min(tiles, max(1, -(-2 * n_sm // max(1, B * Hkv))))
+    chunk = -(-tiles // want) * DECODE_TILE
+    return max(1, -(-Skv // chunk)), chunk
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _check(q, k, v, name):
@@ -39,6 +68,8 @@ def _check(q, k, v, name):
                          f"and at most 256")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError(f"{name}: q, k, v must be contiguous")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError(f"{name}: q, k, v must start 16-byte aligned")
 
 
 def _per_batch(value, B, device):
@@ -63,8 +94,15 @@ def _launch(fn_name, q, k, v, *, causal, window, softcap, scale, q_offset,
     qo, qo_all = _per_batch(q_offset, B, q.device)
     o = torch.empty_like(q)
     lib = _build.load("flash_attention")
-    shape = (B, Sq, Skv, Hq, Hkv, D) if fn_name == "flash_attention_fwd" \
-        else (B, Skv, Hq, Hkv, D)
+    if fn_name == "flash_attention_fwd":
+        shape, plan = (B, Sq, Skv, Hq, Hkv, D), ()
+    else:
+        shape = (B, Skv, Hq, Hkv, D)
+        n_split, chunk = decode_splits(B, Hkv, Skv, _sm_count(q.device.index))
+        # per (batch, query head, split): an f32 partial acc (D), m and l
+        scratch = torch.empty(B * Hq * n_split * (D + 2),
+                              dtype=torch.float32, device=q.device)
+        plan = (scratch.data_ptr(), n_split, chunk)
     with torch.cuda.device(q.device):
         err = getattr(lib, fn_name)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
@@ -74,7 +112,7 @@ def _launch(fn_name, q, k, v, *, causal, window, softcap, scale, q_offset,
             int(window is not None), 0 if window is None else int(window),
             int(softcap is not None),
             0.0 if softcap is None else float(softcap), float(scale),
-            torch.cuda.current_stream().cuda_stream)
+            *plan, torch.cuda.current_stream().cuda_stream)
     _build.check(err, fn_name)
     return o
 
@@ -119,6 +157,10 @@ def decode_attention(q, k, v, *, causal=False, window=None, softcap=None,
                                  softcap=softcap, scale=scale,
                                  q_offset=q_offset, kv_len=kv_len)
     _check(q, k, v, "decode_attention")
+    if q.shape[2] // k.shape[2] > DECODE_MAX_GROUP:
+        raise ValueError(f"decode_attention: at most {DECODE_MAX_GROUP} "
+                         f"query heads per KV head on CUDA, got "
+                         f"{q.shape[2]} / {k.shape[2]}")
     o = _launch("decode_attention_fwd", q, k, v, causal=causal,
                 window=window, softcap=softcap, scale=scale,
                 q_offset=q_offset, kv_len=kv_len)
