@@ -10,7 +10,10 @@ Phases, each printing its own lines:
    with nvcc for sm_90a.
    Prints each kernel's registers and spills (ptxas -v) and its count of
    tensor-core instructions (cuobjdump -sass); the bf16 prefill attention
-   must have HMMA/HGMMA instructions and no spill at head sizes <= 128.
+   must have HMMA/HGMMA instructions and no spill at head sizes <= 128,
+   the bf16 prefill grouped matmul (gmm_wgmma<128, 256, 4>) HGMMA and no
+   spill, and the gather's 16-byte copy (burst_vec<uint4>) the 64
+   registers that hold a lane's loads of a row in flight.
 3. kernels: each kernel against its plain PyTorch version on the card, in
    bf16 (tolerance rtol = atol = 2e-2, as in tests/test_kernels.py; one f32
    case at 2e-5), the gather exactly.  Prefill attention at the three
@@ -23,8 +26,15 @@ Phases, each printing its own lines:
    sizes: y at 2e-2 and the f32 state at 3e-2 in bf16; one f32 case each,
    y at 2e-5 (2e-4 for rwkv6, as in tests/test_kernels.py) and the state
    at 1e-4.  The grouped matmul in bf16 and f32 at granite-moe-3b's
-   prefill and decode shapes, at ragged sizes, on unsorted and
-   out-of-range ids, and at one arctic-480b layer's expert shapes.
+   prefill and decode shapes, at ragged sizes (K and N off the tiles, and
+   not multiples of 8, which take the generic kernels, also in 64-row
+   sub-tiles of 128-row tiles), on unsorted and out-of-range ids, with one
+   expert, with fewer rows than one tile over many experts, and at one
+   arctic-480b layer's expert shapes; at each, its plan equals the plain
+   plan and a second run with that plan gives the same bits.  The gather,
+   exactly, on granite-8b's embedding streams, granite-moe's prefill and
+   decode dispatch and an odd row width, with its count of burst tiles
+   equal to the detector's rule.
 4. reference: granite-8b-, zamba2-7b-, rwkv6- and granite-moe-3b-reduced
    on the card (kernels) against the same weights on the CPU (plain
    versions), teacher-forced, atol 2e-2; for the MoE model a batch row may
@@ -34,7 +44,7 @@ Phases, each printing its own lines:
    in turn, each at full width and depth (random weights from seed 0): 4
    prompts of 512 tokens, greedy prefill then 32 decode steps through
    ``repro_torch.launch.serve``; checks finite logits and the exact launch
-   count of every kernel.
+   count of every kernel (and of the MoE plans: one per layer and step).
 6. no sync: for each model a prefill and a decode step run with PyTorch's
    sync debug mode set to "error".
 7. cache, for each model: a second prefill over prompt + first generated
@@ -44,7 +54,11 @@ Phases, each printing its own lines:
    checks the carried conv, ssd, token-shift and wkv states.
 8. times: both attention kernels at each served model's shapes beside
    SDPA and their bound (``time flash_attention[<model>]``,
-   ``time decode_attention[<model>]``), the scans and the grouped matmul;
+   ``time decode_attention[<model>]``), the gather at the embedding and
+   the MoE dispatch beside ``index_select`` (three rounds, alternating),
+   the scans, and the grouped matmul with its plan inside the call and
+   with a shared plan, beside ``torch._grouped_mm``, with the schedule it
+   chose;
    a JSON line with each kernel's launches, error, times and bound, then
    the result line.
 
@@ -93,7 +107,8 @@ COUNTERS = {"flash_attention": fa.flash_attention,
             "burst_gather": bg.burst_gather,
             "mamba2_scan": m2.mamba2_scan,
             "rwkv6_scan": r6.rwkv6_scan,
-            "moe_gmm": gmm.moe_gmm}
+            "moe_gmm": gmm.moe_gmm,
+            "moe_plan": gmm.plan}
 CACHE_F32_TOL = dict(rtol=1e-3, atol=1e-3)
 CACHE_BF16_REL_L2 = 5e-2
 B, PROMPT, GEN = 4, 512, 32
@@ -207,6 +222,15 @@ def check_attention(gen):
     return errs["serve"], errs["decode-serve"]
 
 
+def dispatch_ids(gen, tokens, E=40, k=8):
+    """The ids of granite-moe's dispatch gather (``model/moe.py``): the
+    (token, k) pairs of the top-k of random router scores over E experts,
+    stably sorted by expert, as token ids (order // k)."""
+    top = torch.randn((tokens, E), generator=gen, device="cuda").topk(
+        k, -1).indices.reshape(-1)
+    return torch.argsort(top, stable=True) // k
+
+
 def gather_streams(gen, R):
     n = 2048
     mixed, left = [], n + 3
@@ -224,15 +248,61 @@ def gather_streams(gen, R):
     }
 
 
+def burst_tiles(idx, R):
+    """Tiles of ``bg.TILE`` ids that are one run of in-range rows (the
+    burst detector's rule), counted on the host."""
+    t = bg.TILE
+    pad = -idx.numel() % t
+    ids = torch.cat([idx.long(), idx.new_full((pad,), -1).long()]).view(-1, t)
+    n = torch.full((ids.shape[0],), t, device=idx.device)
+    if pad:
+        n[-1] = t - pad
+    lane = torch.arange(t, device=idx.device)
+    live = lane[None] < n[:, None]
+    ok = (ids >= 0) & (ids < R) & (ids == ids[:, :1] + lane[None])
+    return int((ok | ~live).all(1).sum()), ids.shape[0]
+
+
+#: the dispatch gather's table: granite-moe's (B x PROMPT, d_model) bf16
+#: activations
+DISPATCH_TABLE = (B * PROMPT, 1536)
+
+
+def gather_tables(table, gen):
+    """(name, table, ids) of every gather checked: the streams of
+    ``gather_streams`` into ``table`` (granite-8b's embedding), granite-
+    moe's prefill and decode dispatch, and random ids into a table of an
+    odd bf16 width, whose rows are not a multiple of 16 bytes."""
+    cases = [(name, table, idx) for name, idx in
+             gather_streams(gen, table.shape[0]).items()]
+    moe_x = _rand(DISPATCH_TABLE, gen)
+    cases += [("dispatch-prefill", moe_x, dispatch_ids(gen, B * PROMPT)),
+              ("dispatch-decode", moe_x, dispatch_ids(gen, B))]
+    odd = _rand((3000, 1535), gen)
+    cases.append(("odd-width-1535", odd, torch.randint(
+        0, 3000, (2051,), generator=gen, device="cuda")))
+    return cases
+
+
 def check_gather(table, gen):
-    for name, idx in gather_streams(gen, table.shape[0]).items():
+    """Every stream exact, with the kernel's count of burst tiles equal to
+    the detector's rule on the host."""
+    for name, tab, idx in gather_tables(table, gen):
         idx = idx.to(torch.int32)
-        got = bg.burst_gather(table, idx)
-        exact = torch.equal(got, ref.burst_gather_ref(table, idx))
-        _phase(f"check burst_gather[{name}]: N={idx.numel()} exact="
-               f"{exact} {'ok' if exact else 'FAIL'}")
-        if not exact:
-            raise AssertionError(f"burst_gather[{name}] is not exact")
+        want = ref.burst_gather_ref(tab, idx)
+        bursts = torch.zeros(1, dtype=torch.int32, device="cuda")
+        got = bg.burst_gather(tab, idx, bursts=bursts)
+        exact = torch.equal(got, want)
+        runs, tiles = burst_tiles(idx, tab.shape[0])
+        counted = int(bursts)
+        ok = exact and counted == runs
+        _phase(f"check burst_gather[{name}]: N={idx.numel()} row "
+               f"{tab.shape[1] * tab.element_size()} B, exact={exact}, burst"
+               f" tiles {counted} of {tiles} (host rule {runs}) "
+               f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"burst_gather[{name}] is not exact or "
+                                 f"miscounts its bursts")
 
 
 def mamba2_inputs(gen, b, s, h, p, n, dtype=torch.bfloat16, state=True,
@@ -347,6 +417,23 @@ MOE_CASES = [
     ("f32-ragged-unsorted-oor", (33, 1), 40, 24, 5, torch.float32, (-2, 8)),
     ("arctic-480b", (B * PROMPT, 2), 7168, 4864, 128, torch.bfloat16,
      "sorted"),
+    # T below one tile over many experts (most SMs without a block), sorted
+    # (rows by TMA) and in token order (rows gathered through perm)
+    ("t24-many-experts", (3, 8), 1536, 512, 40, torch.bfloat16, "sorted"),
+    ("t24-many-experts-unsorted", (3, 8), 1536, 512, 40, torch.bfloat16,
+     "token"),
+    # K and N multiples of 8 but not of the tiles (K step 64; 256 columns)
+    ("ragged-k1000-n200", (256, 4), 1000, 200, 8, torch.bfloat16, "sorted"),
+    ("e1-every-row", (300, 1), 256, 264, 1, torch.bfloat16, (0, 1)),
+    ("all-out-of-range", (100, 1), 128, 64, 4, torch.bfloat16, (4, 9)),
+    # bf16 with K and N not multiples of 8 (the generic wmma kernel): ids in
+    # token order; and T >= 128 E, so its 128-row tiles are cut into two
+    # 64-row sub-tiles, with ids out of range (in f32 too)
+    ("wmma-k37-n23-unsorted", (96, 2), 37, 23, 6, torch.bfloat16, "token"),
+    ("wmma-k37-n23-sub-tiles-oor", (1200, 1), 37, 23, 4, torch.bfloat16,
+     (-1, 5)),
+    ("f32-k37-n23-sub-tiles-oor", (1200, 1), 37, 23, 4, torch.float32,
+     (-1, 5)),
 ]
 
 
@@ -377,9 +464,15 @@ def check_moe_gmm(gen):
         if bool(got[outside].any()):
             raise AssertionError(f"moe_gmm[{case}]: rows of ids outside "
                                  f"[0, E) are not zero")
-        # the plan orders each expert's rows by atomics, differently each
-        # run; every row's sums must not depend on that order
-        if not torch.equal(got, gmm.moe_gmm(x, w, g)):
+        # the plan on the card is the plain plan of the same ids
+        plan = gmm.plan(g, E)
+        if not all(torch.equal(a.cpu(), b) for a, b in
+                   zip(plan[:4], gmm.plan(g.cpu(), E)[:4])):
+            raise AssertionError(f"moe_gmm[{case}]: the plan differs from "
+                                 f"its plain version")
+        # the same bits on every run, with the plan built inside the call
+        # or shared
+        if not torch.equal(got, gmm.moe_gmm(x, w, g, plan)):
             raise AssertionError(f"moe_gmm[{case}]: two runs differ")
         del x, w, got, want
         torch.cuda.empty_cache()
@@ -568,7 +661,8 @@ def _row(name, replaces, err, ms, plain, lib, bound_ms, bound_by):
             "bound_ms": bound_ms, "bound_by": bound_by}
 
 
-SOURCE = {"flash_attention": "flash_attention.cu",
+SOURCE = {"moe_plan": "moe_gmm.cu",
+          "flash_attention": "flash_attention.cu",
           "decode_attention": "flash_attention.cu",
           "burst_gather": "burst_gather.cu",
           "mamba2_scan": "mamba2_scan.cu", "rwkv6_scan": "rwkv6_scan.cu",
@@ -634,19 +728,40 @@ def granite_rows(table, prompts, errs, flush, gen):
             ("decode_attention", "src/repro/kernels/flash_attention.py:149",
              errs[1], *decode)]
 
-    idx = prompts.reshape(-1)
-    row_bytes = table.shape[1] * table.element_size()
-    nbytes = row_bytes * (idx.unique().numel() + idx.numel()) + 4 * idx.numel()
-    ms = time_ms(lambda: bg.burst_gather(table, idx), flush)
-    plain = time_ms(lambda: ref.burst_gather_ref(table, idx), flush)
-    lib = time_ms(lambda: torch.index_select(table, 0, idx), flush)
-    err = _max_err(bg.burst_gather(table, idx),
-                   ref.burst_gather_ref(table, idx))
+    moe_x = _rand(DISPATCH_TABLE, gen)
+    timed = {}
+    for name, tab, idx in (
+            ("embedding", table, prompts.reshape(-1)),
+            ("dispatch-prefill", moe_x,
+             dispatch_ids(gen, B * PROMPT).to(torch.int32)),
+            ("dispatch-decode", moe_x, dispatch_ids(gen, B).to(torch.int32))):
+        row_bytes = tab.shape[1] * tab.element_size()
+        nbytes = row_bytes * (idx.unique().numel() + idx.numel()) + \
+            4 * idx.numel()
+        # the kernel and index_select in three alternating rounds: their
+        # gap is a few percent, near the spread of one round
+        rounds = [(time_ms(lambda: bg.burst_gather(tab, idx), flush),
+                   time_ms(lambda: torch.index_select(tab, 0, idx), flush))
+                  for _ in range(3)]
+        ms, lib = (statistics.median(r) for r in zip(*rounds))
+        plain = time_ms(lambda: ref.burst_gather_ref(tab, idx), flush)
+        err = _max_err(bg.burst_gather(tab, idx),
+                       ref.burst_gather_ref(tab, idx))
+        b_ms, b_by = bound(0, nbytes)
+        runs, tiles = burst_tiles(idx, tab.shape[0])
+        _phase(f"time burst_gather[{name}] N={idx.numel()} into "
+               f"{tuple(tab.shape)}: {ms:.4f} ms, index_select {lib:.4f} ms"
+               f" (rounds: {', '.join(f'{a:.4f}/{b:.4f}' for a, b in rounds)}"
+               f"), bound {b_ms:.4f} ms ({b_by}; {nbytes / 1e6:.1f} MB); "
+               f"burst tiles {runs} of {tiles}")
+        timed[name] = (err, ms, plain, lib, b_ms, b_by)
     rows.append(("burst_gather", "src/repro/kernels/burst_gather.py:59",
-                 err, ms, plain, lib,
-                 *bound(0, nbytes)))
-
-    return [_row(*r) for r in rows]
+                 *timed["embedding"]))
+    out = [_row(*r) for r in rows]
+    _, d_ms, d_plain, d_lib, d_b, _ = timed["dispatch-prefill"]
+    out[-1].update(dispatch_ms=d_ms, dispatch_plain_ms=d_plain,
+                   dispatch_library_ms=d_lib, dispatch_bound_ms=d_b)
+    return out
 
 
 def _nbytes(*tensors):
@@ -732,6 +847,19 @@ def moe_rows(errs, flush, gen):
         present = int(g.unique().numel())
         nbytes = 2 * (T * K + present * K * N + T * N) + 4 * T
         ms = time_ms(lambda: gmm.moe_gmm(x, w, g), flush)
+        p = gmm.plan(g, E)
+        shared = time_ms(lambda: gmm.moe_gmm(x, w, g, p), flush)
+        plan_ms = time_ms(lambda: gmm.plan(g, E), flush)
+        _phase(f"time moe_gmm[{phase}] with a shared plan: {shared:.4f} ms;"
+               f" the plan alone {plan_ms:.4f} ms; schedule "
+               f"{gmm.schedule(T, K, N, E, x.dtype)}")
+        if phase == "prefill-gate-up":
+            # the plan reads the ids and writes perm, off, toff and tiles
+            plan_bytes = 8 * T + 8 * (E + 2) + 16 * gmm.tile_bound(T, E)
+            plan_row = _row(
+                "moe_plan", "src/repro/kernels/moe_gmm.py:50", 0.0, plan_ms,
+                time_ms(lambda: gmm.plan_ref(g, E), flush, reps=5), None,
+                *bound(0, plan_bytes))
         plain = time_ms(lambda: ref.moe_gmm_ref(x, w, g), flush, reps=3)
         lib = _grouped_mm(x, w, g, E)
         lib_ms = time_ms(lib, flush) if lib is not None else None
@@ -751,7 +879,7 @@ def moe_rows(errs, flush, gen):
     d_ms, d_plain, d_lib, d_b, _ = timed["decode-gate-up"]
     row.update(decode_ms=d_ms, decode_plain_ms=d_plain,
                decode_library_ms=d_lib, decode_bound_ms=d_b)
-    return [row]
+    return [row, plan_row]
 
 
 def _params_b(params):
@@ -786,7 +914,9 @@ def serve_phase(arch, gen):
             "burst_gather": (1 + n_moe) * (1 + GEN),
             "mamba2_scan": sum(k in "MH" for k in kinds) * (1 + GEN),
             "rwkv6_scan": kinds.count("R") * (1 + GEN),
-            "moe_gmm": (3 if cfg.gated_mlp else 2) * n_moe * (1 + GEN)}
+            "moe_gmm": (3 if cfg.gated_mlp else 2) * n_moe * (1 + GEN),
+            # one plan per MoE layer and step, shared by its products
+            "moe_plan": n_moe * (1 + GEN)}
     _phase(f"serve {arch} on {torch.cuda.get_device_name(0)}: "
            f"{_params_b(params):.2f} B params, {cfg.n_layers} layers, "
            f"d_model {cfg.d_model}: prefill {PROMPT} tokens x {B}: "
@@ -815,7 +945,24 @@ def check_build_report():
             _phase(f"ptxas {name}.cu {kernel}: {r.get('registers')} "
                    f"registers, spill stores {r.get('spill_stores')} B, "
                    f"spill loads {r.get('spill_loads')} B; SASS HMMA/HGMMA "
-                   f"{r.get('tensor_core')}")
+                   f"{r.get('tensor_core')} (HGMMA {r.get('hgmma')})")
+    gmm_r = _build.kernel_report("moe_gmm").get("gmm_wgmma<128, 256, 4>",
+                                                {})
+    if not gmm_r.get("hgmma") or gmm_r.get("spill_stores") or \
+            gmm_r.get("spill_loads"):
+        raise AssertionError(f"gmm_wgmma<128, 256, 4>, the bf16 prefill "
+                             f"grouped matmul, needs HGMMA and no spill: "
+                             f"{gmm_r}")
+    _phase("check gmm_wgmma<128, 256, 4>: HGMMA in its SASS, no spill ok")
+    # each lane holds its 16 loads of 16 bytes (64 registers) before it
+    # stores any: fewer registers mean the compiler interleaved the stores
+    gather = _build.kernel_report("burst_gather").get("burst_vec<uint4>", {})
+    if gather.get("registers", 0) < 64 or gather.get("spill_stores"):
+        raise AssertionError(f"burst_vec<uint4> does not keep a row's loads "
+                             f"in flight (< 64 registers) or spills: "
+                             f"{gather}")
+    _phase("check burst_vec<uint4>: a row's loads in flight (>= 64 "
+           "registers), no spill ok")
     attn = _build.kernel_report("flash_attention")
     for dp in (64, 128, 256):
         r = attn.get(f"flash_fwd_bf16<{dp}>", {})

@@ -4,7 +4,8 @@
 Each ``.cu`` file has a plain C interface and includes no PyTorch header,
 so it builds in seconds.  Libraries go to ``build/repro_torch/`` at the
 root of the checkout (listed in ``.gitignore``), named by a hash of the
-source and the flags, so an edited source is rebuilt and an unchanged one
+source, the shared headers (``csrc/*.cuh``) and the flags, so an edited
+source or header is rebuilt and an unchanged one
 is loaded as it is.  Nothing is built when the module is imported: the
 first call of ``load`` (or ``build_all``) builds.  ``ptxas -v``'s report
 (registers, spills) is kept beside each library; ``kernel_report`` reads it
@@ -38,7 +39,7 @@ _SIGNATURES = {
         "decode_attention_fwd": _ATTN + [_I] * 10 + [_F, _F, _P, _I, _I, _P],
     },
     "burst_gather": {
-        "burst_gather_fwd": [_P, _P, _P, _LL, _LL, _LL, _P],
+        "burst_gather_fwd": [_P, _P, _P, _LL, _LL, _LL, _P, _P],
     },
     "mamba2_scan": {
         "mamba2_scan_fwd": [_P] * 8 + [_I] * 5 + [_LL] * 7 + [_I, _P],
@@ -47,7 +48,8 @@ _SIGNATURES = {
         "rwkv6_scan_fwd": [_P] * 8 + [_I] * 5 + [_P],
     },
     "moe_gmm": {
-        "moe_gmm_fwd": [_P] * 7 + [_I] * 5 + [_P],
+        "moe_gmm_plan": [_P] * 5 + [_I] * 4 + [_P],
+        "moe_gmm_fwd": [_P] * 5 + [_I] * 9 + [_P],
     },
 }
 
@@ -67,6 +69,8 @@ def _nvcc() -> str:
 
 def _target(name: str) -> Path:
     h = hashlib.sha256((_CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(_CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(" ".join(FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
@@ -121,22 +125,37 @@ def check(err: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {err} at launch")
 
 
+#: template arguments that are types, as mangled, by the name printed
+_TYPES = {"__nv_bfloat16": "bf16", "f": "f32", "h": "u8", "t": "u16",
+          "j": "u32"}
+
+
 def _kernel_name(mangled: str) -> str:
     """``_ZN<len><namespace><len>flash_fwd_bf16ILi128EEEv...`` ->
-    ``flash_fwd_bf16<128>``: the innermost name, with template arguments
-    of int, float and bf16."""
+    ``flash_fwd_bf16<128>``: the innermost name, with its template
+    arguments (integers, and types such as bf16, f32 or uint4)."""
     pos, name = (3, mangled) if mangled.startswith("_ZN") else (2, mangled)
     while m := re.match(r"\d+", mangled[pos:]):
         start = pos + m.end()
         name, pos = mangled[start:start + int(m.group())], start + int(
             m.group())
-    rest = mangled[pos:]
-    if not rest.startswith("I") or "EE" not in rest:
+    if not mangled.startswith("I", pos):
         return name
-    args = re.findall(r"Li(\d+)E|(13__nv_bfloat16)|(?<=I)(f)(?=E)",
-                      rest[:rest.index("EE") + 2])
-    return name + "<" + ", ".join(
-        i or ("bf16" if b else "f32") for i, b, _ in args) + ">"
+    args, pos = [], pos + 1
+    while pos < len(mangled) and mangled[pos] != "E":
+        if mangled.startswith("L", pos):       # a literal: L, type, value
+            end = mangled.index("E", pos)
+            args.append(mangled[pos + 2:end])
+            pos = end + 1
+        elif m := re.match(r"\d+", mangled[pos:]):
+            start = pos + m.end()
+            arg = mangled[start:start + int(m.group())]
+            args.append(_TYPES.get(arg, arg))
+            pos = start + int(m.group())
+        else:
+            args.append(_TYPES.get(mangled[pos], mangled[pos]))
+            pos += 1
+    return name + "<" + ", ".join(args) + ">"
 
 
 def kernel_report(name: str) -> dict[str, dict[str, int]]:
@@ -144,7 +163,7 @@ def kernel_report(name: str) -> dict[str, dict[str, int]]:
     ``spill_stores`` and ``spill_loads`` (bytes) from ``ptxas -v``, and
     ``tensor_core``, the count of tensor-core instructions (``HMMA``,
     from ``mma.sync``, and ``HGMMA``, from ``wgmma``) in
-    ``cuobjdump -sass`` of the library."""
+    ``cuobjdump -sass`` of the library, and ``hgmma``, the HGMMA alone."""
     target = _target(name)
     if not target.exists():
         build_all()
@@ -166,6 +185,7 @@ def kernel_report(name: str) -> dict[str, dict[str, int]]:
         capture_output=True, text=True, check=True).stdout
     for chunk in re.split(r"\n\s*Function : ", sass)[1:]:
         kernel = _kernel_name(chunk.split()[0])
-        report.setdefault(kernel, {})["tensor_core"] = len(
-            re.findall(r"\b(?:HMMA|HGMMA)\b", chunk))
+        report.setdefault(kernel, {}).update(
+            tensor_core=len(re.findall(r"\b(?:HMMA|HGMMA)\b", chunk)),
+            hgmma=len(re.findall(r"\bHGMMA\b", chunk)))
     return report

@@ -12,12 +12,21 @@ import torch
 from . import ref
 
 
-def burst_gather(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+#: ids per tile of the burst detector (``IB`` in csrc/burst_gather.cu)
+TILE = 8
+
+
+def burst_gather(table: torch.Tensor, idx: torch.Tensor, *,
+                 bursts: torch.Tensor | None = None) -> torch.Tensor:
     """table: (R, D); idx: (N,) integer -> (N, D) rows ``table[idx]``.
 
     Indices must lie in [0, R).  The plain version raises on any other; the
     kernel does not check (that would cost a copy to the host) and writes
     a zero row for it without reading outside the table.
+
+    On CUDA: ``bursts``, a (1,) int32 tensor on the table's device, gains
+    the number of tiles of ``TILE`` ids that were one run of rows.  On
+    the CPU it is ignored.
     """
     if table.device.type == "cpu":
         return ref.burst_gather_ref(table, idx)
@@ -34,6 +43,11 @@ def burst_gather(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         raise TypeError(f"burst_gather: idx must be integer, got {idx.dtype}")
     if not table.is_contiguous():
         raise ValueError("burst_gather: table must be contiguous")
+    if bursts is not None and (bursts.device != table.device or
+                               bursts.dtype != torch.int32 or
+                               bursts.numel() != 1):
+        raise ValueError("burst_gather: bursts must be one int32 on the "
+                         "table's device")
     R, D = table.shape
     idx32 = idx.to(torch.int32).contiguous()
     out = torch.empty((idx.shape[0], D), dtype=table.dtype,
@@ -43,6 +57,7 @@ def burst_gather(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         err = lib.burst_gather_fwd(
             table.data_ptr(), idx32.data_ptr(), out.data_ptr(), R,
             idx.shape[0], D * table.element_size(),
+            None if bursts is None else bursts.data_ptr(),
             torch.cuda.current_stream().cuda_stream)
     _build.check(err, "burst_gather")
     burst_gather.launches += 1

@@ -15,38 +15,51 @@
 // 25.8 GFLOP, 0.026 ms at 989 TFLOP/s.  A decode launch (32 rows over ~24
 // experts) reads those experts' weights, ~38 MB, ~0.011 ms.
 //
-// What the design does about it, in this first version:
+// What the design does about it:
 //
-// - A plan kernel (one block) counting-sorts the rows by expert on the
-//   device: per-expert row offsets, per-expert tile offsets and the
-//   permutation.  So any order of ids is right, sorted ids need no
-//   special case, and the host never learns the group sizes (no sync).
-//   Ids outside [0, E) go to an extra bucket E whose tiles write zeros.
-// - The grouped matmul launches one block per (row tile of one expert,
-//   column tile of N).  The grid is sized by the bound ceil(T/64) + E + 1
-//   on the number of row tiles, known on the host; blocks past the real
-//   count exit.  Each block reads only its expert's weights, so a launch
-//   reads each present expert's w once per row tile: once at decode,
-//   where most experts hold one or two rows, and about seven times (from
-//   L2, mostly) at prefill, where each holds ~410.
-//   At decode that gives ~24 row tiles x N/64 column tiles, 192 or 576
-//   blocks, not the 4-8 that (128-row tile x N tile) would give.
-// - No padding: rows, K and N are masked at the edges; 16-byte vector
-//   loads where K and N are multiples of 8, element loads otherwise.
-// - bf16 runs on the tensor cores through `nvcuda::wmma` (16x16x16 bf16
-//   fragments, f32 accumulators): 64x64 output tile, 4 warps of 32x32, K
-//   in steps of 32 staged in shared memory, the next step's loads held in
-//   registers while the current one multiplies.  f32 runs on the FMA
-//   pipes (64x64 tile, 256 threads of 4x4 outputs) in full f32.
-//   wgmma and TMA are later work.
+// - The plan (moe_gmm_plan, one block) is a stable counting sort of the
+//   rows by expert: slot off[e] + (rank of the row among the rows of e),
+//   so sorted ids give the identity and each expert's rows are one
+//   contiguous range of x.  Ids outside [0, E) go to an extra bucket E.
+//   Row tiles of BM rows (128 or 64, from T and E only) are cut per
+//   bucket, and the plan writes each tile's bucket, rows and, when they
+//   are one run of x, its first row: a product's block reads that in one
+//   load.  The model builds one plan per layer for its three products.
+// - bf16 with K and N multiples of 8 (gmm_wgmma): a block per (column
+//   tile, row tile), the column tile fastest, so the blocks of one row
+//   tile run together and x comes from device memory about once.
+//   A producer warp fills a ring of ST = 4 shared-memory stages: w[e] by
+//   TMA (a 3-d map over (E, K, N), read as the MN-major B operand, no
+//   transpose), and the tile's x rows by one TMA box when they are one
+//   run (always so for sorted ids), else gathered through perm by cp.async
+//   into the same 128-byte swizzle.  BM / 64 consumer warpgroups run
+//   wgmma (64 x BN x 16 per instruction, f32 accumulators in registers)
+//   and hand each stage back through an mbarrier as soon as its products
+//   are done, one group of products in flight; a warpgroup with no row in
+//   a short tile only hands the stages back.  The epilogue stages the
+//   bf16 tile in the ring and writes 16-byte row pieces through perm.
+//   Many rows per expert (prefill): BM = 128, BN = 256, one block an SM.
+//   Few (decode, arctic): BM = 64, BN = 128, two blocks an SM.  A block
+//   runs the whole of K: splitting K across blocks, with a reduce of f32
+//   partials in split order, measured no faster even where the tiles
+//   leave SMs without a block (decode at 1 to 4 tokens; PERF.md).  Every
+//   product launches as a programmatic dependent of the kernel before it,
+//   so its blocks wait on the card, not on the launch.
+// - f32 (gmm_f32_kernel, FMA pipes, full f32) and bf16 with K or N not a
+//   multiple of 8 (gmm_wmma_kernel, element loads, wmma) take 64-row
+//   sub-tiles of the plan's tiles and 64 columns; they serve the f32 cache
+//   check and odd shapes, not the model's bf16 path.
 //
 // Every row's output is the same dot products in the same order whatever
-// its tile or neighbours, so the result is bit-reproducible although the
-// plan's atomics order the rows within an expert differently each run.
+// its tile, neighbours or plan, so the result is bit-reproducible.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <cudaTypedefs.h>
 #include <mma.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -55,235 +68,576 @@ using bf16 = __nv_bfloat16;
 
 constexpr int MAXE = 1024;          // largest E (E + 1 buckets in shared)
 constexpr int PLAN_NT = 1024;
-constexpr int BM = 64;              // rows of a tile (all of one expert)
-constexpr int BN = 64;              // columns of a tile
+constexpr int SUB = 64;             // rows and columns of a generic tile
+constexpr int GBK = 64;             // K per stage of gmm_wgmma (one panel)
+constexpr int kMaxSmem = 232448;
+
+__device__ __forceinline__ int bucket(int e, int E) {
+  return (e >= 0 && e < E) ? e : E;
+}
 
 // --------------------------------------------------------------------------
-// plan: counting sort of the rows by expert
+// plan: stable counting sort of the rows by expert
 // --------------------------------------------------------------------------
 
 // off[b], b in [0, E]: first slot of bucket b in perm; off[E+1] = T.
-// toff[b]: first row tile of bucket b; toff[E+1] = the number of tiles.
-// perm[off[b] .. off[b+1]) holds the rows of bucket b (bucket E: ids out
-// of range), in an order that may change from run to run.
+// toff[b]: first row tile of bucket b (tiles of bm rows); toff[E+1] = the
+// number of tiles.  perm[off[b] .. off[b+1]) holds the rows of bucket b
+// (bucket E: ids out of range) in increasing order.  info[t], t below the
+// host's bound on the tiles: tile t's (bucket, first slot, rows, first x
+// row when its rows are one run of x, else -1); bucket -1 past the last
+// tile.  So a product's block reads its tile in one load.
+//
+// Warp w owns the w-th of 32 contiguous segments of the rows.  Pass 1
+// counts each bucket's rows in each segment (wc[b][w], warp-aggregated by
+// __match_any_sync, no atomics); pass 2 turns the counts into each
+// segment's first slot in each bucket; pass 3 walks the segments again in
+// order and places each row at its slot plus the rows of its bucket in
+// lower lanes.  The ids of PLAN_BATCH steps of 32 rows are loaded before
+// any is used.  Ids whose buckets never decrease, as the model's sorted
+// ids, skip the passes: the permutation is the identity and the offsets
+// are where the bucket grows.
+constexpr int PLAN_BATCH = 16;
+
+// Warp 0 of plan_kernel: from each bucket's row count cnt[b], its first
+// slot (off, first) and first tile of bm rows (toff, tfirst), with the
+// totals at [nb].  Each lane a run of buckets, then a shuffle scan of the
+// lanes' totals.
+__device__ void scan_buckets(const int* cnt, int* first, int* tfirst,
+                             int* off, int* toff, int nb, int bm) {
+  const int lane = threadIdx.x & 31;
+  const int per = (nb + 31) / 32;
+  const int b0 = min(lane * per, nb), b1 = min(b0 + per, nb);
+  int rows = 0, tiles = 0;
+  for (int bk = b0; bk < b1; ++bk) {
+    rows += cnt[bk];
+    tiles += (cnt[bk] + bm - 1) / bm;
+  }
+  int r_inc = rows, t_inc = tiles;
+  for (int d = 1; d < 32; d <<= 1) {
+    const int r = __shfl_up_sync(0xffffffffu, r_inc, d);
+    const int t = __shfl_up_sync(0xffffffffu, t_inc, d);
+    if (lane >= d) {
+      r_inc += r;
+      t_inc += t;
+    }
+  }
+  int r_run = r_inc - rows, t_run = t_inc - tiles;
+  for (int bk = b0; bk < b1; ++bk) {
+    off[bk] = first[bk] = r_run;
+    toff[bk] = tfirst[bk] = t_run;
+    r_run += cnt[bk];
+    t_run += (cnt[bk] + bm - 1) / bm;
+  }
+  if (lane == 31) {
+    off[nb] = first[nb] = r_inc;
+    toff[nb] = tfirst[nb] = t_inc;
+  }
+}
+
 __global__ void __launch_bounds__(PLAN_NT) plan_kernel(
-    const int* __restrict__ ids, int T, int E, int* __restrict__ perm,
-    int* __restrict__ off, int* __restrict__ toff) {
+    const int* __restrict__ ids, int T, int E, int bm, int bound,
+    int* __restrict__ perm, int* __restrict__ off, int* __restrict__ toff,
+    int4* __restrict__ info) {
+  // the product that follows may launch now; it waits for this grid
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+  extern __shared__ int wc[];      // [E + 1][32]
   __shared__ int cnt[MAXE + 1];
-  __shared__ int cur[MAXE + 1];
+  __shared__ int first[MAXE + 2];
+  __shared__ int tfirst[MAXE + 2];
   const int nb = E + 1;
-  for (int b = threadIdx.x; b < nb; b += PLAN_NT) cnt[b] = 0;
-  __syncthreads();
-  for (int i = threadIdx.x; i < T; i += PLAN_NT) {
-    const int e = ids[i];
-    atomicAdd(&cnt[(e >= 0 && e < E) ? e : E], 1);
-  }
-  __syncthreads();
-  if (threadIdx.x < 32) {
-    // warp 0 scans rows and tiles: each lane a run of buckets, then a
-    // shuffle scan of the lanes' totals
-    const int lane = threadIdx.x;
-    const int per = (nb + 31) / 32;
-    const int b0 = min(lane * per, nb), b1 = min(b0 + per, nb);
-    int rows = 0, tiles = 0;
-    for (int b = b0; b < b1; ++b) {
-      rows += cnt[b];
-      tiles += (cnt[b] + BM - 1) / BM;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+
+  bool up = true;
+  for (int base = threadIdx.x; base < T; base += PLAN_NT * PLAN_BATCH) {
+    int b[PLAN_BATCH], next[PLAN_BATCH];
+#pragma unroll
+    for (int u = 0; u < PLAN_BATCH; ++u) {
+      const int i = base + u * PLAN_NT;
+      b[u] = i < T ? bucket(ids[i], E) : 0;
+      next[u] = i + 1 < T ? bucket(ids[i + 1], E) : nb;
     }
-    int r_inc = rows, t_inc = tiles;
-    for (int d = 1; d < 32; d <<= 1) {
-      const int r = __shfl_up_sync(0xffffffffu, r_inc, d);
-      const int t = __shfl_up_sync(0xffffffffu, t_inc, d);
-      if (lane >= d) {
-        r_inc += r;
-        t_inc += t;
+#pragma unroll
+    for (int u = 0; u < PLAN_BATCH; ++u) up = up && b[u] <= next[u];
+  }
+  const bool identity = __syncthreads_and(up);
+  if (identity) {
+    // bucket b starts at the first row of a bucket >= b
+    if (T == 0)
+      for (int bk = threadIdx.x; bk <= nb; bk += PLAN_NT) first[bk] = 0;
+    for (int base = threadIdx.x; base < T; base += PLAN_NT * PLAN_BATCH) {
+      int b[PLAN_BATCH], before[PLAN_BATCH];
+#pragma unroll
+      for (int u = 0; u < PLAN_BATCH; ++u) {
+        const int i = base + u * PLAN_NT;
+        b[u] = i < T ? bucket(ids[i], E) : 0;
+        before[u] = i > 0 && i < T ? bucket(ids[i - 1], E) : -1;
+      }
+#pragma unroll
+      for (int u = 0; u < PLAN_BATCH; ++u) {
+        const int i = base + u * PLAN_NT;
+        if (i >= T) break;
+        for (int bk = before[u] + 1; bk <= b[u]; ++bk) first[bk] = i;
+        if (i == T - 1)
+          for (int bk = b[u] + 1; bk <= nb; ++bk) first[bk] = T;
+        perm[i] = i;
       }
     }
-    int r_run = r_inc - rows, t_run = t_inc - tiles;
-    for (int b = b0; b < b1; ++b) {
-      off[b] = r_run;
-      toff[b] = t_run;
-      cur[b] = r_run;
-      r_run += cnt[b];
-      t_run += (cnt[b] + BM - 1) / BM;
-    }
-    if (lane == 31) {
-      off[nb] = r_inc;
-      toff[nb] = t_inc;
-    }
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < T; i += PLAN_NT) {
-    const int e = ids[i];
-    perm[atomicAdd(&cur[(e >= 0 && e < E) ? e : E], 1)] = i;
-  }
-}
-
-// The block's row tile: its bucket e (E for ids out of range) and its
-// rows, -1 past the end.  Returns the bucket, or -1 if the block has no
-// tile.  Call from every thread; ends with __syncthreads.
-__device__ int block_tile(const int* __restrict__ perm,
-                          const int* __restrict__ off,
-                          const int* __restrict__ toff, int E, int* rows,
-                          int* s_e) {
-  const int t = blockIdx.x;
-  if (threadIdx.x == 0) {
-    int e = -1;
-    if (t < toff[E + 1]) {
-      // the largest bucket whose first tile is at or before t
-      int lo = 0, hi = E;
-      while (lo < hi) {
-        const int mid = (lo + hi + 1) >> 1;
-        if (toff[mid] <= t) lo = mid;
-        else hi = mid - 1;
+    __syncthreads();
+    for (int bk = threadIdx.x; bk < nb; bk += PLAN_NT)
+      cnt[bk] = first[bk + 1] - first[bk];
+    __syncthreads();
+    if (warp == 0) scan_buckets(cnt, first, tfirst, off, toff, nb, bm);
+  } else {
+    const unsigned below = (1u << lane) - 1;
+    const int seg = (T + 31) / 32;
+    const int r0 = min(T, warp * seg), r1 = min(T, r0 + seg);
+    for (int i = threadIdx.x; i < nb * 32; i += PLAN_NT) wc[i] = 0;
+    __syncthreads();
+    // pass 1: wc[b][w] = rows of bucket b in segment w
+    for (int base = r0; base < r1; base += 32 * PLAN_BATCH) {
+      int b[PLAN_BATCH];
+#pragma unroll
+      for (int u = 0; u < PLAN_BATCH; ++u) {
+        const int i = base + u * 32 + lane;
+        b[u] = i < r1 ? bucket(ids[i], E) : -1;
       }
-      e = lo;
+#pragma unroll
+      for (int u = 0; u < PLAN_BATCH; ++u) {
+        if (base + u * 32 >= r1) break;
+        const unsigned peers = __match_any_sync(0xffffffffu, b[u]);
+        if (b[u] >= 0 && lane == __ffs(peers) - 1)
+          wc[b[u] * 32 + warp] += __popc(peers);
+        __syncwarp();
+      }
     }
-    *s_e = e;
+    __syncthreads();
+    // pass 2: a warp a bucket: wc[b][w] = rows of b in segments below w
+    for (int bk = warp; bk < nb; bk += PLAN_NT / 32) {
+      const int v = wc[bk * 32 + lane];
+      int inc = v;
+#pragma unroll
+      for (int d = 1; d < 32; d <<= 1) {
+        const int x = __shfl_up_sync(0xffffffffu, inc, d);
+        if (lane >= d) inc += x;
+      }
+      wc[bk * 32 + lane] = inc - v;
+      if (lane == 31) cnt[bk] = inc;
+    }
+    __syncthreads();
+    if (warp == 0) scan_buckets(cnt, first, tfirst, off, toff, nb, bm);
+    __syncthreads();
+    // pass 3: place the rows, segment by segment, in order
+    for (int base = r0; base < r1; base += 32 * PLAN_BATCH) {
+      int b[PLAN_BATCH];
+#pragma unroll
+      for (int u = 0; u < PLAN_BATCH; ++u) {
+        const int i = base + u * 32 + lane;
+        b[u] = i < r1 ? bucket(ids[i], E) : -1;
+      }
+#pragma unroll
+      for (int u = 0; u < PLAN_BATCH; ++u) {
+        if (base + u * 32 >= r1) break;
+        const unsigned peers = __match_any_sync(0xffffffffu, b[u]);
+        int slot = 0;
+        if (b[u] >= 0) slot = first[b[u]] + wc[b[u] * 32 + warp];
+        __syncwarp();
+        if (b[u] >= 0) {
+          perm[slot + __popc(peers & below)] = base + u * 32 + lane;
+          if (lane == __ffs(peers) - 1)
+            wc[b[u] * 32 + warp] += __popc(peers);
+        }
+        __syncwarp();
+      }
+    }
   }
   __syncthreads();
-  const int e = *s_e;
-  if (e >= 0) {
-    const int r0 = off[e] + (t - toff[e]) * BM;
-    const int n = min(BM, off[e + 1] - r0);
-    for (int i = threadIdx.x; i < BM; i += blockDim.x)
-      rows[i] = i < n ? perm[r0 + i] : -1;
-  }
-  __syncthreads();
-  return e;
-}
-
-template <typename T>
-__device__ void write_zero_rows(T* out, const int* rows, int N, int n0) {
-  for (int i = threadIdx.x; i < BM * BN; i += blockDim.x) {
-    const int r = rows[i / BN], n = n0 + i % BN;
-    if (r >= 0 && n < N) out[(long long)r * N + n] = T(0.0f);
+  // the tiles, a thread each: its bucket is the last whose first tile is
+  // at or before it
+  for (int t = threadIdx.x; t < bound; t += PLAN_NT) {
+    if (t >= tfirst[nb]) {
+      info[t] = make_int4(-1, 0, 0, -1);
+      continue;
+    }
+    int bk = 0;
+    for (int hi = nb - 1; bk < hi;) {
+      const int mid = (bk + hi + 1) >> 1;
+      if (tfirst[mid] <= t) bk = mid;
+      else hi = mid - 1;
+    }
+    const int r0 = first[bk] + (t - tfirst[bk]) * bm;
+    const int n = min(bm, first[bk + 1] - r0);
+    int run = bk < E ? (identity ? r0 : perm[r0]) : -1;
+    if (!identity)
+      for (int i = 1; i < n && run >= 0; ++i)
+        if (perm[r0 + i] != run + i) run = -1;
+    info[t] = make_int4(bk, r0, n, run);
   }
 }
 
 // --------------------------------------------------------------------------
-// bf16: tensor cores through wmma
+// bf16, K and N multiples of 8: wgmma fed by TMA (or a cp.async gather)
+// --------------------------------------------------------------------------
+
+// d (64 x N f32) (+)= A (64 x 16, smem, K-major) * B (16 x N, smem,
+// MN-major), both in the 128-byte swizzle
+template <int N>
+__device__ inline void wgmma_mn(float* d, uint64_t da, uint64_t db,
+                                int scale_d);
+
+template <>
+__device__ inline void wgmma_mn<128>(float* d, uint64_t da, uint64_t db,
+                                     int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+template <>
+__device__ inline void wgmma_mn<256>(float* d, uint64_t da, uint64_t db,
+                                     int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, "
+      "%67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, "
+      "%93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, "
+      "%105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, "
+      "%116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, "
+      "%127}, "
+      "%128, %129, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
+        "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]),
+        "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),
+        "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]),
+        "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
+        "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// Stage s of the ring: the A tile (BM rows of 64 K-columns, 128 bytes a
+// row, swizzled), then the B tile (BN / 64 panels of 64 K-rows x 64
+// columns, 8 KB each, swizzled).  Stages start 1024-byte aligned.  The
+// epilogue stages the bf16 tile in the ring, rows LDC apart.
+template <int BM, int BN, int ST>
+struct GmmCfg {
+  static constexpr int NWG = BM / 64;               // consumer warpgroups
+  static constexpr int CONSUMERS = NWG * 128;
+  static constexpr int THREADS = CONSUMERS + 32;    // + the producer warp
+  static constexpr int A_BYTES = BM * GBK * 2;
+  static constexpr int B_BYTES = GBK * BN * 2;
+  static constexpr int STAGE = A_BYTES + B_BYTES;
+  static constexpr int LDC = BN + 8;
+  static constexpr size_t smem = 1024 + (size_t)ST * STAGE;
+  static_assert(BM * LDC * 2 <= ST * STAGE, "epilogue tile fits the ring");
+  static_assert(smem <= kMaxSmem, "ring fits shared memory");
+};
+
+// The consumer warpgroups of gmm_wgmma: wgmma over the ring's stages,
+// each stage handed back to the producer as soon as its products are
+// done, one group of products in flight; then the epilogue.
+template <int BM, int BN, int ST>
+__device__ __forceinline__ void consume(
+    unsigned char* ring, uint64_t* full, uint64_t* empty, const int* rows,
+    int n_rows, bool run, int nk, int n0, int N, bf16* __restrict__ out) {
+  using C = GmmCfg<BM, BN, ST>;
+  const int wg = threadIdx.x / 128;
+  // a warpgroup with no row of the tile (a short last tile of an expert)
+  // only hands each stage back once it has landed, so its arrivals keep
+  // the pace of the other warpgroup's
+  const bool idle = wg * 64 >= n_rows;
+  float acc[BN / 2];
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+  wg_touch<BN / 2>(acc);
+  for (int kt = 0; kt < nk; ++kt) {
+    const int s = kt % ST;
+    mbar_wait(&full[s], (kt / ST) & 1);
+    if (idle) {
+      if (threadIdx.x % 128 == 0) mbar_arrive(&empty[s]);
+      continue;
+    }
+    if (!run) fence_proxy_async();
+    const unsigned char* sA = ring + s * C::STAGE + wg * 64 * 128;
+    const unsigned char* sB = ring + s * C::STAGE + C::A_BYTES;
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < GBK / 16; ++kk)
+      wgmma_mn<BN>(acc, wg_desc(sA + kk * 32, 16, 1024),
+                   wg_desc(sB + kk * 2048, 8192, 1024), 1);
+    wg_commit();
+    // the previous step's products are done: hand its stage back
+    wg_wait<1>();
+    wg_touch<BN / 2>(acc);
+    if (kt > 0 && threadIdx.x % 128 == 0) mbar_arrive(&empty[(kt - 1) % ST]);
+  }
+  wg_wait<0>();
+  wg_touch<BN / 2>(acc);
+
+  // this thread's rows rbase and rbase + 8 of the tile, columns
+  // 8 j + 2 tq (+1)
+  const int lane = threadIdx.x & 31;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int rbase = wg * 64 + (threadIdx.x / 32 % 4) * 16 + gq;
+  // every consumer is done with the ring: stage the bf16 tile there, then
+  // write it out in 16-byte row pieces
+  asm volatile("bar.sync 1, %0;\n" ::"n"(C::CONSUMERS) : "memory");
+  bf16* sC = reinterpret_cast<bf16*>(ring);
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      *reinterpret_cast<__nv_bfloat162*>(
+          sC + (rbase + 8 * r) * C::LDC + 8 * j + 2 * tq) =
+          __floats2bfloat162_rn(acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1]);
+  asm volatile("bar.sync 1, %0;\n" ::"n"(C::CONSUMERS) : "memory");
+  for (int i = threadIdx.x; i < BM * BN / 8; i += C::CONSUMERS) {
+    const int r = i / (BN / 8), c = i % (BN / 8) * 8;
+    const int row = rows[r], n = n0 + c;
+    if (row >= 0 && n < N)
+      *reinterpret_cast<uint4*>(out + (long long)row * N + n) =
+          *reinterpret_cast<const uint4*>(sC + r * C::LDC + c);
+  }
+}
+
+// Block (column tile, row tile): the column tile fastest, so the blocks of
+// one row tile run together and x comes from device memory about once.
+// It writes its bf16 tile of out over the whole of K; tiles of bucket E
+// (ids out of range) write zeros.
+template <int BM, int BN, int ST>
+__global__ void __launch_bounds__(GmmCfg<BM, BN, ST>::THREADS, 1)
+gmm_wgmma(const __grid_constant__ CUtensorMap map_x,
+          const __grid_constant__ CUtensorMap map_w,
+          const bf16* __restrict__ x, bf16* __restrict__ out,
+          const int* __restrict__ perm, const int4* __restrict__ info,
+          int K, int N, int E) {
+  using C = GmmCfg<BM, BN, ST>;
+  extern __shared__ __align__(16) unsigned char gsm[];
+  __shared__ uint64_t full[ST], empty[ST];
+  __shared__ int rows[BM];
+  unsigned char* ring = gsm + ((1024 - (smem_u32(gsm) & 1023)) & 1023);
+  // launched as a programmatic dependent of the plan (or of whatever ran
+  // before): wait for its writes.  The next launch may start now: another
+  // product waits for this grid in turn.
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+
+  const int n0 = blockIdx.x * BN;
+  // the plan's tile: (bucket, first slot, rows, first x row of a run)
+  const int4 tile = info[blockIdx.y];
+  const int e = tile.x;
+  if (e < 0) return;
+  // one contiguous run of x rows comes by TMA boxes, others are gathered
+  const bool run = tile.w >= 0;
+  if (threadIdx.x == 0 && e < E) {
+    for (int s = 0; s < ST; ++s) {
+      // the producer's expect_tx, plus one cp.async arrival a lane when
+      // the rows are gathered
+      mbar_init(&full[s], run ? 1 : 33);
+      // one arrival a consumer warpgroup
+      mbar_init(&empty[s], C::NWG);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  for (int i = threadIdx.x; i < BM; i += C::THREADS)
+    rows[i] = i >= tile.z ? -1 : run ? tile.w + i : perm[tile.y + i];
+  __syncthreads();
+  if (e == E) {  // ids out of range: zero rows
+    for (int i = threadIdx.x; i < BM * BN / 8; i += C::THREADS) {
+      const int r = rows[i / (BN / 8)], n = n0 + i % (BN / 8) * 8;
+      if (r >= 0 && n < N)
+        *reinterpret_cast<uint4*>(out + (long long)r * N + n) =
+            make_uint4(0, 0, 0, 0);
+    }
+    return;
+  }
+  const int nk = (K + GBK - 1) / GBK;
+
+  if (threadIdx.x < C::CONSUMERS) {
+    consume<BM, BN, ST>(ring, full, empty, rows, tile.z, run, nk, n0, N,
+                        out);
+    return;
+  }
+  // the producer warp
+  const int lane = threadIdx.x & 31;
+  for (int kt = 0; kt < nk; ++kt) {
+    const int s = kt % ST;
+    const int kk = kt * GBK;
+    unsigned char* sA = ring + s * C::STAGE;
+    unsigned char* sB = sA + C::A_BYTES;
+    if (kt >= ST) mbar_wait(&empty[s], (kt / ST - 1) & 1);
+    if (lane == 0) {
+      mbar_expect(&full[s], C::B_BYTES + (run ? C::A_BYTES : 0));
+      for (int p = 0; p < BN / 64; ++p)
+        tma_load_3d(sB + p * 8192, &map_w, &full[s], n0 + 64 * p, kk, e);
+      if (run) tma_load_2d(sA, &map_x, &full[s], kk, tile.w);
+    }
+    if (run) continue;
+    // row r's 16-byte chunk c goes to chunk c ^ (r % 8) of its 128-byte
+    // row; rows past the tile and columns past K are zero
+    for (int i = lane; i < BM * 8; i += 32) {
+      const int r = i >> 3, c = i & 7;
+      const int row = rows[r], col = kk + c * 8;
+      const bool in = row >= 0 && col < K;
+      cp_async16(sA + r * 128 + ((c ^ (r & 7)) << 4),
+                 in ? x + (long long)row * K + col : x, in ? 16 : 0);
+    }
+    asm volatile(
+        "cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
+            smem_u32(&full[s]))
+        : "memory");
+  }
+}
+
+// --------------------------------------------------------------------------
+// bf16 with K or N not a multiple of 8: wmma, element loads
 // --------------------------------------------------------------------------
 
 constexpr int WNT = 128;            // 4 warps, 2 x 2 of 32 x 32 outputs
 constexpr int WBK = 32;             // K per stage
 constexpr int LDA = WBK + 8;        // shared strides, padded (multiples of 8)
-constexpr int LDB = BN + 8;
-constexpr int LDC = BN + 4;
-constexpr int AV = BM * WBK / 8 / WNT;   // 16-byte vectors per thread: A
-constexpr int BV = WBK * BN / 8 / WNT;   // and B
+constexpr int LDB = SUB + 8;
+constexpr int LDC = SUB + 4;
 
-// 8 bf16 of row `src` from column k, zero past `lim`
-template <bool VEC>
-__device__ __forceinline__ uint4 load8(const uint16_t* src, int k, int lim) {
-  if (VEC && k + 8 <= lim) return *reinterpret_cast<const uint4*>(src + k);
-  uint16_t v[8];
-#pragma unroll
-  for (int j = 0; j < 8; ++j) v[j] = k + j < lim ? src[k + j] : 0;
-  uint4 u;
-  u.x = v[0] | (unsigned)v[1] << 16;
-  u.y = v[2] | (unsigned)v[3] << 16;
-  u.z = v[4] | (unsigned)v[5] << 16;
-  u.w = v[6] | (unsigned)v[7] << 16;
-  return u;
+// The 64-row sub-tiles of block row blockIdx.y's tile, one after another:
+// rows[] holds the sub-tile's rows (-1 past its end) while `body(e, n0)`
+// runs for the block's 64 columns from n0 = blockIdx.x * 64.  Rows of
+// bucket E are written as zeros.
+template <typename T, typename Body>
+__device__ void for_sub_tiles(const int* __restrict__ perm,
+                              const int4* __restrict__ info, int E, T* out,
+                              int N, int* rows, Body body) {
+  const int4 tile = info[blockIdx.y];
+  if (tile.x < 0) return;
+  const int n0 = blockIdx.x * SUB;
+  for (int sub = 0; sub < tile.z; sub += SUB) {
+    for (int i = threadIdx.x; i < SUB; i += blockDim.x)
+      rows[i] = sub + i < tile.z ? perm[tile.y + sub + i] : -1;
+    __syncthreads();
+    if (tile.x == E) {
+      for (int i = threadIdx.x; i < SUB * SUB; i += blockDim.x) {
+        const int r = rows[i / SUB], n = n0 + i % SUB;
+        if (r >= 0 && n < N) out[(long long)r * N + n] = T(0.0f);
+      }
+    } else {
+      body(tile.x, n0);
+    }
+    __syncthreads();
+  }
 }
 
-template <bool VEC>
-__global__ void __launch_bounds__(WNT) gmm_bf16_kernel(
+__global__ void __launch_bounds__(WNT) gmm_wmma_kernel(
     const uint16_t* __restrict__ x, const uint16_t* __restrict__ w,
     bf16* __restrict__ out, const int* __restrict__ perm,
-    const int* __restrict__ off, const int* __restrict__ toff, int K, int N,
-    int E) {
-  __shared__ __align__(128) bf16 As[BM * LDA];
+    const int4* __restrict__ info, int K, int N, int E) {
+  __shared__ __align__(128) bf16 As[SUB * LDA];
   __shared__ __align__(128) bf16 Bs[WBK * LDB];
-  __shared__ __align__(128) float Cs[BM * LDC];
-  __shared__ int rows[BM];
-  __shared__ int s_e;
-
-  const int e = block_tile(perm, off, toff, E, rows, &s_e);
-  if (e < 0) return;
-  const int n0 = blockIdx.y * BN;
-  if (e == E) {
-    write_zero_rows(out, rows, N, n0);
-    return;
-  }
+  __shared__ __align__(128) float Cs[SUB * LDC];
+  __shared__ int rows[SUB];
   const int tid = threadIdx.x, warp = tid / 32;
   const int wr = warp / 2, wc = warp % 2;
-  const uint16_t* we = w + (long long)e * K * N;
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
+  for_sub_tiles(perm, info, E, out, N, rows, [&](int e, int n0) {
+    const uint16_t* we = w + (long long)e * K * N;
+    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
+    for (int i = 0; i < 2; ++i)
 #pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
-
-  uint4 ra[AV], rb[BV];
-  auto fetch = [&](int k0) {
+      for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
+    for (int k0 = 0; k0 < K; k0 += WBK) {
+      for (int i = tid; i < SUB * WBK; i += WNT) {
+        const int r = i / WBK, k = k0 + i % WBK, row = rows[r];
+        const uint16_t v = row >= 0 && k < K ? x[(long long)row * K + k] : 0;
+        As[r * LDA + i % WBK] = *reinterpret_cast<const bf16*>(&v);
+      }
+      for (int i = tid; i < WBK * SUB; i += WNT) {
+        const int kr = i / SUB, n = n0 + i % SUB;
+        const uint16_t v =
+            k0 + kr < K && n < N ? we[(long long)(k0 + kr) * N + n] : 0;
+        Bs[kr * LDB + i % SUB] = *reinterpret_cast<const bf16*>(&v);
+      }
+      __syncthreads();
 #pragma unroll
-    for (int v = 0; v < AV; ++v) {
-      const int idx = tid + v * WNT;
-      const int r = idx / (WBK / 8), c = idx % (WBK / 8) * 8;
-      const int row = rows[r];
-      ra[v] = row >= 0 ? load8<VEC>(x + (long long)row * K, k0 + c, K)
-                       : make_uint4(0, 0, 0, 0);
+      for (int kk = 0; kk < WBK; kk += 16) {
+        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>
+            a[2];
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>
+            b[2];
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+          wmma::load_matrix_sync(a[i], &As[(wr * 32 + i * 16) * LDA + kk],
+                                 LDA);
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+          wmma::load_matrix_sync(b[j], &Bs[kk * LDB + wc * 32 + j * 16],
+                                 LDB);
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int j = 0; j < 2; ++j)
+            wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
+      }
+      __syncthreads();
     }
 #pragma unroll
-    for (int v = 0; v < BV; ++v) {
-      const int idx = tid + v * WNT;
-      const int kr = idx / (BN / 8), c = idx % (BN / 8) * 8;
-      rb[v] = k0 + kr < K ? load8<VEC>(we + (long long)(k0 + kr) * N, n0 + c,
-                                       N)
-                          : make_uint4(0, 0, 0, 0);
-    }
-  };
-
-  if (K > 0) fetch(0);
-  for (int k0 = 0; k0 < K; k0 += WBK) {
-#pragma unroll
-    for (int v = 0; v < AV; ++v) {
-      const int idx = tid + v * WNT;
-      *reinterpret_cast<uint4*>(&As[idx / (WBK / 8) * LDA +
-                                    idx % (WBK / 8) * 8]) = ra[v];
-    }
-#pragma unroll
-    for (int v = 0; v < BV; ++v) {
-      const int idx = tid + v * WNT;
-      *reinterpret_cast<uint4*>(&Bs[idx / (BN / 8) * LDB +
-                                    idx % (BN / 8) * 8]) = rb[v];
-    }
-    __syncthreads();
-    if (k0 + WBK < K) fetch(k0 + WBK);
-#pragma unroll
-    for (int kk = 0; kk < WBK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(a[i], &As[(wr * 32 + i * 16) * LDA + kk], LDA);
+    for (int i = 0; i < 2; ++i)
 #pragma unroll
       for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(b[j], &Bs[kk * LDB + wc * 32 + j * 16], LDB);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], a[i], b[j],
-                                                   acc[i][j]);
-    }
+        wmma::store_matrix_sync(
+            &Cs[(wr * 32 + i * 16) * LDC + wc * 32 + j * 16], acc[i][j], LDC,
+            wmma::mem_row_major);
     __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(&Cs[(wr * 32 + i * 16) * LDC + wc * 32 + j * 16],
-                              acc[i][j], LDC, wmma::mem_row_major);
-  __syncthreads();
-  for (int i = tid; i < BM * BN; i += WNT) {
-    const int r = rows[i / BN], n = n0 + i % BN;
-    if (r >= 0 && n < N)
-      out[(long long)r * N + n] = __float2bfloat16(Cs[i / BN * LDC + i % BN]);
-  }
+    for (int i = tid; i < SUB * SUB; i += WNT) {
+      const int r = rows[i / SUB], n = n0 + i % SUB;
+      if (r >= 0 && n < N)
+        out[(long long)r * N + n] =
+            __float2bfloat16(Cs[i / SUB * LDC + i % SUB]);
+    }
+  });
 }
 
 // --------------------------------------------------------------------------
@@ -296,104 +650,186 @@ constexpr int FBK = 16;             // K per stage
 __global__ void __launch_bounds__(FNT) gmm_f32_kernel(
     const float* __restrict__ x, const float* __restrict__ w,
     float* __restrict__ out, const int* __restrict__ perm,
-    const int* __restrict__ off, const int* __restrict__ toff, int K, int N,
-    int E) {
-  __shared__ float As[FBK][BM + 4];      // transposed: As[k][row]
-  __shared__ float Bs[FBK][BN + 4];
-  __shared__ int rows[BM];
-  __shared__ int s_e;
-
-  const int e = block_tile(perm, off, toff, E, rows, &s_e);
-  if (e < 0) return;
-  const int n0 = blockIdx.y * BN;
-  if (e == E) {
-    write_zero_rows(out, rows, N, n0);
-    return;
-  }
+    const int4* __restrict__ info, int K, int N, int E) {
+  __shared__ float As[FBK][SUB + 4];      // transposed: As[k][row]
+  __shared__ float Bs[FBK][SUB + 4];
+  __shared__ int rows[SUB];
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const float* we = w + (long long)e * K * N;
-  float acc[4][4] = {};
+  for_sub_tiles(perm, info, E, out, N, rows, [&](int e, int n0) {
+    const float* we = w + (long long)e * K * N;
+    float acc[4][4] = {};
+    for (int k0 = 0; k0 < K; k0 += FBK) {
+#pragma unroll
+      for (int v = 0; v < SUB * FBK / FNT; ++v) {
+        const int idx = tid + v * FNT;
+        const int r = idx / FBK, kk = idx % FBK, row = rows[r];
+        As[kk][r] = row >= 0 && k0 + kk < K ? x[(long long)row * K + k0 + kk]
+                                            : 0.0f;
+      }
+#pragma unroll
+      for (int v = 0; v < FBK * SUB / FNT; ++v) {
+        const int idx = tid + v * FNT;
+        const int kr = idx / SUB, c = idx % SUB;
+        Bs[kr][c] = k0 + kr < K && n0 + c < N
+                        ? we[(long long)(k0 + kr) * N + n0 + c] : 0.0f;
+      }
+      __syncthreads();
+#pragma unroll
+      for (int kk = 0; kk < FBK; ++kk) {
+        float a[4], b[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) a[i] = As[kk][ty * 4 + i];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) b[j] = Bs[kk][tx * 4 + j];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+      }
+      __syncthreads();
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = rows[ty * 4 + i];
+      if (r < 0) continue;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int n = n0 + tx * 4 + j;
+        if (n < N) out[(long long)r * N + n] = acc[i][j];
+      }
+    }
+  });
+}
 
-  for (int k0 = 0; k0 < K; k0 += FBK) {
-#pragma unroll
-    for (int v = 0; v < BM * FBK / FNT; ++v) {
-      const int idx = tid + v * FNT;
-      const int r = idx / FBK, kk = idx % FBK, row = rows[r];
-      As[kk][r] = row >= 0 && k0 + kk < K ? x[(long long)row * K + k0 + kk]
-                                          : 0.0f;
-    }
-#pragma unroll
-    for (int v = 0; v < FBK * BN / FNT; ++v) {
-      const int idx = tid + v * FNT;
-      const int kr = idx / BN, c = idx % BN;
-      Bs[kr][c] = k0 + kr < K && n0 + c < N
-                      ? we[(long long)(k0 + kr) * N + n0 + c] : 0.0f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < FBK; ++kk) {
-      float a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = As[kk][ty * 4 + i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = Bs[kk][tx * 4 + j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
+// ----------------------------------------------------------- launchers
+
+// The map of a row-major (rows, cols) bf16 matrix (a 3rd dimension of
+// `depth` such matrices when depth > 0) read in boxes of 64 columns x
+// `box_rows` rows, in the 128-byte swizzle; reads past an edge give 0.
+bool gmm_map(CUtensorMap* map, const void* p, long long rows, long long cols,
+             long long depth, int box_rows) {
+  PFN_cuTensorMapEncodeTiled_v12000 encode = tensor_map_encoder();
+  if (encode == nullptr) return false;
+  cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows,
+                        (cuuint64_t)depth};
+  cuuint64_t strides[2] = {(cuuint64_t)cols * 2,
+                           (cuuint64_t)(rows * cols * 2)};
+  cuuint32_t box[3] = {64, (cuuint32_t)box_rows, 1};
+  cuuint32_t unit[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, depth > 0 ? 3 : 2,
+                const_cast<void*>(p), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// Launches as a programmatic dependent of the previous launch on the
+// stream (gmm_wgmma waits for it).
+template <int BM, int BN, int ST>
+int launch_wgmma(const void* x, const void* w, void* out, const int* perm,
+                 const int4* info, int T, int K, int N, int E, int tiles,
+                 cudaStream_t s) {
+  using C = GmmCfg<BM, BN, ST>;
+  static bool configured = false;
+  if (!configured) {
+    cudaError_t e = cudaFuncSetAttribute(
+        gmm_wgmma<BM, BN, ST>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)C::smem);
+    if (e != cudaSuccess) return (int)e;
+    configured = true;
   }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = rows[ty * 4 + i];
-    if (r < 0) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + tx * 4 + j;
-      if (n < N) out[(long long)r * N + n] = acc[i][j];
-    }
-  }
+  CUtensorMap mx, mw;
+  if (!gmm_map(&mx, x, T, K, 0, BM) || !gmm_map(&mw, w, K, N, E, GBK))
+    return (int)cudaErrorInvalidValue;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((N + BN - 1) / BN, tiles);
+  cfg.blockDim = dim3(C::THREADS);
+  cfg.dynamicSmemBytes = C::smem;
+  cfg.stream = s;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return (int)cudaLaunchKernelEx(
+      &cfg, gmm_wgmma<BM, BN, ST>, mx, mw, static_cast<const bf16*>(x),
+      static_cast<bf16*>(out), perm, info, K, N, E);
 }
 
 }  // namespace
 
-// x: (T, K) contiguous; w: (E, K, N) contiguous; ids: (T,) int32; out:
-// (T, N) contiguous, in x's dtype; perm (T,), off (E + 2,) and toff
-// (E + 2,) int32 scratch on the device.  dtype: 0 = bf16, 1 = f32 (x, w
-// and out).  E at most 1024.  Launches the plan kernel, then the grouped
-// matmul, on `stream`.  Returns the CUDA error of the launches (0 on
-// success).
-extern "C" int moe_gmm_fwd(const void* x, const void* w, const int* ids,
-                           void* out, int* perm, int* off, int* toff, int T,
-                           int K, int N, int E, int dtype, void* stream) {
-  if (T < 0 || K < 0 || N < 0 || E < 1 || E > MAXE ||
-      (dtype != 0 && dtype != 1))
+// ids: (T,) int32 on the device.  Writes the stable plan of ids with row
+// tiles of bm rows: perm (T,), off (E + 2,) and toff (E + 2,) int32, and
+// info (bound, 4) int32, one (bucket, first slot, rows, first x row of a
+// run or -1) per tile, bucket -1 past the last.  bound is at least the
+// tile count of any ids, ceil(T / bm) + min(E + 1, T).  E at most 1024.
+// Returns the CUDA error of the launch.
+extern "C" int moe_gmm_plan(const int* ids, int* perm, int* off, int* toff,
+                            int* info, int T, int E, int bm, int bound,
+                            void* stream) {
+  if (T < 0 || E < 1 || E > MAXE || bm < 1 ||
+      (long long)bound < (T + bm - 1) / bm + (T < E + 1 ? T : E + 1))
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = sizeof(int) * 32 * (size_t)(E + 1);
+  static bool configured = false;
+  if (!configured) {
+    cudaError_t e = cudaFuncSetAttribute(
+        plan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)(sizeof(int) * 32 * (MAXE + 1)));
+    if (e != cudaSuccess) return (int)e;
+    configured = true;
+  }
+  plan_kernel<<<1, PLAN_NT, smem, static_cast<cudaStream_t>(stream)>>>(
+      ids, T, E, bm, bound, perm, off, toff, reinterpret_cast<int4*>(info));
+  return (int)cudaGetLastError();
+}
+
+// x: (T, K) contiguous; w: (E, K, N) contiguous; out: (T, N) contiguous,
+// in x's dtype; perm and info: the plan of the rows' ids with row tiles of
+// bm rows and `tiles` entries of info (moe_gmm_plan).  dtype: 0 = bf16,
+// 1 = f32 (x, w and out).  The schedule: path 0 = gmm_wgmma with
+// (bm, bn) = (128, 256) or (64, 128); path 1 = the 64 x 64 generic
+// kernels (gmm_wmma_kernel in bf16, gmm_f32_kernel in f32).  Returns the
+// CUDA error of the launch (0 on success).
+extern "C" int moe_gmm_fwd(const void* x, const void* w, void* out,
+                           const int* perm, const int* info, int T, int K,
+                           int N, int E, int dtype, int path, int bm, int bn,
+                           int tiles, void* stream) {
+  if (T < 0 || K < 0 || N < 0 || E < 1 || E > MAXE || tiles < 0 ||
+      tiles > 65535)
     return (int)cudaErrorInvalidValue;
   if (T == 0 || N == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  plan_kernel<<<1, PLAN_NT, 0, s>>>(ids, T, E, perm, off, toff);
-  int err = (int)cudaGetLastError();
-  if (err) return err;
-  const dim3 grid((T + BM - 1) / BM + E + 1, (N + BN - 1) / BN);
-  if (grid.y > 65535) return (int)cudaErrorInvalidValue;
-  if (dtype == 1) {
+  if (K == 0) {  // empty sums
+    return (int)cudaMemsetAsync(out, 0, (size_t)T * N * (dtype ? 4 : 2), s);
+  }
+  const int4* ti = reinterpret_cast<const int4*>(info);
+  if (path == 0) {
+    const uintptr_t align = reinterpret_cast<uintptr_t>(x) |
+                            reinterpret_cast<uintptr_t>(w) |
+                            reinterpret_cast<uintptr_t>(out);
+    if (dtype != 0 || K % 8 || N % 8 || align % 16)
+      return (int)cudaErrorInvalidValue;
+    if (bm == 128 && bn == 256)
+      return launch_wgmma<128, 256, 4>(x, w, out, perm, ti, T, K, N, E,
+                                       tiles, s);
+    if (bm == 64 && bn == 128)
+      return launch_wgmma<64, 128, 4>(x, w, out, perm, ti, T, K, N, E,
+                                      tiles, s);
+    return (int)cudaErrorInvalidValue;
+  }
+  if (path != 1 || bn != SUB)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((N + SUB - 1) / SUB, tiles);
+  if (dtype == 1)
     gmm_f32_kernel<<<grid, FNT, 0, s>>>(
         static_cast<const float*>(x), static_cast<const float*>(w),
-        static_cast<float*>(out), perm, off, toff, K, N, E);
-    return (int)cudaGetLastError();
-  }
-  const uintptr_t align = reinterpret_cast<uintptr_t>(x) |
-                          reinterpret_cast<uintptr_t>(w);
-  const bool vec = K % 8 == 0 && N % 8 == 0 && align % 16 == 0;
-  auto xs = static_cast<const uint16_t*>(x);
-  auto ws = static_cast<const uint16_t*>(w);
-  auto os = static_cast<bf16*>(out);
-  if (vec)
-    gmm_bf16_kernel<true><<<grid, WNT, 0, s>>>(xs, ws, os, perm, off, toff,
-                                               K, N, E);
+        static_cast<float*>(out), perm, ti, K, N, E);
+  else if (dtype == 0)
+    gmm_wmma_kernel<<<grid, WNT, 0, s>>>(
+        static_cast<const uint16_t*>(x), static_cast<const uint16_t*>(w),
+        static_cast<bf16*>(out), perm, ti, K, N, E);
   else
-    gmm_bf16_kernel<false><<<grid, WNT, 0, s>>>(xs, ws, os, perm, off, toff,
-                                                K, N, E);
+    return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }

@@ -3,13 +3,22 @@
 Counterpart of ``repro/kernels/moe_gmm.py``.  For tensors on the CPU the
 wrapper runs the plain version, ``ref.moe_gmm_ref``.  For CUDA tensors it
 launches the kernels of ``csrc/moe_gmm.cu`` or raises: there is no
-fallback.  Each launch adds one to ``moe_gmm.launches``.
+fallback.  Each grouped-matmul call adds one to ``moe_gmm.launches``; each
+plan built on the card adds one to ``plan.launches``.
 
 Unlike the Pallas kernel, which reads only the first and last id of each
 token tile and so needs sorted ids, the kernel takes ids in any order and
 needs no padding of T, K or N.
+
+A call on the card runs in two steps.  ``plan(group_ids, E)`` sorts the
+rows by expert, stably (``Plan``); a caller with several products over
+the same ids, as the MoE layer's three, builds it once and passes it.
+``schedule(T, K, N, E, dtype)`` then picks the kernel, its tiles and the
+grid from what the host knows, so nothing waits for the card.
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -18,6 +27,151 @@ from . import ref
 #: largest number of experts the kernel takes
 MAX_EXPERTS = 1024
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
+#: rows and columns of a tile of the generic kernels (``SUB``)
+SUB = 64
+#: (rows, columns) of a tile of the wgmma kernel, by the plan's row tile:
+#: the instantiations of ``launch_wgmma`` in csrc/moe_gmm.cu
+WGMMA_TILES = {128: 256, 64: 128}
+
+
+class Plan(NamedTuple):
+    """The rows of a grouped matmul sorted by expert, stably.
+
+    ``perm`` (T,) int32: the rows of expert e, in increasing order, at
+    ``perm[off[e]:off[e + 1]]``; rows whose id lies outside [0, E) form
+    bucket E.  ``off`` (E + 2,) int32: first slot of each bucket,
+    ``off[E + 1] = T``.  ``toff`` (E + 2,) int32: first row tile of each
+    bucket in tiles of ``bm`` rows, ``toff[E + 1]`` the tile count.
+    ``tiles`` (``tile_bound(T, E)``, 4) int32: per tile, its bucket, first
+    slot, rows, and first row of x when its rows are one run of x (else
+    -1); bucket -1 past the last tile.  A block of the product reads its
+    tile there in one load.
+    """
+    perm: torch.Tensor
+    off: torch.Tensor
+    toff: torch.Tensor
+    tiles: torch.Tensor
+    bm: int
+
+
+class Schedule(NamedTuple):
+    """What ``moe_gmm`` launches on the card.  ``path`` "wgmma" (bf16, K
+    and N multiples of 8) or "generic" (f32, or odd K or N); tiles of
+    ``bm`` x ``bn`` outputs, each summed over the whole of K; ``tiles``
+    bounds the plan's row tiles for any ids; the grid is (column tiles,
+    ``tiles``)."""
+    path: str
+    bm: int
+    bn: int
+    tiles: int
+    grid: tuple[int, int]
+
+
+def row_tile(T: int, E: int) -> int:
+    """Rows of the plan's tiles: 128 where the experts average 128 rows or
+    more (prefill), else 64.  Depends on T and E only, so one plan serves
+    products of any K and N."""
+    return 128 if T >= 128 * E else 64
+
+
+def tile_bound(T: int, E: int) -> int:
+    """The most row tiles any ids can give: ceil(T / bm) full tiles plus
+    one partial tile per non-empty bucket, of which there are at most
+    min(E + 1, T)."""
+    return -(-T // row_tile(T, E)) + min(E + 1, T)
+
+
+def schedule(T: int, K: int, N: int, E: int,
+             dtype: torch.dtype = torch.bfloat16) -> Schedule:
+    """The kernel, tiles and grid of one call, from host-known sizes.
+
+    bf16 with K and N multiples of 8 (TMA's 16-byte strides) takes the
+    wgmma kernel, anything else the generic ones.  The grid has a row of
+    blocks for each of ``tile_bound(T, E)`` row tiles and a block for each
+    column tile in it; a block sums the whole of K.  (Splitting K across
+    blocks where the tiles leave SMs idle, decode at one to four tokens,
+    measured no faster on an H100: PERF.md.)"""
+    bm = row_tile(T, E)
+    tiles = tile_bound(T, E)
+    if dtype == torch.bfloat16 and K % 8 == 0 and N % 8 == 0:
+        path, bn = "wgmma", WGMMA_TILES[bm]
+    else:
+        path, bn = "generic", SUB
+    return Schedule(path, bm, bn, tiles, (-(-N // bn), tiles))
+
+
+def plan_ref(ids: torch.Tensor, E: int) -> Plan:
+    """The plan in plain PyTorch, on any device: a stable sort by bucket."""
+    T = ids.shape[0]
+    bm = row_tile(T, E)
+    bucket = torch.where((ids >= 0) & (ids < E), ids.long(), E)
+    perm = torch.argsort(bucket, stable=True)
+    counts = torch.zeros(E + 1, dtype=torch.int64, device=ids.device)
+    counts.scatter_add_(0, bucket, torch.ones_like(bucket))
+    zero = counts.new_zeros(1)
+    off = torch.cat([zero, counts.cumsum(0)])
+    toff = torch.cat([zero, ((counts + bm - 1) // bm).cumsum(0)])
+    # tile t of bucket b starts at slot off[b] + (t - toff[b]) bm
+    n_tiles = int(toff[-1])
+    t = torch.arange(n_tiles, device=ids.device)
+    b = torch.searchsorted(toff, t, right=True) - 1
+    r0 = off[b] + (t - toff[b]) * bm
+    n = torch.clamp(off[b + 1] - r0, max=bm)
+    # one run of x rows: perm steps by one through the tile
+    step = torch.cat([perm[1:] - perm[:-1] == 1, perm.new_ones(1, dtype=
+                                                               torch.bool)])
+    bad = torch.cumsum(torch.cat([step.new_zeros(1, dtype=torch.long),
+                                  (~step).long()]), 0)
+    last = r0 + n - 1
+    run = (bad[last] - bad[r0] == 0) & (b < E)
+    tiles = torch.full((tile_bound(T, E), 4), -1, dtype=torch.int64,
+                       device=ids.device)
+    tiles[:, 1:3] = 0
+    tiles[:n_tiles] = torch.stack(
+        [b, r0, n, torch.where(run, perm[r0.clamp(max=max(T - 1, 0))], -1)],
+        1)
+    i32 = torch.int32
+    return Plan(perm.to(i32), off.to(i32), toff.to(i32), tiles.to(i32), bm)
+
+
+def plan(group_ids: torch.Tensor, E: int) -> Plan:
+    """The stable plan of ``group_ids`` (T,) over E experts (``Plan``),
+    with row tiles of ``row_tile(T, E)`` rows.  On the card one block of
+    ``csrc/moe_gmm.cu`` builds it without a host sync."""
+    if group_ids.dim() != 1 or group_ids.dtype.is_floating_point \
+            or group_ids.dtype.is_complex or group_ids.dtype == torch.bool:
+        raise TypeError(f"moe_gmm.plan: want (T,) integer ids, got "
+                        f"{tuple(group_ids.shape)} {group_ids.dtype}")
+    if not 1 <= E <= MAX_EXPERTS:
+        raise ValueError(f"moe_gmm.plan: the kernel takes 1 to "
+                         f"{MAX_EXPERTS} experts, got {E}")
+    T = group_ids.shape[0]
+    if group_ids.device.type == "cpu":
+        return plan_ref(group_ids, E)
+    if group_ids.device.type != "cuda":
+        raise ValueError(f"moe_gmm.plan: ids must lie on the CPU or a CUDA "
+                         f"device, got {group_ids.device}")
+    from . import _build
+
+    ids = group_ids.to(torch.int32).contiguous()
+    bm, bound = row_tile(T, E), tile_bound(T, E)
+    # the tiles first: 16-byte aligned for the kernels' one load a tile
+    buf = torch.empty(4 * bound + T + 2 * (E + 2), dtype=torch.int32,
+                      device=ids.device)
+    tiles, perm, off, toff = torch.split(buf, [4 * bound, T, E + 2, E + 2])
+    lib = _build.load("moe_gmm")
+    with torch.cuda.device(ids.device):
+        err = lib.moe_gmm_plan(ids.data_ptr(), perm.data_ptr(),
+                               off.data_ptr(), toff.data_ptr(),
+                               tiles.data_ptr(), T, E, bm, bound,
+                               torch.cuda.current_stream().cuda_stream)
+    _build.check(err, "moe_gmm.plan")
+    plan.launches += 1
+    return Plan(perm, off, toff, tiles.view(bound, 4), bm)
+
+
+plan.launches = 0
+_plan = plan            # ``moe_gmm``'s argument of that name hides it
 
 
 def _check(x, w, group_ids):
@@ -47,16 +201,27 @@ def _check(x, w, group_ids):
                          f"{[str(t.device) for t in tensors]}")
 
 
-def moe_gmm(x: torch.Tensor, w: torch.Tensor,
-            group_ids: torch.Tensor) -> torch.Tensor:
+def _check_plan(p: Plan, T: int, E: int, device) -> None:
+    shapes = (p.perm.shape, p.off.shape, p.toff.shape, p.tiles.shape)
+    if shapes != ((T,), (E + 2,), (E + 2,), (tile_bound(T, E), 4)) or \
+            p.bm != row_tile(T, E) or \
+            any(t.device != device or t.dtype != torch.int32
+                for t in p[:4]):
+        raise ValueError(f"moe_gmm: the plan does not belong to {T} ids "
+                         f"over {E} experts on {device}")
+
+
+def moe_gmm(x: torch.Tensor, w: torch.Tensor, group_ids: torch.Tensor,
+            plan: Plan | None = None) -> torch.Tensor:
     """x: (T, K); w: (E, K, N); group_ids: (T,) integer in any order ->
     (T, N) in x.dtype with row i = ``x[i] @ w[group_ids[i]]``, accumulated
     in f32; a row whose id lies outside [0, E) is zero.  As
     ``ref.moe_gmm_ref``.
 
     On CUDA: x and w in one of bf16/f32 (bf16 on the tensor cores, f32 in
-    full f32 on the FMA pipes), E at most ``MAX_EXPERTS``.  Non-contiguous
-    inputs are copied.
+    full f32 on the FMA pipes), E at most ``MAX_EXPERTS``; ``plan`` is the
+    ``plan`` of these ids, built here when not given.  Non-contiguous
+    inputs are copied.  On the CPU ``plan`` is not used.
     """
     if x.device.type == "cpu":
         return ref.moe_gmm_ref(x, w, group_ids)
@@ -67,19 +232,22 @@ def moe_gmm(x: torch.Tensor, w: torch.Tensor,
     E, _, N = w.shape
     x, w = x.contiguous(), w.contiguous()
     ids = group_ids.to(torch.int32).contiguous()
+    if plan is None:
+        plan = _plan(ids, E)
+    _check_plan(plan, T, E, x.device)
+    s = schedule(T, K, N, E, x.dtype)
     out = torch.empty((T, N), dtype=x.dtype, device=x.device)
-    scratch = torch.empty(T + 2 * (E + 2), dtype=torch.int32,
-                          device=x.device)
-    perm, off, toff = torch.split(scratch, [T, E + 2, E + 2])
     lib = _build.load("moe_gmm")
     with torch.cuda.device(x.device):
         err = lib.moe_gmm_fwd(
-            x.data_ptr(), w.data_ptr(), ids.data_ptr(), out.data_ptr(),
-            perm.data_ptr(), off.data_ptr(), toff.data_ptr(), T, K, N, E,
-            _DTYPES[x.dtype], torch.cuda.current_stream().cuda_stream)
+            x.data_ptr(), w.data_ptr(), out.data_ptr(), plan.perm.data_ptr(),
+            plan.tiles.data_ptr(), T, K, N, E, _DTYPES[x.dtype],
+            0 if s.path == "wgmma" else 1, s.bm, s.bn, s.tiles,
+            torch.cuda.current_stream().cuda_stream)
     _build.check(err, "moe_gmm")
     moe_gmm.launches += 1
     return out
 
 
 moe_gmm.launches = 0
+

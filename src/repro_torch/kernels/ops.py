@@ -35,5 +35,13 @@ def burst_gather(table, idx):
     return _bg.burst_gather(table, idx)
 
 
-def moe_gmm(x, w, group_ids):
-    return _gmm.moe_gmm(x, w, group_ids)
+def moe_plan(group_ids, n_experts):
+    """The plan the card's grouped matmuls share; None for CPU ids, whose
+    plain ``moe_gmm`` takes none."""
+    if group_ids.device.type == "cpu":
+        return None
+    return _gmm.plan(group_ids, n_experts)
+
+
+def moe_gmm(x, w, group_ids, plan=None):
+    return _gmm.moe_gmm(x, w, group_ids, plan)

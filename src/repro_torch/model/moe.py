@@ -72,12 +72,14 @@ class MoE(nn.Module):
         ids = flat[order]
         xs = ops.burst_gather(xf, order // k)                 # (T k, d)
 
-        up = ops.moe_gmm(xs, self.w_up, ids)
+        # one stable plan of the ids serves the layer's three products
+        plan = ops.moe_plan(ids, cfg.n_experts)
+        up = ops.moe_gmm(xs, self.w_up, ids, plan)
         if cfg.gated_mlp:
-            up = silu(ops.moe_gmm(xs, self.w_gate, ids)) * up
+            up = silu(ops.moe_gmm(xs, self.w_gate, ids, plan)) * up
         else:
             up = silu(up)
-        ys = ops.moe_gmm(up, self.w_down, ids)               # (T k, d)
+        ys = ops.moe_gmm(up, self.w_down, ids, plan)         # (T k, d)
 
         # combine: back to (token, k) order through the inverse
         # permutation (a gather, so no atomics), weighted by the bf16 top_p

@@ -163,8 +163,13 @@ def test_rows_with_no_valid_key_are_zero():
 def _stream(kind, R, N, rng):
     if kind == "contiguous":
         return np.arange(5, 5 + N, dtype=np.int32)
-    if kind == "random":
+    if kind in ("random", "odd-width"):
         return rng.integers(0, R, N, dtype=np.int32)
+    if kind == "dispatch":
+        # the MoE dispatch (model/moe.py): the (token, k) pairs of top-2
+        # routing over 8 experts, stably sorted by expert, as token ids
+        top = np.argsort(-rng.standard_normal((R, 8)), 1)[:, :2].reshape(-1)
+        return (np.argsort(top, kind="stable") // 2).astype(np.int32)
     # mixed: runs of consecutive rows with jumps between them
     parts, left = [], N
     while left:
@@ -176,12 +181,16 @@ def _stream(kind, R, N, rng):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("kind", ["contiguous", "random", "mixed"])
+@pytest.mark.parametrize("kind", ["contiguous", "random", "mixed",
+                                  "dispatch", "odd-width"])
 def test_burst_gather_is_exact(dtype, kind):
     rng = np.random.default_rng(7)
     R, D, N = 64, 40, 21                   # N not a multiple of IB = 8
+    if kind == "odd-width":
+        D = 41                             # rows not a multiple of 16 bytes
     jt, tt = _pair(rng, (R, D), dtype)
     idx = _stream(kind, R, N, rng)
+    N = idx.shape[0]
     got = ops.burst_gather(tt, torch.from_numpy(idx))
     want = jax_gather(jt, jnp.asarray(idx), interpret=True)
     assert got.dtype == TDT[dtype] and got.shape == (N, D)
