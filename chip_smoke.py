@@ -12,8 +12,10 @@ Phases, each printing its own lines:
    tensor-core instructions (cuobjdump -sass); the bf16 prefill attention
    must have HMMA/HGMMA instructions and no spill at head sizes <= 128,
    the bf16 prefill grouped matmul (gmm_wgmma<128, 256, 4>) HGMMA and no
-   spill, and the gather's 16-byte copy (burst_vec<uint4>) the 64
-   registers that hold a lane's loads of a row in flight.
+   spill, the bf16 chunked SSD scan (mamba2_chunked<1, 1>, zamba2-7b's
+   prefill) HMMA/HGMMA and no spill, and the gather's 16-byte copy
+   (burst_vec<uint4>) the 64 registers that hold a lane's loads of a row
+   in flight.
 3. kernels: each kernel against its plain PyTorch version on the card, in
    bf16 (tolerance rtol = atol = 2e-2, as in tests/test_kernels.py; one f32
    case at 2e-5), the gather exactly.  Prefill attention at the three
@@ -23,18 +25,23 @@ Phases, each printing its own lines:
    case, and the serve-shape decode run twice, bit for bit.  The two
    scans at the serve shapes (prefill from a zero state, decode at S = 1
    from a random one), at S = 33, at head size 16 and at odd and largest
-   sizes: y at 2e-2 and the f32 state at 3e-2 in bf16; one f32 case each,
-   y at 2e-5 (2e-4 for rwkv6, as in tests/test_kernels.py) and the state
-   at 1e-4.  The grouped matmul in bf16 and f32 at granite-moe-3b's
-   prefill and decode shapes, at ragged sizes (K and N off the tiles, and
-   not multiples of 8, which take the generic kernels, also in 64-row
-   sub-tiles of 128-row tiles), on unsorted and out-of-range ids, with one
-   expert, with fewer rows than one tile over many experts, and at one
-   arctic-480b layer's expert shapes; at each, its plan equals the plain
-   plan and a second run with that plan gives the same bits.  The gather,
-   exactly, on granite-8b's embedding streams, granite-moe's prefill and
-   decode dispatch and an odd row width, with its count of burst tiles
-   equal to the detector's rule.
+   sizes; at one chunk, one chunk and a step, and S = 0; with a ragged
+   last slice of P (mamba2) or of the value axis (rwkv6); at widths the
+   16-byte copies cannot take; mamba2 on zamba2-7b-reduced's strided
+   slices (P = N = 16, 8 heads) over several chunks; rwkv6 at decays
+   whose chunk-local log cumsum falls below -88.7, and with exact zeros of
+   w in bf16 and f32.  y at 2e-2 and the f32 state at 3e-2 in bf16; the
+   f32 cases y at 2e-5 (2e-4 for rwkv6, as in tests/test_kernels.py) and
+   the state at 1e-4; each serve shape run twice, bit for bit. The grouped
+   matmul in bf16 and f32 at granite-moe-3b's prefill and decode shapes, at
+   ragged sizes (K and N off the tiles, and not multiples of 8, which take
+   the generic kernels, also in 64-row sub-tiles of 128-row tiles), on
+   unsorted and out-of-range ids, with one expert, with fewer rows than one
+   tile over many experts, and at one arctic-480b layer's expert shapes; at
+   each, its plan equals the plain plan and a second run with that plan
+   gives the same bits. The gather, exactly, on granite-8b's embedding
+   streams, granite-moe's prefill and decode dispatch and an odd row width,
+   with its count of burst tiles equal to the detector's rule.
 4. reference: granite-8b-, zamba2-7b-, rwkv6- and granite-moe-3b-reduced
    on the card (kernels) against the same weights on the CPU (plain
    versions), teacher-forced, atol 2e-2; for the MoE model a batch row may
@@ -123,6 +130,8 @@ def _phase(msg):
 
 
 def _max_err(got, want):
+    if got.numel() == 0:
+        return 0.0
     return float((got.float() - want.float()).abs().max())
 
 
@@ -322,16 +331,26 @@ def mamba2_inputs(gen, b, s, h, p, n, dtype=torch.bfloat16, state=True,
     return x, dt, A, Bm, Cm, h0
 
 
-def rwkv6_inputs(gen, b, s, h, d, dtype=torch.bfloat16, state=True):
-    """r, k, v, w, u, state of the WKV scan, w = exp(-exp(normal))."""
+def rwkv6_inputs(gen, b, s, h, d, dtype=torch.bfloat16, state=True,
+                 decay="normal"):
+    """r, k, v, w, u, state of the WKV scan, w = exp(-exp(z)): z standard
+    normal ("normal"), shifted by +3 ("strong": a chunk's log-decay cumsum
+    falls far below -88.7), or normal with a third of w set to exactly 0
+    ("zeros")."""
     r, k, v = (_rand((b, s, h, d), gen, dtype) for _ in range(3))
-    w = torch.exp(-torch.exp(_rand((b, s, h, d), gen, torch.float32)))
+    z = _rand((b, s, h, d), gen, torch.float32)
+    w = torch.exp(-torch.exp(z + (3.0 if decay == "strong" else 0.0)))
+    if decay == "zeros":
+        w = torch.where(torch.rand(w.shape, generator=gen, device="cuda")
+                        < 1 / 3, 0.0, w)
     u = 0.3 * _rand((h, d), gen, torch.float32)
     s0 = _rand((b, h, d, d), gen, torch.float32) if state else None
     return r, k, v, w.to(dtype), u, s0
 
 
-#: (case, shape, dtype, initial state, strided x/B/C)
+#: (case, shape (B, S, H, P, N), dtype, initial state, strided x/B/C);
+#: bf16 with S >= m2.CHUNK (64) runs the chunked kernel (slices of 64 rows
+#: of P), the rest the sequential one
 MAMBA2_CASES = [
     ("serve-prefill", (B, PROMPT, 112, 64, 64), torch.bfloat16, False, True),
     ("serve-decode", (B, 1, 112, 64, 64), torch.bfloat16, True, True),
@@ -340,16 +359,41 @@ MAMBA2_CASES = [
     ("odd-p24-n40", (1, 17, 3, 24, 40), torch.bfloat16, True, False),
     ("p128-n128", (1, 9, 2, 128, 128), torch.bfloat16, True, False),
     ("f32", (2, 33, 4, 64, 64), torch.float32, True, False),
+    ("s64-one-chunk", (2, 64, 4, 64, 64), torch.bfloat16, True, False),
+    ("s65-chunk-and-a-step", (2, 65, 4, 64, 64), torch.bfloat16, True, True),
+    ("s0", (2, 0, 4, 64, 64), torch.bfloat16, True, False),
+    ("p40-ragged-slice", (1, 70, 3, 40, 16), torch.bfloat16, True, False),
+    ("p80-two-slices", (1, 70, 3, 80, 16), torch.bfloat16, True, False),
+    ("p24-n40-chunked", (1, 80, 3, 24, 40), torch.bfloat16, False, False),
+    ("p20-n20-unaligned", (1, 70, 2, 20, 20), torch.bfloat16, True, True),
+    ("p128-n128-chunked", (1, 130, 2, 128, 128), torch.bfloat16, True,
+     False),
+    ("zamba2-reduced-strided", (2, 100, 8, 16, 16), torch.bfloat16, True,
+     True),
+    ("f32-p40-s65", (1, 65, 2, 40, 24), torch.float32, True, False),
 ]
-#: (case, shape, dtype, initial state)
+#: (case, shape (B, S, H, D), dtype, initial state, decay of
+#: ``rwkv6_inputs``); S >= r6.CHUNK (16) runs the chunked kernel (slices of
+#: 32 value columns), the rest the sequential one
 RWKV6_CASES = [
-    ("serve-prefill", (B, PROMPT, 32, 64), torch.bfloat16, False),
-    ("serve-decode", (B, 1, 32, 64), torch.bfloat16, True),
-    ("s33", (2, 33, 8, 64), torch.bfloat16, True),
-    ("d16", (2, 40, 4, 16), torch.bfloat16, True),
-    ("odd-d24", (1, 17, 3, 24), torch.bfloat16, True),
-    ("d128", (1, 9, 2, 128), torch.bfloat16, True),
-    ("f32", (2, 33, 4, 64), torch.float32, True),
+    ("serve-prefill", (B, PROMPT, 32, 64), torch.bfloat16, False, "normal"),
+    ("serve-decode", (B, 1, 32, 64), torch.bfloat16, True, "normal"),
+    ("s33", (2, 33, 8, 64), torch.bfloat16, True, "normal"),
+    ("d16", (2, 40, 4, 16), torch.bfloat16, True, "normal"),
+    ("odd-d24", (1, 17, 3, 24), torch.bfloat16, True, "normal"),
+    ("d128", (1, 9, 2, 128), torch.bfloat16, True, "normal"),
+    ("f32", (2, 33, 4, 64), torch.float32, True, "normal"),
+    ("s16-one-chunk", (2, 16, 4, 64), torch.bfloat16, True, "normal"),
+    ("s17-chunk-and-a-step", (2, 17, 4, 64), torch.bfloat16, True, "normal"),
+    ("s0", (2, 0, 4, 64), torch.bfloat16, True, "normal"),
+    ("d48-ragged-slice", (1, 40, 3, 48), torch.bfloat16, True, "normal"),
+    ("d20-unaligned", (1, 37, 2, 20), torch.bfloat16, True, "normal"),
+    ("d128-chunked", (1, 50, 2, 128), torch.bfloat16, True, "normal"),
+    ("f32-d128-chunked", (1, 35, 2, 128), torch.float32, True, "normal"),
+    ("strong-decay", (2, 64, 3, 16), torch.bfloat16, True, "strong"),
+    ("strong-decay-f32", (2, 64, 3, 16), torch.float32, True, "strong"),
+    ("w-zeros", (2, 50, 3, 64), torch.bfloat16, True, "zeros"),
+    ("w-zeros-f32", (2, 50, 3, 64), torch.float32, True, "zeros"),
 ]
 
 
@@ -361,21 +405,42 @@ def _check_scan(name, got, want, f32, y_tol):
     return max(errs)
 
 
+def _same_bits(name, fn, args, got):
+    """A second run gives the same bits (no atomics, a fixed order of
+    sums)."""
+    again = fn(*args)
+    if not all(torch.equal(a, b) for a, b in zip(got, again, strict=True)):
+        raise AssertionError(f"{name}: two runs differ")
+    _phase(f"check {name}: two runs give the same bits ok")
+
+
 def check_scans(gen):
-    """Both scans against their plain versions; returns the max error of
-    each at its serve prefill shape."""
+    """Both scans against their plain versions, each serve shape also
+    against itself run again; returns the max error of each at its serve
+    prefill shape."""
     errs = {}
     for case, shape, dtype, state, strided in MAMBA2_CASES:
         args = mamba2_inputs(gen, *shape, dtype=dtype, state=state,
                              strided=strided)
+        name = f"mamba2_scan[{case}] {m2.schedule(dtype, shape[1])}"
+        got = m2.mamba2_scan(*args)
         errs[f"mamba2_scan[{case}]"] = _check_scan(
-            f"mamba2_scan[{case}]", m2.mamba2_scan(*args),
-            ref.mamba2_scan_ref(*args), dtype == torch.float32, F32_TOL)
-    for case, shape, dtype, state in RWKV6_CASES:
-        args = rwkv6_inputs(gen, *shape, dtype=dtype, state=state)
+            name, got, ref.mamba2_scan_ref(*args), dtype == torch.float32,
+            F32_TOL)
+        if case.startswith("serve"):
+            _same_bits(name, m2.mamba2_scan, args, got)
+    for case, shape, dtype, state, decay in RWKV6_CASES:
+        args = rwkv6_inputs(gen, *shape, dtype=dtype, state=state,
+                            decay=decay)
+        name = f"rwkv6_scan[{case}] {r6.schedule(dtype, shape[1])}"
+        if decay == "zeros":
+            _phase(f"{name}: {int((args[3] == 0).sum())} exact zeros of w")
+        got = r6.rwkv6_scan(*args)
         errs[f"rwkv6_scan[{case}]"] = _check_scan(
-            f"rwkv6_scan[{case}]", r6.rwkv6_scan(*args),
-            ref.rwkv6_scan_ref(*args), dtype == torch.float32, RWKV_F32_TOL)
+            name, got, ref.rwkv6_scan_ref(*args), dtype == torch.float32,
+            RWKV_F32_TOL)
+        if case.startswith("serve"):
+            _same_bits(name, r6.rwkv6_scan, args, got)
     return (errs["mamba2_scan[serve-prefill]"],
             errs["rwkv6_scan[serve-prefill]"])
 
@@ -771,12 +836,14 @@ def _nbytes(*tensors):
 
 def scan_rows(errs, flush, gen):
     """The two scans at their serve shapes: the row's times are the
-    prefill's (S = 512 from a zero state); a phase line gives the decode
-    step's (S = 1 from a random state) and the f32 FMA floor of the
-    sequential recurrence.  Bytes count each input read once and each
-    output written once; operations are the recurrence's f32 FLOPs, 5 per
-    state element and step for mamba2, 7 for rwkv6."""
+    prefill's (S = 512 from a zero state), its ``decode_*`` keys the decode
+    step's (S = 1 from a random state); a phase line gives each, with the
+    kernel that ran and the f32 FMA floor of the sequential recurrence.
+    Bytes count each input read once and each output written once;
+    operations are the recurrence's f32 FLOPs, 5 per state element and step
+    for mamba2, 7 for rwkv6."""
     rows = []
+    schedules = {"mamba2_scan": m2.schedule, "rwkv6_scan": r6.schedule}
     cases = {
         "mamba2_scan": (m2.mamba2_scan, ref.mamba2_scan_ref,
                         lambda S, st: mamba2_inputs(gen, B, S, 112, 64, 64,
@@ -801,12 +868,17 @@ def scan_rows(errs, flush, gen):
                             *bound(flops(args), nbytes),
                             flops(args) / PEAK_F32_FLOPS * 1e3, nbytes)
         for phase, (ms, plain, b_ms, b_by, f32_ms, nbytes) in timed.items():
-            _phase(f"time {name}[{phase}]: {ms:.4f} ms, plain {plain:.3f} "
-                   f"ms, bound {b_ms:.4f} ms ({b_by}; {nbytes / 1e6:.1f} "
-                   f"MB), f32 FMA floor {f32_ms:.4f} ms")
+            kernel_name = schedules[name](
+                torch.bfloat16, PROMPT if phase == "prefill" else 1)
+            _phase(f"time {name}[{phase}] ({kernel_name}): {ms:.4f} ms, "
+                   f"plain {plain:.3f} ms, bound {b_ms:.4f} ms ({b_by}; "
+                   f"{nbytes / 1e6:.1f} MB), f32 FMA floor {f32_ms:.4f} ms")
         ms, plain, b_ms, b_by, _, _ = timed["prefill"]
-        rows.append(_row(name, replaces, errs[name], ms, plain, None, b_ms,
-                         b_by))
+        row = _row(name, replaces, errs[name], ms, plain, None, b_ms, b_by)
+        d_ms, d_plain, d_b, _, _, _ = timed["decode"]
+        row.update(decode_ms=d_ms, decode_plain_ms=d_plain,
+                   decode_library_ms=None, decode_bound_ms=d_b)
+        rows.append(row)
     return rows
 
 
@@ -954,6 +1026,15 @@ def check_build_report():
                              f"grouped matmul, needs HGMMA and no spill: "
                              f"{gmm_r}")
     _phase("check gmm_wgmma<128, 256, 4>: HGMMA in its SASS, no spill ok")
+    # zamba2-7b's bf16 prefill scan runs on the tensor cores
+    ssd = _build.kernel_report("mamba2_scan").get("mamba2_chunked<1, 1>",
+                                                  {})
+    if not ssd.get("tensor_core") or ssd.get("spill_stores") or \
+            ssd.get("spill_loads"):
+        raise AssertionError(f"mamba2_chunked<1, 1>, the bf16 chunked SSD "
+                             f"scan, needs HMMA/HGMMA and no spill: {ssd}")
+    _phase("check mamba2_chunked<1, 1>: HMMA/HGMMA in its SASS, no spill "
+           "ok")
     # each lane holds its 16 loads of 16 bytes (64 registers) before it
     # stores any: fewer registers mean the compiler interleaved the stores
     gather = _build.kernel_report("burst_gather").get("burst_vec<uint4>", {})

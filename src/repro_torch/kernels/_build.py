@@ -42,10 +42,10 @@ _SIGNATURES = {
         "burst_gather_fwd": [_P, _P, _P, _LL, _LL, _LL, _P, _P],
     },
     "mamba2_scan": {
-        "mamba2_scan_fwd": [_P] * 8 + [_I] * 5 + [_LL] * 7 + [_I, _P],
+        "mamba2_scan_fwd": [_P] * 8 + [_I] * 5 + [_LL] * 7 + [_I, _I, _P],
     },
     "rwkv6_scan": {
-        "rwkv6_scan_fwd": [_P] * 8 + [_I] * 5 + [_P],
+        "rwkv6_scan_fwd": [_P] * 8 + [_I] * 6 + [_P],
     },
     "moe_gmm": {
         "moe_gmm_plan": [_P] * 5 + [_I] * 4 + [_P],

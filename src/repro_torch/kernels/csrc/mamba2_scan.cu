@@ -13,40 +13,73 @@
 //
 // What bounds it on an H100: bytes.  At zamba2-7b's prefill (B=4, S=512,
 // H=112, P=N=64, bf16) x and y are 29.4 MB each and the state 7.3 MB:
-// ~68 MB, ~20 us at 3.35 TB/s.  The recurrence's ~4.7 GFLOP are f32.
-// At decode (S=1) reading and writing the state is almost all of it.
+// ~68 MB, ~20 us at 3.35 TB/s.  At decode (S=1) reading and writing the
+// state is almost all of it.  The chunked kernel below runs at ~3.5x that
+// bound, held back by the instructions its threads issue between the
+// products, not by the tensor cores or the bytes (PERF.md).
 //
-// What the design does about it, in this first version: one block of 256
-// threads per (b, h), looping over time itself (the TPU's sequential chunk
-// axis becomes a loop inside the block).  The (P, N) f32 state lives in
-// registers: thread t owns row p = t/4 (+64 for P > 64) and the columns
-// n = t%4 + 4j, j < V, so y_t[p] is V local FMAs and two shuffles among
-// the row's four lanes.  L = 16 steps of x, B, C and dt at a time are
-// staged in shared memory as f32, and their y is written back from
-// shared memory in one coalesced pass.  The chunked form on tensor cores
-// (wgmma) is later work.
+// Two kernels; the wrapper picks one by dtype and S (mamba2_scan.schedule):
+//
+// - mamba2_chunked, bf16 with S >= CK_T: the chunked dual form on the
+//   tensor cores, wgmma m64n64k16 with bf16 operands and f32 sums.  One
+//   warpgroup per (b, h, slice of CK_PS = 64 rows of P): the chunk's 64
+//   steps are wgmma's 64 rows, and rows of the state evolve independently,
+//   so the split is exact (448 blocks at the serve shape).  The block
+//   walks the chunks of CK_T steps in order and keeps its (CK_PS, N) f32
+//   state in wgmma accumulators between them (no chunk states in device
+//   memory).  Per chunk, with s the chunk-local cumsum of dt A (every
+//   exponent below is <= 0):
+//     y     = exp(s_t) (C @ state^T)
+//             + (G o exp(s_t - s_tau) dt_tau [tau <= t]) @ x
+//     state <- exp(s_T) state + (x o dt exp(s_T - s_tau))^T @ B
+//   with G = C B^T.  Operands in shared memory are 64-row panels in the
+//   128-byte swizzle: B, C and x by TMA (B serves as the K-major operand
+//   of G and the MN-major one of the update), the state and the update's
+//   A operand written by the threads; M stays in registers as the A
+//   operand of M @ x.  The inputs of chunk c + 1 load while chunk c's y
+//   and state go out (one buffer each; a second buffer measured no
+//   faster, and the smaller footprint fits 3 blocks an SM).  Layouts TMA
+//   cannot take (P or N not a multiple of 8, or unaligned strides) are
+//   loaded element by element.  N of 65 to 128 takes two panels; N and P
+//   below 64 are zero-padded.  mma.sync m16n8k16 over 4 warps of 32 rows
+//   of P (fitting P and N of 16 without padding) measured 1.7x slower.
+//   Rounding: B, C and x are bf16 already and enter their products as
+//   they are.  The other operands are f32 and each enters as two bf16
+//   terms, hi = bf16(v) and lo = bf16(v - hi), the product taken as
+//   hi*b + lo*b: M = G o exp(s_t - s_tau) dt_tau (G's f32 accumulators
+//   scaled in registers), the state before C @ state^T, and
+//   x dt exp(s_T - s_tau) for the update.  One bf16 rounding of these
+//   puts some y outside the 2e-2 tolerance, since y's terms are ~10x y
+//   (tests/test_torch_scan_chunks.py::
+//   test_mamba2_one_bf16_rounding_is_not_enough).
+// - mamba2_seq: f32 at every S (the check path: y to 2e-5, which no
+//   tensor-core product meets) and bf16 below one chunk, the model's
+//   decode step (S = 1) among them.  Sequential f32 FMAs, a block of 128
+//   threads per (b, h, slice of 32 rows of P), 4 lanes to a row: each lane
+//   owns 16-byte runs of consecutive n, so every warp load of the state
+//   covers whole 32-byte sectors, and it issues all of its state loads
+//   before any arithmetic.  y_t[p] is summed over the row's 4 lanes by
+//   shuffles; SQ_L steps of x, B, C and dt at a time are staged in shared
+//   memory.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
 
-constexpr int NT = 256;             // threads per block
-constexpr int G = 4;                // lanes per state row
-constexpr int ROWS = NT / G;        // rows one pass of the block covers
-constexpr int L = 16;               // time steps staged at once
 constexpr int MAXD = 128;           // largest P and N
 
+typedef __nv_bfloat16 bf16;
+
 __device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
+__device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
 template <typename T> __device__ __forceinline__ T from_f(float v);
 template <> __device__ __forceinline__ float from_f<float>(float v) {
   return v;
 }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(
-    float v) {
+template <> __device__ __forceinline__ bf16 from_f<bf16>(float v) {
   return __float2bfloat16(v);
 }
 
@@ -58,107 +91,594 @@ struct Args {
   long long bs_b, bs_s, cs_b, cs_s; // strides of B and C (their last is 1)
 };
 
-// V: state columns per thread (N <= G * V); RI: rows per thread
-// (P <= ROWS * RI).
-template <typename T, int V, int RI>
-__global__ void __launch_bounds__(NT) mamba2_scan_kernel(Args a) {
-  __shared__ float sx[L][MAXD];
-  __shared__ float sb[L][MAXD];
-  __shared__ float sc[L][MAXD];
-  __shared__ float sy[L][MAXD];
-  __shared__ float sdt[L];
+// ------------------------------------------------ sequential: mamba2_seq
+constexpr int SQ_NT = 128;          // threads per block
+constexpr int SQ_G = 4;             // lanes per state row
+constexpr int SQ_ROWS = SQ_NT / SQ_G;  // rows of P per block
+constexpr int SQ_L = 16;            // time steps staged at once
+
+// NV: 16-byte runs of n per lane (N <= 16 NV).  Lane g of row p owns
+// n = 4 (g + 4 j) + e, j < NV, e < 4.
+template <typename T, int NV>
+__global__ void __launch_bounds__(SQ_NT) mamba2_seq(Args a, int vec4) {
+  __shared__ __align__(16) float sb[SQ_L][MAXD];
+  __shared__ __align__(16) float sc[SQ_L][MAXD];
+  __shared__ float sx[SQ_L][SQ_ROWS];
+  __shared__ float sy[SQ_L][SQ_ROWS];
+  __shared__ float sdt[SQ_L];
 
   const int H = a.H, P = a.P, N = a.N, S = a.S;
-  const int bh = blockIdx.x, b = bh / H, hh = bh % H;
-  const int g = threadIdx.x % G, r = threadIdx.x / G;
-  const float A = a.A[hh];
-  const T* x = static_cast<const T*>(a.x) + b * a.xs_b + hh * a.xs_h;
-  const T* Bm = static_cast<const T*>(a.B) + b * a.bs_b;
-  const T* Cm = static_cast<const T*>(a.C) + b * a.cs_b;
-  const float* dt = a.dt + (long long)b * S * H + hh;
-  T* y = static_cast<T*>(a.y) + ((long long)b * S * H + hh) * P;
-  const long long soff = (long long)bh * P * N;
+  const int nsl = (P + SQ_ROWS - 1) / SQ_ROWS;
+  const int bh = blockIdx.x / nsl, p0 = (blockIdx.x % nsl) * SQ_ROWS;
+  const int b = bh / H, hh = bh % H;
+  const int g = threadIdx.x % SQ_G, r = threadIdx.x / SQ_G;
+  const int p = p0 + r;
+  const bool row = p < P;
+  const long long soff = ((long long)bh * P + p) * N;
 
-  float st[RI][V];
+  // the state first: every load of this lane in flight before any use
+  float4 st[NV];
 #pragma unroll
-  for (int i = 0; i < RI; ++i) {
-    const int p = r + ROWS * i;
-#pragma unroll
-    for (int j = 0; j < V; ++j) {
-      const int n = g + G * j;
-      st[i][j] = (a.h0 && p < P && n < N) ? a.h0[soff + p * N + n] : 0.f;
+  for (int j = 0; j < NV; ++j) {
+    const int n = 4 * (g + SQ_G * j);
+    st[j] = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (a.h0 && row && n < N) {
+      const float* src = a.h0 + soff + n;
+      if (vec4) {
+        st[j] = *reinterpret_cast<const float4*>(src);
+      } else {
+        st[j].x = src[0];
+        if (n + 1 < N) st[j].y = src[1];
+        if (n + 2 < N) st[j].z = src[2];
+        if (n + 3 < N) st[j].w = src[3];
+      }
     }
   }
 
-  for (int t0 = 0; t0 < S; t0 += L) {
-    const int nt = min(L, S - t0);
-    for (int e = threadIdx.x; e < nt * P; e += NT) {
-      const int tt = e / P, p = e % P;
-      sx[tt][p] = to_f(x[(t0 + tt) * a.xs_s + p]);
+  const float A = a.A[hh];
+  const T* x = static_cast<const T*>(a.x) + b * a.xs_b + hh * a.xs_h + p0;
+  const T* Bm = static_cast<const T*>(a.B) + b * a.bs_b;
+  const T* Cm = static_cast<const T*>(a.C) + b * a.cs_b;
+  const float* dt = a.dt + (long long)b * S * H + hh;
+  T* y = static_cast<T*>(a.y) + ((long long)b * S * H + hh) * P + p0;
+
+  for (int t0 = 0; t0 < S; t0 += SQ_L) {
+    const int nt = min(SQ_L, S - t0);
+    for (int e = threadIdx.x; e < nt * SQ_ROWS; e += SQ_NT) {
+      const int tt = e / SQ_ROWS, q = e % SQ_ROWS;
+      sx[tt][q] = p0 + q < P ? to_f(x[(t0 + tt) * a.xs_s + q]) : 0.f;
     }
-    for (int e = threadIdx.x; e < nt * N; e += NT) {
-      const int tt = e / N, n = e % N;
-      sb[tt][n] = to_f(Bm[(t0 + tt) * a.bs_s + n]);
-      sc[tt][n] = to_f(Cm[(t0 + tt) * a.cs_s + n]);
+    for (int e = threadIdx.x; e < nt * 16 * NV; e += SQ_NT) {
+      const int tt = e / (16 * NV), n = e % (16 * NV);
+      sb[tt][n] = n < N ? to_f(Bm[(t0 + tt) * a.bs_s + n]) : 0.f;
+      sc[tt][n] = n < N ? to_f(Cm[(t0 + tt) * a.cs_s + n]) : 0.f;
     }
-    if (threadIdx.x < nt) sdt[threadIdx.x] = dt[(long long)(t0 + threadIdx.x) * H];
+    if (threadIdx.x < nt)
+      sdt[threadIdx.x] = dt[(long long)(t0 + threadIdx.x) * H];
     __syncthreads();
 
     for (int tt = 0; tt < nt; ++tt) {
       const float d = sdt[tt];
       const float decay = expf(d * A);
-      float bn[V], cn[V];
+      const float dx = d * sx[tt][r];
+      float acc = 0.f;
 #pragma unroll
-      for (int j = 0; j < V; ++j) {
-        const int n = g + G * j;
-        bn[j] = n < N ? sb[tt][n] : 0.f;
-        cn[j] = n < N ? sc[tt][n] : 0.f;
+      for (int j = 0; j < NV; ++j) {
+        const int n = 4 * (g + SQ_G * j);
+        const float4 bq = *reinterpret_cast<const float4*>(&sb[tt][n]);
+        const float4 cq = *reinterpret_cast<const float4*>(&sc[tt][n]);
+        st[j].x = st[j].x * decay + dx * bq.x;
+        acc += st[j].x * cq.x;
+        st[j].y = st[j].y * decay + dx * bq.y;
+        acc += st[j].y * cq.y;
+        st[j].z = st[j].z * decay + dx * bq.z;
+        acc += st[j].z * cq.z;
+        st[j].w = st[j].w * decay + dx * bq.w;
+        acc += st[j].w * cq.w;
       }
-#pragma unroll
-      for (int i = 0; i < RI; ++i) {
-        const int p = r + ROWS * i;
-        const float dx = p < P ? d * sx[tt][p] : 0.f;
-        float acc = 0.f;
-#pragma unroll
-        for (int j = 0; j < V; ++j) {
-          st[i][j] = st[i][j] * decay + dx * bn[j];
-          acc += st[i][j] * cn[j];
-        }
-        acc += __shfl_xor_sync(0xffffffffu, acc, 1);
-        acc += __shfl_xor_sync(0xffffffffu, acc, 2);
-        if (g == 0 && p < P) sy[tt][p] = acc;
-      }
+      acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+      acc += __shfl_xor_sync(0xffffffffu, acc, 2);
+      if (g == 0) sy[tt][r] = acc;
     }
     __syncthreads();
-    for (int e = threadIdx.x; e < nt * P; e += NT) {
-      const int tt = e / P, p = e % P;
-      y[(long long)(t0 + tt) * H * P + p] = from_f<T>(sy[tt][p]);
+    for (int e = threadIdx.x; e < nt * SQ_ROWS; e += SQ_NT) {
+      const int tt = e / SQ_ROWS, q = e % SQ_ROWS;
+      if (p0 + q < P)
+        y[(long long)(t0 + tt) * H * P + q] = from_f<T>(sy[tt][q]);
     }
   }
 
 #pragma unroll
-  for (int i = 0; i < RI; ++i) {
-    const int p = r + ROWS * i;
-#pragma unroll
-    for (int j = 0; j < V; ++j) {
-      const int n = g + G * j;
-      if (p < P && n < N) a.hout[soff + p * N + n] = st[i][j];
+  for (int j = 0; j < NV; ++j) {
+    const int n = 4 * (g + SQ_G * j);
+    if (!row || n >= N) continue;
+    float* dst = a.hout + soff + n;
+    if (vec4) {
+      *reinterpret_cast<float4*>(dst) = st[j];
+    } else {
+      dst[0] = st[j].x;
+      if (n + 1 < N) dst[1] = st[j].y;
+      if (n + 2 < N) dst[2] = st[j].z;
+      if (n + 3 < N) dst[3] = st[j].w;
     }
   }
-}
-
-template <typename T, int RI>
-int launch_v(const Args& a, int grid, cudaStream_t s) {
-  if (a.N <= G * 4) mamba2_scan_kernel<T, 4, RI><<<grid, NT, 0, s>>>(a);
-  else if (a.N <= G * 8) mamba2_scan_kernel<T, 8, RI><<<grid, NT, 0, s>>>(a);
-  else if (a.N <= G * 16) mamba2_scan_kernel<T, 16, RI><<<grid, NT, 0, s>>>(a);
-  else mamba2_scan_kernel<T, 32, RI><<<grid, NT, 0, s>>>(a);
-  return (int)cudaGetLastError();
 }
 
 template <typename T>
-int launch(const Args& a, int grid, cudaStream_t s) {
-  return a.P <= ROWS ? launch_v<T, 1>(a, grid, s) : launch_v<T, 2>(a, grid, s);
+int launch_seq(const Args& a, int grid, int vec4, cudaStream_t s) {
+  if (a.N <= 16) mamba2_seq<T, 1><<<grid, SQ_NT, 0, s>>>(a, vec4);
+  else if (a.N <= 32) mamba2_seq<T, 2><<<grid, SQ_NT, 0, s>>>(a, vec4);
+  else if (a.N <= 64) mamba2_seq<T, 4><<<grid, SQ_NT, 0, s>>>(a, vec4);
+  else mamba2_seq<T, 8><<<grid, SQ_NT, 0, s>>>(a, vec4);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------- chunked, bf16: mamba2_chunked
+constexpr int CK_T = 64;            // steps per chunk: wgmma's 64 rows
+constexpr int CK_PS = 64;           // rows of P per block
+constexpr int CK_NT = 128;          // one warpgroup
+constexpr int TILE = 64 * 128;      // bytes of a 64-row x 64-column panel
+constexpr int LDY = CK_PS + 8;      // pitch of the y staging tile
+
+// byte offset of element (r, c), c < 64, of a panel of 128-byte rows in the
+// 128-byte swizzle of wgmma: the 16-byte chunk c / 8 of row r is stored at
+// chunk (c / 8) ^ (r % 8)
+__device__ __forceinline__ int swz(int r, int c) {
+  return r * 128 + ((((c) >> 3) ^ (r & 7)) << 4) + (c & 7) * 2;
+}
+
+// d (64x64 f32) += A (64x16, smem, K-major) * B (16x64, smem, MN-major)
+__device__ __forceinline__ void wgmma_ss_tb(float* d, uint64_t da,
+                                            uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ uint32_t bits(__nv_bfloat162 v) {
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// (a, b) as two bf16 pairs: hi = bf16(v), lo = bf16(v - hi)
+__device__ __forceinline__ void split2(float a, float b, uint32_t& hi,
+                                       uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  const float2 f = __bfloat1622float2(h);
+  hi = bits(h);
+  lo = bits(__floats2bfloat162_rn(a - f.x, b - f.y));
+}
+
+// 4-byte asynchronous copy to shared memory; `bytes` is 4, or 0 for a zero
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+
+// Shared memory of one block (offsets from a 1024-byte aligned base); the
+// operand tiles are panels of 64 rows x 128 bytes in the 128-byte swizzle.
+template <int NPN>
+struct WgSmem {
+  static constexpr int B = 0;                    // [NPN] B as [t][n]
+  static constexpr int C = B + NPN * TILE;       // [NPN] C as [t][n]
+  static constexpr int X = C + NPN * TILE;       // x as [t][p]
+  static constexpr int DH = X + TILE;            // x dt e^(s_T - s_t) as
+  static constexpr int DL = DH + TILE;           //   [p][t], hi and lo;
+                                                 //   y, [t][LDY] bf16, after
+  static constexpr int HH = DL + TILE;           // [NPN] the state as
+  static constexpr int HL = HH + NPN * TILE;     //   [p][n], hi and lo
+  static constexpr int DT = HL + NPN * TILE;     // [CK_T] dt
+  static constexpr int S = DT + CK_T * 4;        // [4][CK_T] cumsum of dt A
+  static constexpr int CO = S + 4 * CK_T * 4;    // [4][CK_T] dt e^(s_T - s_t)
+  static constexpr int BAR = CO + 4 * CK_T * 4;  // the TMA's mbarrier
+  static constexpr int BYTES = BAR + 8;
+  static constexpr int TMA_BYTES = (2 * NPN + 1) * TILE;  // a chunk's
+  static_assert(CK_T * LDY * 2 <= 2 * TILE, "y fits where DH and DL are");
+};
+
+// NPN: 64-column panels of N (N <= 64 NPN, zero-padded).  VEC: B, C and x
+// come by TMA through map_b, map_c and map_x (P and N multiples of 8,
+// strides of 16 bytes), y by 16-byte stores; else element by element.
+template <int NPN, bool VEC>
+__global__ void __launch_bounds__(CK_NT)
+mamba2_chunked(Args a, const __grid_constant__ CUtensorMap map_b,
+               const __grid_constant__ CUtensorMap map_c,
+               const __grid_constant__ CUtensorMap map_x) {
+  using L = WgSmem<NPN>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* sm =
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  bf16* sy = reinterpret_cast<bf16*>(sm + L::DH);
+  float* sdt = reinterpret_cast<float*>(sm + L::DT);
+
+  const int H = a.H, P = a.P, N = a.N, S = a.S;
+  const int nsl = (P + CK_PS - 1) / CK_PS;
+  const int bh = blockIdx.x / nsl, p0 = (blockIdx.x % nsl) * CK_PS;
+  const int b = bh / H, hh = bh % H;
+  const int tid = threadIdx.x, lane = tid & 31;
+  // the warp index, known to the compiler as uniform across the warp
+  const int warp = __shfl_sync(0xffffffffu, tid >> 5, 0);
+  const int g = lane >> 2, c = lane & 3;
+  const float A = a.A[hh];
+  const bf16* x = static_cast<const bf16*>(a.x) + b * a.xs_b +
+                  hh * a.xs_h + p0;
+  const bf16* Bm = static_cast<const bf16*>(a.B) + b * a.bs_b;
+  const bf16* Cm = static_cast<const bf16*>(a.C) + b * a.cs_b;
+  const float* dt = a.dt + (long long)b * S * H + hh;
+  bf16* y = static_cast<bf16*>(a.y) + ((long long)b * S * H + hh) * P + p0;
+  const int nc = (S + CK_T - 1) / CK_T;
+  float* ss = reinterpret_cast<float*>(sm + L::S) + warp * CK_T;
+  float* sco = reinterpret_cast<float*>(sm + L::CO) + warp * CK_T;
+
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + L::BAR);
+  if constexpr (VEC) {
+    if (tid == 0) {
+      mbar_init(full, 1);
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncthreads();
+  }
+  // one 64 x 64 tile of a row-major (rows, cols) bf16 matrix with row
+  // stride ld into a swizzled panel, zeros past rows and cols, element by
+  // element: this lane copies chunk lq of rows lr + 16 i, i < 4
+  const int lr = tid >> 3, lq = tid & 7;
+  auto load_tile = [&](unsigned char* dst, const bf16* src, long long ld,
+                       int rows, int cols) {
+#pragma unroll 1
+    for (int i = 0; i < 4; ++i) {
+      const int r = lr + 16 * i;
+      const bf16* from = src + r * ld + 8 * lq;
+      bf16* to = reinterpret_cast<bf16*>(dst + swz(r, 8 * lq));
+#pragma unroll
+      for (int k = 0; k < 8; ++k)
+        to[k] = r < rows && 8 * lq + k < cols ? from[k]
+                                              : __float2bfloat16(0.f);
+    }
+  };
+  // B, C, x and dt of chunk ci into their buffers: the tiles by TMA,
+  // issued by thread 0 (zeros past S, N and P), or element by element
+  auto load_chunk = [&](int ci) {
+    const int t0 = ci * CK_T, rows = min(CK_T, S - t0);
+    if constexpr (VEC) {
+      if (tid == 0) {
+        mbar_expect(full, L::TMA_BYTES);
+#pragma unroll
+        for (int pn = 0; pn < NPN; ++pn) {
+          tma_load_3d(sm + L::B + pn * TILE, &map_b, full, 64 * pn, t0, b);
+          tma_load_3d(sm + L::C + pn * TILE, &map_c, full, 64 * pn, t0, b);
+        }
+        asm volatile(
+            "cp.async.bulk.tensor.4d.shared::cluster.global.tile."
+            "mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], "
+            "[%2];\n" ::"r"(smem_u32(sm + L::X)),
+            "l"(reinterpret_cast<uint64_t>(&map_x)), "r"(smem_u32(full)),
+            "r"(p0), "r"(hh), "r"(t0), "r"(b)
+            : "memory");
+      }
+    } else {
+#pragma unroll
+      for (int pn = 0; pn < NPN; ++pn) {
+        load_tile(sm + L::B + pn * TILE, Bm + t0 * a.bs_s + 64 * pn, a.bs_s,
+                  rows, N - 64 * pn);
+        load_tile(sm + L::C + pn * TILE, Cm + t0 * a.cs_s + 64 * pn, a.cs_s,
+                  rows, N - 64 * pn);
+      }
+      load_tile(sm + L::X, x + t0 * a.xs_s, a.xs_s, rows, P - p0);
+    }
+    if (tid < CK_T) {
+      const bool ok = tid < rows;
+      cp_async4(sdt + tid, ok ? dt + (long long)(t0 + tid) * H : dt,
+                ok ? 4 : 0);
+    }
+    cp_async_commit();
+  };
+
+  // the state, f32, as the accumulators of a 64 x 64 wgmma per panel of N:
+  // acc_h[pn][4 j + e] is row p = 16 warp + g + 8 (e / 2), column
+  // n = 64 pn + 8 j + 2 c + e % 2
+  float acc_h[NPN][32];
+#pragma unroll
+  for (int pn = 0; pn < NPN; ++pn)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int p = p0 + 16 * warp + g + 8 * ((i >> 1) & 1);
+      const int n = 64 * pn + 8 * (i >> 2) + 2 * c + (i & 1);
+      acc_h[pn][i] = a.h0 && p < P && n < N
+                         ? a.h0[((long long)bh * P + p) * N + n] : 0.f;
+    }
+  // the state into shared memory as [p][n], hi and lo: rows
+  // 16 warp + g (+8), whose swizzle is g
+  unsigned char* const hrow = sm + (16 * warp + g) * 128 + 4 * c;
+  auto store_state = [&]() {
+#pragma unroll
+    for (int pn = 0; pn < NPN; ++pn)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          const int off = pn * TILE + 1024 * hf + ((j ^ g) << 4);
+          uint32_t hi, lo;
+          split2(acc_h[pn][4 * j + 2 * hf], acc_h[pn][4 * j + 2 * hf + 1],
+                 hi, lo);
+          *reinterpret_cast<uint32_t*>(hrow + L::HH + off) = hi;
+          *reinterpret_cast<uint32_t*>(hrow + L::HL + off) = lo;
+        }
+  };
+  store_state();
+  load_chunk(0);
+
+  // wgmma descriptors of the tiles: the base's plus the offset / 16, for
+  // K-major operands (16, 1024) and MN-major ones (TILE, 1024)
+  const uint64_t dk0 = wg_desc(sm, 16, 1024), dm0 = wg_desc(sm, TILE, 1024);
+  auto dk = [&](int off) { return dk0 + (uint64_t)(off >> 4); };
+  auto dm = [&](int off) { return dm0 + (uint64_t)(off >> 4); };
+  // lane p of this warp's half of P in the update's A operand, and its
+  // offsets in x of steps 8 q + k (k < 8) less 1024 q
+  const int up = 32 * (warp & 1) + lane;
+  int xoff[8];
+#pragma unroll
+  for (int k = 0; k < 8; ++k) xoff[k] = swz(k, up);
+
+  // one chunk: its inputs arrive during the previous chunk's output
+  for (int ci = 0; ci < nc; ++ci) {
+    const int t0 = ci * CK_T;
+    cp_async_wait<0>();
+    if constexpr (VEC) mbar_wait(full, ci & 1);
+    fence_proxy_async();
+    __syncthreads();
+
+    // chunk-local inclusive cumsum of dt A, by every warp for itself: lane
+    // l sums steps 2 l and 2 l + 1, then the pair sums are scanned; then
+    // the update's factors dt exp(s_T - s_t)
+    const float* dtc = sdt;
+    {
+      const float2 d2 = *reinterpret_cast<const float2*>(&dtc[2 * lane]);
+      const float a0 = d2.x * A, a1 = a0 + d2.y * A;
+      float inc = a1;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const float u = __shfl_up_sync(0xffffffffu, inc, o);
+        if (lane >= o) inc += u;
+      }
+      const float s0 = inc - a1 + a0, sT = __shfl_sync(0xffffffffu, inc, 31);
+      *reinterpret_cast<float2*>(&ss[2 * lane]) = make_float2(s0, inc);
+      *reinterpret_cast<float2*>(&sco[2 * lane]) =
+          make_float2(d2.x * __expf(sT - s0), d2.y * __expf(sT - inc));
+      __syncwarp();
+    }
+    const float sT = ss[CK_T - 1];
+
+    // the update's A operand, (x o dt e^(s_T - s_t))^T as [p][t], hi and
+    // lo: lane p = up, 8 steps t = 8 q + k at a time
+    {
+      const unsigned char* xs = sm + L::X;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int q = (warp >> 1) + 2 * i;
+        const float4 c0 = *reinterpret_cast<const float4*>(&sco[8 * q]);
+        const float4 c1 = *reinterpret_cast<const float4*>(&sco[8 * q + 4]);
+        const float co[8] = {c0.x, c0.y, c0.z, c0.w, c1.x, c1.y, c1.z, c1.w};
+        float v[8];
+#pragma unroll
+        for (int k = 0; k < 8; ++k)
+          v[k] = __bfloat162float(*reinterpret_cast<const bf16*>(
+                     xs + 1024 * q + xoff[k])) * co[k];
+        uint32_t h[4], l[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) split2(v[2 * e], v[2 * e + 1], h[e], l[e]);
+        const int off = up * 128 + ((q ^ (up & 7)) << 4);
+        *reinterpret_cast<uint4*>(sm + L::DH + off) =
+            make_uint4(h[0], h[1], h[2], h[3]);
+        *reinterpret_cast<uint4*>(sm + L::DL + off) =
+            make_uint4(l[0], l[1], l[2], l[3]);
+      }
+    }
+    fence_proxy_async();
+    __syncthreads();
+
+    const int cB = L::B, cC = L::C;
+    // G = C B^T and the inter-chunk C @ state^T (the state as hi + lo),
+    // both over K = n
+    float gacc[32], acc_y[32];
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4 * NPN; ++kk) {
+      const int off = (kk >> 2) * TILE + (kk & 3) * 32;
+      const uint64_t dc = dk(cC + off);
+      wgmma_ss<64>(gacc, dc, dk(cB + off), kk > 0);
+      wgmma_ss<64>(acc_y, dc, dk(L::HH + off), kk > 0);
+      wgmma_ss<64>(acc_y, dc, dk(L::HL + off), 1);
+    }
+    wg_commit();
+    wg_wait0();
+    wg_touch(gacc);
+    wg_touch(acc_y);
+
+    // y's rows t = 16 warp + g (+8): exp(s_t) C @ state^T, and the
+    // intra-chunk factor M = G o exp(s_t - s_tau) dt_tau [tau <= t] as the
+    // A fragments of M @ x, hi and lo
+    const int ta = 16 * warp + g, tb = ta + 8;
+    const float sta = ss[ta], stb = ss[tb];
+    {
+      const float ea = __expf(sta), eb = __expf(stb);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        acc_y[4 * j] *= ea;
+        acc_y[4 * j + 1] *= ea;
+        acc_y[4 * j + 2] *= eb;
+        acc_y[4 * j + 3] *= eb;
+      }
+    }
+    // tiles j < 2 warp lie below this warp's rows, j > 2 warp + 1 above
+    uint32_t mh[4][4], ml[4][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      uint32_t* h = &mh[j >> 1][2 * (j & 1)];
+      uint32_t* l = &ml[j >> 1][2 * (j & 1)];
+      if (j > 2 * warp + 1) {
+        h[0] = h[1] = l[0] = l[1] = 0u;
+        continue;
+      }
+      const int tau = 8 * j + 2 * c;
+      const float2 sv = *reinterpret_cast<const float2*>(&ss[tau]);
+      const float2 dv = *reinterpret_cast<const float2*>(&dtc[tau]);
+      float m0 = gacc[4 * j] * __expf(sta - sv.x) * dv.x;
+      float m1 = gacc[4 * j + 1] * __expf(sta - sv.y) * dv.y;
+      float m2 = gacc[4 * j + 2] * __expf(stb - sv.x) * dv.x;
+      float m3 = gacc[4 * j + 3] * __expf(stb - sv.y) * dv.y;
+      if (j >= 2 * warp) {
+        m0 = tau <= ta ? m0 : 0.f;
+        m1 = tau + 1 <= ta ? m1 : 0.f;
+        m2 = tau <= tb ? m2 : 0.f;
+        m3 = tau + 1 <= tb ? m3 : 0.f;
+      }
+      split2(m0, m1, h[0], l[0]);
+      split2(m2, m3, h[1], l[1]);
+    }
+    {
+      const float eT = __expf(sT);
+#pragma unroll
+      for (int pn = 0; pn < NPN; ++pn)
+#pragma unroll
+        for (int i = 0; i < 32; ++i) acc_h[pn][i] *= eT;
+    }
+    // y += M @ x (x the MN-major B operand); the state += the update's A
+    // @ B (B the MN-major operand), each over K = the chunk's steps
+    const int cX = L::X;
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < CK_T / 16; ++kk) {
+      const uint64_t dx = dm(cX + kk * 2048);
+      wgmma_rs(acc_y, mh[kk], dx);
+      wgmma_rs(acc_y, ml[kk], dx);
+      const uint64_t dh = dk(L::DH + kk * 32), dl = dk(L::DL + kk * 32);
+#pragma unroll
+      for (int pn = 0; pn < NPN; ++pn) {
+        const uint64_t db = dm(cB + pn * TILE + kk * 2048);
+        wgmma_ss_tb(acc_h[pn], dh, db);
+        wgmma_ss_tb(acc_h[pn], dl, db);
+      }
+    }
+    wg_commit();
+    wg_wait0();
+    wg_touch(acc_y);
+#pragma unroll
+    for (int pn = 0; pn < NPN; ++pn) wg_touch(acc_h[pn]);
+
+    // every product of the chunk is done and its inputs are free: the next
+    // chunk's loads run while y and the state go out
+    fence_proxy_async();
+    __syncthreads();
+    if (ci + 1 < nc) load_chunk(ci + 1);
+
+    // y in bf16 through this warp's rows of sy, 16 bytes a lane
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf)
+        *reinterpret_cast<__nv_bfloat162*>(
+            &sy[(ta + 8 * hf) * LDY + 8 * j + 2 * c]) =
+            __floats2bfloat162_rn(acc_y[4 * j + 2 * hf],
+                                  acc_y[4 * j + 2 * hf + 1]);
+    __syncwarp();
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int t = 16 * warp + (lane >> 3) + 4 * i, pc = 8 * (lane & 7);
+      if (t0 + t >= S || p0 + pc >= P) continue;
+      bf16* dst = y + (long long)(t0 + t) * H * P + pc;
+      if constexpr (VEC) {
+        *reinterpret_cast<uint4*>(dst) =
+            *reinterpret_cast<const uint4*>(&sy[t * LDY + pc]);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          if (p0 + pc + e < P) dst[e] = sy[t * LDY + pc + e];
+      }
+    }
+    store_state();
+  }
+
+#pragma unroll
+  for (int pn = 0; pn < NPN; ++pn)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int p = p0 + 16 * warp + g + 8 * ((i >> 1) & 1);
+      const int n = 64 * pn + 8 * (i >> 2) + 2 * c + (i & 1);
+      if (p < P && n < N) a.hout[((long long)bh * P + p) * N + n] =
+          acc_h[pn][i];
+    }
+}
+
+// a TMA map of a bf16 tensor of `rank` dims (innermost first, the
+// innermost dense), strides in elements, boxes of box[] elements in the
+// 128-byte swizzle, zeros out of bounds
+bool tile_map(CUtensorMap* map, const void* base, int rank,
+              const long long* dims, const long long* strides,
+              const int* box) {
+  PFN_cuTensorMapEncodeTiled_v12000 encode = tensor_map_encoder();
+  if (encode == nullptr) return false;
+  cuuint64_t d[4], st[3];
+  cuuint32_t bx[4], unit[4] = {1, 1, 1, 1};
+  for (int i = 0; i < rank; ++i) {
+    d[i] = (cuuint64_t)dims[i];
+    bx[i] = (cuuint32_t)box[i];
+    if (i > 0) st[i - 1] = (cuuint64_t)strides[i] * 2;
+  }
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,
+                const_cast<void*>(base), d, st, bx, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int NPN, bool VEC>
+int launch_chunked_np(const Args& a, int Bsz, int grid, cudaStream_t s) {
+  CUtensorMap mb, mc, mx;
+  if constexpr (VEC) {
+    const long long db[3] = {a.N, a.S, Bsz}, sb[3] = {1, a.bs_s, a.bs_b};
+    const long long dc[3] = {a.N, a.S, Bsz}, sc[3] = {1, a.cs_s, a.cs_b};
+    const long long dx[4] = {a.P, a.H, a.S, Bsz};
+    const long long sx[4] = {1, a.xs_h, a.xs_s, a.xs_b};
+    const int box3[3] = {64, CK_T, 1}, box4[4] = {CK_PS, 1, CK_T, 1};
+    if (!tile_map(&mb, a.B, 3, db, sb, box3) ||
+        !tile_map(&mc, a.C, 3, dc, sc, box3) ||
+        !tile_map(&mx, a.x, 4, dx, sx, box4))
+      return (int)cudaErrorInvalidValue;
+  }
+  const int smem = WgSmem<NPN>::BYTES + 1024;
+  const cudaError_t err = cudaFuncSetAttribute(
+      mamba2_chunked<NPN, VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return (int)err;
+  mamba2_chunked<NPN, VEC><<<grid, CK_NT, smem, s>>>(a, mb, mc, mx);
+  return (int)cudaGetLastError();
+}
+
+int launch_chunked(const Args& a, int Bsz, int grid, int vec,
+                   cudaStream_t s) {
+  if (a.N <= 64)
+    return vec ? launch_chunked_np<1, true>(a, Bsz, grid, s)
+               : launch_chunked_np<1, false>(a, Bsz, grid, s);
+  return vec ? launch_chunked_np<2, true>(a, Bsz, grid, s)
+             : launch_chunked_np<2, false>(a, Bsz, grid, s);
+}
+
+bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
 }  // namespace
@@ -166,21 +686,35 @@ int launch(const Args& a, int grid, cudaStream_t s) {
 // x: (B,S,H,P) with strides (xs_b, xs_s, xs_h, 1); dt: (B,S,H) f32; A:
 // (H,) f32; B, C: (B,S,N) with strides (*s_b, *s_s, 1); h0: (B,H,P,N) f32
 // or null for zeros; y: (B,S,H,P) contiguous; hout: (B,H,P,N) f32.
-// dtype: 0 = bf16, 1 = f32 (x, B, C and y).  P and N at most 128.
-// Returns the CUDA error of the launch (0 on success).
+// dtype: 0 = bf16, 1 = f32 (x, B, C and y).  chunked: 1 for the chunked
+// tensor-core kernel (bf16 only), 0 for the sequential one.  P and N at
+// most 128.  Returns the CUDA error of the launch (0 on success).
 extern "C" int mamba2_scan_fwd(const void* x, const float* dt, const float* A,
                                const void* B, const void* C, const float* h0,
                                void* y, float* hout, int Bsz, int S, int H,
                                int P, int N, long long xs_b, long long xs_s,
                                long long xs_h, long long bs_b, long long bs_s,
                                long long cs_b, long long cs_s, int dtype,
-                               void* stream) {
+                               int chunked, void* stream) {
+  const long long nsl = chunked ? (P + CK_PS - 1) / CK_PS
+                                : (P + SQ_ROWS - 1) / SQ_ROWS;
   if (P < 1 || N < 1 || P > MAXD || N > MAXD || S < 0 || Bsz < 1 || H < 1 ||
-      (long long)Bsz * H > 0x7fffffffLL || (dtype != 0 && dtype != 1))
+      (long long)Bsz * H * nsl > 0x7fffffffLL ||
+      (dtype != 0 && dtype != 1) || (chunked && dtype != 0))
     return (int)cudaErrorInvalidValue;
   const Args a{x, dt, A, B, C, h0, y, hout, S, H, P, N,
                xs_b, xs_s, xs_h, bs_b, bs_s, cs_b, cs_s};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return dtype == 0 ? launch<__nv_bfloat16>(a, Bsz * H, s)
-                    : launch<float>(a, Bsz * H, s);
+  const int grid = (int)(Bsz * H * nsl);
+  if (chunked) {
+    const bool vec = P % 8 == 0 && N % 8 == 0 && xs_b % 8 == 0 &&
+                     xs_s % 8 == 0 && xs_h % 8 == 0 && bs_b % 8 == 0 &&
+                     bs_s % 8 == 0 && cs_b % 8 == 0 && cs_s % 8 == 0 &&
+                     aligned16(x) && aligned16(B) && aligned16(C) &&
+                     aligned16(y);
+    return launch_chunked(a, Bsz, grid, vec ? 1 : 0, s);
+  }
+  const int vec4 = N % 4 == 0 && (!h0 || aligned16(h0)) && aligned16(hout);
+  return dtype == 0 ? launch_seq<bf16>(a, grid, vec4, s)
+                    : launch_seq<float>(a, grid, vec4, s);
 }

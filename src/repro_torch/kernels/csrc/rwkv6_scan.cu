@@ -13,43 +13,67 @@
 // to that dtype by the caller); u (H,D) and the state (B,H,D,D) are f32.
 // y is written in r's dtype, the final state in f32.
 //
-// What bounds it on an H100: bytes.  At rwkv6-1.6b's prefill (B=4, S=512,
-// H=32, D=64, bf16) r, k, v, w and y are 8.4 MB each and the state 2.1 MB:
-// ~44 MB, ~13 us at 3.35 TB/s.  At decode (S=1) the state read and written
-// is almost all of the ~4.2 MB.
+// What bounds it on an H100: at rwkv6-1.6b's prefill (B=4, S=512, H=32,
+// D=64, bf16) r, k, v, w and y are 8.4 MB each and the state 2.1 MB: ~44
+// MB, ~13 us at 3.35 TB/s.  The chunked form's ~1.5 GFLOP are f32 FMAs
+// (~22 us at 67 TFLOP/s), which hold the f32 y to 2e-4, so at that shape
+// the FMA pipes, not the bytes, set the floor; the kernel below runs at
+// ~4x it, held back by the shared-memory reads that feed the FMAs and by
+// the pair sums, recomputed for each value slice (PERF.md).  At decode
+// (S=1) the state read and written is almost all of the ~4.2 MB.
 //
-// What the design does about it, in this first version: one block of 256
-// threads per (b, h), looping over time itself.  The f32 state lives in
-// registers: thread t owns the value column j = t/4 (+64 for D > 64) and
-// the key rows i = t%4 + 4q, q < V, so y_t[j] is V local FMAs and two
-// shuffles among the column's four lanes.  u stays in registers; L = 16
-// steps of r, k, v and w at a time are staged in shared memory as f32, and
-// their y is written back from shared memory in one coalesced pass.  With
-// only B*H = 128 blocks the card is a quarter full; splitting the value
-// axis over more blocks, and the chunked form on tensor cores, are later
-// work.
+// Two kernels; the wrapper picks one by S (rwkv6_scan.schedule):
+//
+// - rwkv6_chunked, S >= RT, both dtypes: chunks of RT steps, f32 FMAs.  A
+//   block of 128 threads per (b, h, slice of JS value columns): column j
+//   of S depends only on v[:, j], so the split is exact; 256 blocks at the
+//   serve shape.  The block walks the chunks in order with its (D, JS)
+//   slice of the state in registers, each lane a tile of D / 16 rows x 4
+//   columns, so that each value read from shared memory feeds 4 to 8
+//   FMAs.  Per chunk, with c_t the inclusive cumsum of log(max(w, 1e-30))
+//   (the clamp of the Pallas wrapper; w = 0 stays finite and differs from
+//   the sequential form only by a state x 1e-30 term):
+//     A[t][tau] = sum_i r_t[i] k_tau[i] exp(c_{t-1,i} - c_{tau,i}), tau < t
+//     A[t][t]   = sum_i r_t[i] u[i] k_t[i]                 (the bonus)
+//     y_t       = (r_t o exp(c_{t-1})) @ S + sum_{tau <= t} A[t][tau] v_tau
+//     S        <- exp(c_T) o S + (k o exp(c_T - c))^T @ v
+//   Every exponent is <= 0, and none is taken of -c alone (the Pallas
+//   kernel's exp(-c) overflows once c < -88.7).  Each exp(c_a - c_b) is the
+//   product of the clamped decays between b and a: running products on the
+//   FMA pipes, not the special-function unit, which has an eighth of their
+//   rate.  A is formed per lane as the bonus terms of two steps and 15
+//   steps of the product chains of tau and RT - 1 - tau, over 16 channel
+//   groups summed in shared memory.  A lane's share of y (its rows of the
+//   inter-chunk sum, and the intra-chunk term of one step tau) is summed
+//   over the warp's lanes by shuffles and over the 4 warps in shared
+//   memory.  The next chunk's r, k, v and w come into registers while the
+//   current one computes.  Slices of 16 and 64 columns, and lanes of 8
+//   rows x 1 column, measured slower (PERF.md).
+// - rwkv6_seq, S < RT (the model's decode step): the sequential form in
+//   f32, the port's first layout kept: a block of 256 threads per (b, h),
+//   lane t owns value column t / 4 and key rows t % 4 + 4 q, so a warp
+//   load of the state covers 4 rows x 8 columns, whole 32-byte sectors,
+//   all of a lane's loads before its arithmetic, and y[j] is two
+//   shuffles.  16-byte runs of columns over 512 blocks measured slower at
+//   decode: the 2.1 MB state is read in one wave either way, and their sum
+//   over 32 lanes of rows costs more than the wider loads save (PERF.md).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int NT = 256;             // threads per block
-constexpr int G = 4;                // lanes per state column
-constexpr int COLS = NT / G;        // columns one pass of the block covers
-constexpr int L = 16;               // time steps staged at once
 constexpr int MAXD = 128;           // largest head size
 
+typedef __nv_bfloat16 bf16;
+
 __device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
+__device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
 template <typename T> __device__ __forceinline__ T from_f(float v);
 template <> __device__ __forceinline__ float from_f<float>(float v) {
   return v;
 }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(
-    float v) {
+template <> __device__ __forceinline__ bf16 from_f<bf16>(float v) {
   return __float2bfloat16(v);
 }
 
@@ -59,19 +83,46 @@ struct Args {
   int S, H, D;
 };
 
-// V: key rows per thread (D <= G * V); CI: value columns per thread
-// (D <= COLS * CI).
+// ------------------------------------------------- sequential: rwkv6_seq
+constexpr int SQ_NT = 256;          // threads per block
+constexpr int SQ_G = 4;             // lanes per state column
+constexpr int SQ_COLS = SQ_NT / SQ_G;  // columns one pass of the block covers
+constexpr int SQ_L = 16;            // time steps staged at once
+
+// V: key rows per lane (D <= SQ_G V); CI: value columns per lane
+// (D <= SQ_COLS CI).  Lane t owns column t / 4 (+64) and rows t % 4 + 4 q:
+// a warp load covers 4 rows x 8 consecutive columns, whole 32-byte sectors.
 template <typename T, int V, int CI>
-__global__ void __launch_bounds__(NT) rwkv6_scan_kernel(Args a) {
-  __shared__ float sr[L][MAXD];
-  __shared__ float sk[L][MAXD];
-  __shared__ float sv[L][MAXD];
-  __shared__ float sw[L][MAXD];
-  __shared__ float sy[L][MAXD];
+__global__ void __launch_bounds__(SQ_NT) rwkv6_seq(Args a) {
+  __shared__ float sr[SQ_L][MAXD];
+  __shared__ float sk[SQ_L][MAXD];
+  __shared__ float sv[SQ_L][MAXD];
+  __shared__ float sw[SQ_L][MAXD];
+  __shared__ float sy[SQ_L][MAXD];
 
   const int H = a.H, D = a.D, S = a.S;
   const int bh = blockIdx.x, b = bh / H, hh = bh % H;
-  const int g = threadIdx.x % G, c = threadIdx.x / G;
+  const int g = threadIdx.x % SQ_G, c = threadIdx.x / SQ_G;
+  const long long soff = (long long)bh * D * D;
+
+  // the state first: every load of this lane in flight before any use
+  float st[CI][V];
+#pragma unroll
+  for (int ci = 0; ci < CI; ++ci) {
+    const int j = c + SQ_COLS * ci;
+#pragma unroll
+    for (int q = 0; q < V; ++q) {
+      const int i = g + SQ_G * q;
+      st[ci][q] = (a.s0 && i < D && j < D) ? a.s0[soff + i * D + j] : 0.f;
+    }
+  }
+  float u[V];
+#pragma unroll
+  for (int q = 0; q < V; ++q) {
+    const int i = g + SQ_G * q;
+    u[q] = i < D ? a.u[hh * D + i] : 0.f;
+  }
+
   // (b, t, hh, :) lies at base + t * H * D
   const long long base = ((long long)b * S * H + hh) * D;
   const long long tstride = (long long)H * D;
@@ -80,28 +131,10 @@ __global__ void __launch_bounds__(NT) rwkv6_scan_kernel(Args a) {
   const T* v = static_cast<const T*>(a.v) + base;
   const T* w = static_cast<const T*>(a.w) + base;
   T* y = static_cast<T*>(a.y) + base;
-  const long long soff = (long long)bh * D * D;
 
-  float u[V];
-  float st[CI][V];
-#pragma unroll
-  for (int q = 0; q < V; ++q) {
-    const int i = g + G * q;
-    u[q] = i < D ? a.u[hh * D + i] : 0.f;
-  }
-#pragma unroll
-  for (int ci = 0; ci < CI; ++ci) {
-    const int j = c + COLS * ci;
-#pragma unroll
-    for (int q = 0; q < V; ++q) {
-      const int i = g + G * q;
-      st[ci][q] = (a.s0 && i < D && j < D) ? a.s0[soff + i * D + j] : 0.f;
-    }
-  }
-
-  for (int t0 = 0; t0 < S; t0 += L) {
-    const int nt = min(L, S - t0);
-    for (int e = threadIdx.x; e < nt * D; e += NT) {
+  for (int t0 = 0; t0 < S; t0 += SQ_L) {
+    const int nt = min(SQ_L, S - t0);
+    for (int e = threadIdx.x; e < nt * D; e += SQ_NT) {
       const int tt = e / D, i = e % D;
       const long long off = (t0 + tt) * tstride + i;
       sr[tt][i] = to_f(r[off]);
@@ -115,7 +148,7 @@ __global__ void __launch_bounds__(NT) rwkv6_scan_kernel(Args a) {
       float rq[V], kq[V], wq[V];
 #pragma unroll
       for (int q = 0; q < V; ++q) {
-        const int i = g + G * q;
+        const int i = g + SQ_G * q;
         const bool in = i < D;
         rq[q] = in ? sr[tt][i] : 0.f;
         kq[q] = in ? sk[tt][i] : 0.f;
@@ -123,7 +156,7 @@ __global__ void __launch_bounds__(NT) rwkv6_scan_kernel(Args a) {
       }
 #pragma unroll
       for (int ci = 0; ci < CI; ++ci) {
-        const int j = c + COLS * ci;
+        const int j = c + SQ_COLS * ci;
         const float vj = j < D ? sv[tt][j] : 0.f;
         float acc = 0.f;
 #pragma unroll
@@ -138,7 +171,7 @@ __global__ void __launch_bounds__(NT) rwkv6_scan_kernel(Args a) {
       }
     }
     __syncthreads();
-    for (int e = threadIdx.x; e < nt * D; e += NT) {
+    for (int e = threadIdx.x; e < nt * D; e += SQ_NT) {
       const int tt = e / D, j = e % D;
       y[(t0 + tt) * tstride + j] = from_f<T>(sy[tt][j]);
     }
@@ -146,44 +179,401 @@ __global__ void __launch_bounds__(NT) rwkv6_scan_kernel(Args a) {
 
 #pragma unroll
   for (int ci = 0; ci < CI; ++ci) {
-    const int j = c + COLS * ci;
+    const int j = c + SQ_COLS * ci;
 #pragma unroll
     for (int q = 0; q < V; ++q) {
-      const int i = g + G * q;
+      const int i = g + SQ_G * q;
       if (i < D && j < D) a.sout[soff + i * D + j] = st[ci][q];
     }
   }
 }
 
 template <typename T, int CI>
-int launch_v(const Args& a, int grid, cudaStream_t s) {
-  if (a.D <= G * 4) rwkv6_scan_kernel<T, 4, CI><<<grid, NT, 0, s>>>(a);
-  else if (a.D <= G * 8) rwkv6_scan_kernel<T, 8, CI><<<grid, NT, 0, s>>>(a);
-  else if (a.D <= G * 16) rwkv6_scan_kernel<T, 16, CI><<<grid, NT, 0, s>>>(a);
-  else rwkv6_scan_kernel<T, 32, CI><<<grid, NT, 0, s>>>(a);
+void launch_seq_ci(const Args& a, int grid, cudaStream_t s) {
+  if (a.D <= SQ_G * 4) rwkv6_seq<T, 4, CI><<<grid, SQ_NT, 0, s>>>(a);
+  else if (a.D <= SQ_G * 8) rwkv6_seq<T, 8, CI><<<grid, SQ_NT, 0, s>>>(a);
+  else if (a.D <= SQ_G * 16) rwkv6_seq<T, 16, CI><<<grid, SQ_NT, 0, s>>>(a);
+  else rwkv6_seq<T, 32, CI><<<grid, SQ_NT, 0, s>>>(a);
+}
+
+template <typename T>
+int launch_seq(const Args& a, int grid, cudaStream_t s) {
+  if (a.D <= SQ_COLS) launch_seq_ci<T, 1>(a, grid, s);
+  else launch_seq_ci<T, 2>(a, grid, s);
+  return (int)cudaGetLastError();
+}
+
+// ------------------------------------------------- chunked: rwkv6_chunked
+constexpr int RT = 16;              // steps per chunk
+constexpr int JS = 32;              // value columns per block
+constexpr int NT = 128;             // threads per block
+constexpr int NG = NT / 8;          // channel groups of the pair chains
+constexpr int PP = RT * RT + 8;     // pitch of a group's partial sums
+
+template <int DB>
+struct WkvSmem {
+  static constexpr int RP = DB + 4; // row pitch: conflict-free 16-byte reads
+  float r[RT][RP], k[RT][RP];
+  float w[RT][RP];                  // max(w, 1e-30); 1 past S and D
+  float rt[RT][RP];                 // r_t exp(c_{t-1})
+  float kt[RT][RP];                 // k_t exp(c_T - c_t)
+  float v[RT][JS];
+  float u[DB], eT[DB];              // eT = exp(c_T)
+  float part[NG][PP];               // per channel group: A[t][tau] at
+                                    // t RT + tau
+  float AT[RT][RT + 4];             // A transposed
+  float red[NT / 32][RT][JS];       // y's partial sums, by warp
+};
+
+template <int M>
+__device__ __forceinline__ void lds(float* d, const float* p) {
+  if constexpr (M % 4 == 0) {
+#pragma unroll
+    for (int m = 0; m < M; m += 4)
+      *reinterpret_cast<float4*>(d + m) =
+          *reinterpret_cast<const float4*>(p + m);
+  } else {
+#pragma unroll
+    for (int m = 0; m < M; m += 2)
+      *reinterpret_cast<float2*>(d + m) =
+          *reinterpret_cast<const float2*>(p + m);
+  }
+}
+
+// DB: D padded to 32, 64 or 128; vec: r, k, v, w take 16-byte loads.
+// Lane (rg, cg) = (tid / 8, tid % 8) holds the state's rows
+// RQ rg .. RQ rg + RQ - 1 of columns j0 + 4 cg .. + 3: each shared-memory
+// read feeds 4 RQ FMAs.
+template <typename T, int DB>
+__global__ void __launch_bounds__(NT) rwkv6_chunked(Args a, int vec) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  WkvSmem<DB>& sm = *reinterpret_cast<WkvSmem<DB>*>(smem_raw);
+  constexpr int RQ = DB / 16;       // state rows per lane
+  constexpr int MI = DB / NG;       // channels per lane in the pair chains
+  constexpr int VE = 16 / sizeof(T);  // elements per 16-byte unit
+  constexpr int UR = DB / VE;       // units per row of r, k, w
+  constexpr int NU = (RT * UR + NT - 1) / NT;  // units per lane and matrix
+  constexpr int UV = JS / VE;       // units per row of the v slice
+
+  const int H = a.H, D = a.D, S = a.S;
+  const int nsl = (D + JS - 1) / JS;
+  const int bh = blockIdx.x / nsl, j0 = (blockIdx.x % nsl) * JS;
+  const int b = bh / H, hh = bh % H;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int rg = tid >> 3, cg = tid & 7;
+  const int i0 = RQ * rg, jc = 4 * cg;  // this lane's rows and columns
+  const long long base = ((long long)b * S * H + hh) * D;
+  const long long ts = (long long)H * D;
+  const T* r = static_cast<const T*>(a.r) + base;
+  const T* k = static_cast<const T*>(a.k) + base;
+  const T* v = static_cast<const T*>(a.v) + base;
+  const T* w = static_cast<const T*>(a.w) + base;
+  T* y = static_cast<T*>(a.y) + base;
+  const int nc = (S + RT - 1) / RT;
+
+  for (int i = tid; i < DB; i += NT) sm.u[i] = i < D ? a.u[hh * D + i] : 0.f;
+
+  float st[RQ][4];
+#pragma unroll
+  for (int e = 0; e < RQ; ++e)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int i = i0 + e, j = j0 + jc + q;
+      st[e][q] = a.s0 && i < D && j < D
+                     ? a.s0[((long long)bh * D + i) * D + j] : 0.f;
+    }
+
+  // r, k, w (all D columns) and v (this block's JS) of chunk ci into
+  // registers, zeros past S and D
+  uint4 rq[NU], kq[NU], wq[NU], vq;
+  auto load_chunk = [&](int ci) {
+    const int t0 = ci * RT;
+#pragma unroll
+    for (int n = 0; n < NU; ++n) {
+      const int q = tid + NT * n, t = q / UR, col = VE * (q % UR);
+      rq[n] = kq[n] = wq[n] = make_uint4(0, 0, 0, 0);
+      if (q >= RT * UR || t0 + t >= S || col >= D) continue;
+      const long long off = (t0 + t) * ts + col;
+      if (vec) {
+        rq[n] = *reinterpret_cast<const uint4*>(r + off);
+        kq[n] = *reinterpret_cast<const uint4*>(k + off);
+        wq[n] = *reinterpret_cast<const uint4*>(w + off);
+      } else {
+        T* rv = reinterpret_cast<T*>(&rq[n]);
+        T* kv = reinterpret_cast<T*>(&kq[n]);
+        T* wv = reinterpret_cast<T*>(&wq[n]);
+#pragma unroll
+        for (int e = 0; e < VE; ++e)
+          if (col + e < D) {
+            rv[e] = r[off + e];
+            kv[e] = k[off + e];
+            wv[e] = w[off + e];
+          }
+      }
+    }
+    vq = make_uint4(0, 0, 0, 0);
+    const int t = tid / UV, col = j0 + VE * (tid % UV);
+    if (tid < RT * UV && t0 + t < S && col < D) {
+      const long long off = (t0 + t) * ts + col;
+      if (vec) {
+        vq = *reinterpret_cast<const uint4*>(v + off);
+      } else {
+        T* vv = reinterpret_cast<T*>(&vq);
+#pragma unroll
+        for (int e = 0; e < VE; ++e)
+          if (col + e < D) vv[e] = v[off + e];
+      }
+    }
+  };
+  // the registers of chunk ci into shared memory as f32, w clamped
+  auto store_chunk = [&](int ci) {
+#pragma unroll
+    for (int n = 0; n < NU; ++n) {
+      const int q = tid + NT * n, t = q / UR, col = VE * (q % UR);
+      if (q >= RT * UR) continue;
+      const bool live = ci * RT + t < S;
+      const T* rv = reinterpret_cast<const T*>(&rq[n]);
+      const T* kv = reinterpret_cast<const T*>(&kq[n]);
+      const T* wv = reinterpret_cast<const T*>(&wq[n]);
+#pragma unroll
+      for (int e = 0; e < VE; ++e) {
+        sm.r[t][col + e] = to_f(rv[e]);
+        sm.k[t][col + e] = to_f(kv[e]);
+        sm.w[t][col + e] = live && col + e < D
+                               ? fmaxf(to_f(wv[e]), 1e-30f) : 1.f;
+      }
+    }
+    if (tid < RT * UV) {
+      const int t = tid / UV, col = VE * (tid % UV);
+      const T* vv = reinterpret_cast<const T*>(&vq);
+#pragma unroll
+      for (int e = 0; e < VE; ++e) sm.v[t][col + e] = to_f(vv[e]);
+    }
+  };
+
+  load_chunk(0);
+  for (int ci = 0; ci < nc; ++ci) {
+    __syncthreads();                // the last chunk's readers are done
+    store_chunk(ci);
+    if (ci + 1 < nc) load_chunk(ci + 1);
+    __syncthreads();
+
+    // decay products: exp(c_{t-1}) into rt, exp(c_T - c_t) into kt, exp(c_T)
+    for (int e = tid; e < 2 * DB; e += NT) {
+      const int i = e % DB;
+      float E = 1.f;
+      if (e < DB) {
+#pragma unroll
+        for (int t = 0; t < RT; ++t) {
+          sm.rt[t][i] = sm.r[t][i] * E;
+          E *= sm.w[t][i];
+        }
+        sm.eT[i] = E;
+      } else {
+#pragma unroll
+        for (int t = RT - 1; t >= 0; --t) {
+          sm.kt[t][i] = sm.k[t][i] * E;
+          E *= sm.w[t][i];
+        }
+      }
+    }
+    // pair sums over channels ci0 .. ci0 + MI: the bonus terms of t = tp
+    // and RT - 1 - tp, then the chain of tau = tp and that of
+    // tau = RT - 1 - tp, each from t = tau + 1 up
+    {
+      const int tp = tid & 7, ig = tid >> 3, ci0 = ig * MI;
+      float q[MI], uu[MI], rr[MI], ww[MI];
+      lds<MI>(uu, &sm.u[ci0]);
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int t = hf ? RT - 1 - tp : tp;
+        lds<MI>(rr, &sm.r[t][ci0]);
+        lds<MI>(q, &sm.k[t][ci0]);
+        float acc = 0.f;
+#pragma unroll
+        for (int m = 0; m < MI; ++m) acc += rr[m] * (uu[m] * q[m]);
+        sm.part[ig][t * RT + t] = acc;
+      }
+      int tau = tp, t = tp + 1;
+      lds<MI>(q, &sm.k[tau][ci0]);
+#pragma unroll
+      for (int n = 0; n < RT - 1; ++n) {
+        if (n == RT - 1 - tp) {
+          tau = RT - 1 - tp;
+          t = tau + 1;
+          lds<MI>(q, &sm.k[tau][ci0]);
+        }
+        lds<MI>(rr, &sm.r[t][ci0]);
+        lds<MI>(ww, &sm.w[t][ci0]);
+        float acc = 0.f;
+#pragma unroll
+        for (int m = 0; m < MI; ++m) {
+          acc += rr[m] * q[m];
+          q[m] *= ww[m];
+        }
+        sm.part[ig][t * RT + tau] = acc;
+        ++t;
+      }
+    }
+    __syncthreads();
+
+    // A, transposed (AT[tau][t]), zero above the diagonal
+    for (int e = tid; e < RT * RT; e += NT) {
+      const int t = e / RT, tau = e % RT;
+      float s = 0.f;
+      if (tau <= t) {
+#pragma unroll
+        for (int gi = 0; gi < NG; ++gi) s += sm.part[gi][e];
+      }
+      sm.AT[tau][t] = s;
+    }
+    __syncthreads();
+
+    // this lane's share of y (16 steps x its 4 columns): the inter-chunk
+    // sum over its rows, with the state entering the chunk, and the
+    // intra-chunk term of tau = rg
+    float acc[RT][4];
+    {
+      const float4 vv = *reinterpret_cast<const float4*>(&sm.v[rg][jc]);
+#pragma unroll
+      for (int t4 = 0; t4 < RT; t4 += 4) {
+        const float4 a4 = *reinterpret_cast<const float4*>(&sm.AT[rg][t4]);
+        const float av[4] = {a4.x, a4.y, a4.z, a4.w};
+#pragma unroll
+        for (int tt = 0; tt < 4; ++tt) {
+          acc[t4 + tt][0] = av[tt] * vv.x;
+          acc[t4 + tt][1] = av[tt] * vv.y;
+          acc[t4 + tt][2] = av[tt] * vv.z;
+          acc[t4 + tt][3] = av[tt] * vv.w;
+        }
+      }
+    }
+#pragma unroll
+    for (int t = 0; t < RT; ++t) {
+      float rv[RQ];
+      lds<RQ>(rv, &sm.rt[t][i0]);
+#pragma unroll
+      for (int e = 0; e < RQ; ++e)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[t][q] += rv[e] * st[e][q];
+    }
+    // the state update
+    {
+      float eT[RQ];
+      lds<RQ>(eT, &sm.eT[i0]);
+#pragma unroll
+      for (int e = 0; e < RQ; ++e)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) st[e][q] *= eT[e];
+    }
+#pragma unroll
+    for (int tau = 0; tau < RT; ++tau) {
+      float kv[RQ];
+      lds<RQ>(kv, &sm.kt[tau][i0]);
+      const float4 vv = *reinterpret_cast<const float4*>(&sm.v[tau][jc]);
+#pragma unroll
+      for (int e = 0; e < RQ; ++e) {
+        st[e][0] += kv[e] * vv.x;
+        st[e][1] += kv[e] * vv.y;
+        st[e][2] += kv[e] * vv.z;
+        st[e][3] += kv[e] * vv.w;
+      }
+    }
+    // sum acc over the warp's 4 row groups (lane bits 3 and 4), leaving
+    // lane bit b4 with steps 8 b4 + 4 b3 .. + 3, then over the warps
+    float a8[8][4], a4[4][4];
+    {
+      const bool hi = lane & 16;
+#pragma unroll
+      for (int m = 0; m < 8; ++m)
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          a8[m][q] = (hi ? acc[8 + m][q] : acc[m][q]) +
+                     __shfl_xor_sync(0xffffffffu,
+                                     hi ? acc[m][q] : acc[8 + m][q], 16);
+    }
+    {
+      const bool hi = lane & 8;
+#pragma unroll
+      for (int m = 0; m < 4; ++m)
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          a4[m][q] = (hi ? a8[4 + m][q] : a8[m][q]) +
+                     __shfl_xor_sync(0xffffffffu,
+                                     hi ? a8[m][q] : a8[4 + m][q], 8);
+    }
+    const int tb = 8 * ((lane >> 4) & 1) + 4 * ((lane >> 3) & 1);
+#pragma unroll
+    for (int m = 0; m < 4; ++m)
+      *reinterpret_cast<float4*>(&sm.red[warp][tb + m][jc]) =
+          make_float4(a4[m][0], a4[m][1], a4[m][2], a4[m][3]);
+    __syncthreads();
+#pragma unroll
+    for (int e = tid; e < RT * JS; e += NT) {
+      const int t = e / JS, j = e % JS, tg = ci * RT + t;
+      float yv = 0.f;
+#pragma unroll
+      for (int q = 0; q < NT / 32; ++q) yv += sm.red[q][t][j];
+      if (tg < S && j0 + j < D) y[tg * ts + j0 + j] = from_f<T>(yv);
+    }
+  }
+
+#pragma unroll
+  for (int e = 0; e < RQ; ++e)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int i = i0 + e, j = j0 + jc + q;
+      if (i < D && j < D) a.sout[((long long)bh * D + i) * D + j] = st[e][q];
+    }
+}
+
+template <typename T, int DB>
+int launch_chunked_db(const Args& a, int grid, int vec, cudaStream_t s) {
+  const int smem = (int)sizeof(WkvSmem<DB>);
+  const cudaError_t err = cudaFuncSetAttribute(
+      rwkv6_chunked<T, DB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return (int)err;
+  rwkv6_chunked<T, DB><<<grid, NT, smem, s>>>(a, vec);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int launch(const Args& a, int grid, cudaStream_t s) {
-  return a.D <= COLS ? launch_v<T, 1>(a, grid, s) : launch_v<T, 2>(a, grid, s);
+int launch_chunked(const Args& a, int grid, int vec, cudaStream_t s) {
+  if (a.D <= 32) return launch_chunked_db<T, 32>(a, grid, vec, s);
+  if (a.D <= 64) return launch_chunked_db<T, 64>(a, grid, vec, s);
+  return launch_chunked_db<T, 128>(a, grid, vec, s);
+}
+
+bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
 }  // namespace
 
 // r, k, v, w: (B,S,H,D) contiguous, one dtype; u: (H,D) f32; s0:
 // (B,H,D,D) f32 or null for zeros; y: (B,S,H,D) contiguous; sout:
-// (B,H,D,D) f32.  dtype: 0 = bf16, 1 = f32.  D at most 128.  Returns the
-// CUDA error of the launch (0 on success).
+// (B,H,D,D) f32.  dtype: 0 = bf16, 1 = f32.  chunked: 1 for the chunked
+// kernel, 0 for the sequential one.  D at most 128.  Returns the CUDA
+// error of the launch (0 on success).
 extern "C" int rwkv6_scan_fwd(const void* r, const void* k, const void* v,
                               const void* w, const float* u, const float* s0,
                               void* y, float* sout, int Bsz, int S, int H,
-                              int D, int dtype, void* stream) {
+                              int D, int dtype, int chunked, void* stream) {
+  // the chunked kernel splits the value axis into blocks of JS columns
+  const long long nsl = chunked ? (D + JS - 1) / JS : 1;
   if (D < 1 || D > MAXD || S < 0 || Bsz < 1 || H < 1 ||
-      (long long)Bsz * H > 0x7fffffffLL || (dtype != 0 && dtype != 1))
+      (long long)Bsz * H * nsl > 0x7fffffffLL || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   const Args a{r, k, v, w, u, s0, y, sout, S, H, D};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return dtype == 0 ? launch<__nv_bfloat16>(a, Bsz * H, s)
-                    : launch<float>(a, Bsz * H, s);
+  const int grid = (int)(Bsz * H * nsl);
+  if (chunked) {
+    const int vec = D % 8 == 0 && aligned16(r) && aligned16(k) &&
+                    aligned16(v) && aligned16(w) ? 1 : 0;
+    return dtype == 0 ? launch_chunked<bf16>(a, grid, vec, s)
+                      : launch_chunked<float>(a, grid, vec, s);
+  }
+  return dtype == 0 ? launch_seq<bf16>(a, grid, s)
+                    : launch_seq<float>(a, grid, s);
 }

@@ -2,8 +2,11 @@
 
 Counterpart of ``repro/kernels/mamba2_scan.py``.  For tensors on the CPU
 the wrapper runs the plain version, ``ref.mamba2_scan_ref``.  For CUDA
-tensors it launches the kernel of ``csrc/mamba2_scan.cu`` or raises: there
-is no fallback.  Each launch adds one to ``mamba2_scan.launches``.
+tensors it launches a kernel of ``csrc/mamba2_scan.cu`` or raises: there
+is no fallback.  ``schedule`` picks the kernel by dtype and S: the chunked
+dual form on the tensor cores for bf16 with at least ``CHUNK`` steps, the
+sequential f32 kernel otherwise (every f32 call, and bf16 decode).  Each
+call adds one to ``mamba2_scan.launches``.
 """
 from __future__ import annotations
 
@@ -13,7 +16,17 @@ from . import ref
 
 #: largest head size P and state size N the kernel takes
 MAX_DIM = 128
+#: steps per chunk of the chunked kernel (``CK_T`` in the source)
+CHUNK = 64
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
+
+
+def schedule(dtype, S):
+    """The kernel a call of ``S`` steps in ``dtype`` launches: "chunked"
+    (``mamba2_chunked``, bf16 with S >= ``CHUNK``) or "sequential"
+    (``mamba2_seq``: f32 at every S, bf16 below one chunk)."""
+    return "chunked" if dtype == torch.bfloat16 and S >= CHUNK else \
+        "sequential"
 
 
 def _check(x, dt, A, B_, C, state):
@@ -56,7 +69,8 @@ def mamba2_scan(x, dt, A, B_, C, state=None):
 
     On CUDA: x, B and C in one of bf16/f32, with any strides but a dense
     last axis (the model passes slices of one projection); dt, A and the
-    state are read as f32; P and N at most ``MAX_DIM``; any S >= 0.
+    state are read as f32; P and N at most ``MAX_DIM``; any S >= 0.  The
+    kernel is ``schedule(x.dtype, S)``'s.
     """
     if x.device.type == "cpu":
         return ref.mamba2_scan_ref(x, dt, A, B_, C, state)
@@ -79,6 +93,7 @@ def mamba2_scan(x, dt, A, B_, C, state=None):
             y.data_ptr(), hout.data_ptr(), Bsz, S, H, P, N,
             x.stride(0), x.stride(1), x.stride(2), B_.stride(0),
             B_.stride(1), C.stride(0), C.stride(1), _DTYPES[x.dtype],
+            int(schedule(x.dtype, S) == "chunked"),
             torch.cuda.current_stream().cuda_stream)
     _build.check(err, "mamba2_scan")
     mamba2_scan.launches += 1

@@ -2,8 +2,10 @@
 
 Counterpart of ``repro/kernels/rwkv6_scan.py``.  For tensors on the CPU
 the wrapper runs the plain version, ``ref.rwkv6_scan_ref``.  For CUDA
-tensors it launches the kernel of ``csrc/rwkv6_scan.cu`` or raises: there
-is no fallback.  Each launch adds one to ``rwkv6_scan.launches``.
+tensors it launches a kernel of ``csrc/rwkv6_scan.cu`` or raises: there
+is no fallback.  ``schedule`` picks the kernel by S: the chunked WKV split
+over the value axis for at least ``CHUNK`` steps, the sequential kernel
+below (the decode step).  Each call adds one to ``rwkv6_scan.launches``.
 """
 from __future__ import annotations
 
@@ -13,7 +15,17 @@ from . import ref
 
 #: largest head size D the kernel takes
 MAX_DIM = 128
+#: steps per chunk of the chunked kernel (``RT`` in the source)
+CHUNK = 16
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
+
+
+def schedule(dtype, S):
+    """The kernel a call of ``S`` steps launches, in either dtype:
+    "chunked" (``rwkv6_chunked``, S >= ``CHUNK``) or "sequential"
+    (``rwkv6_seq``, below one chunk)."""
+    del dtype                   # both dtypes take the same f32 arithmetic
+    return "chunked" if S >= CHUNK else "sequential"
 
 
 def _check(r, k, v, w, u, state):
@@ -50,7 +62,8 @@ def rwkv6_scan(r, k, v, w, u, state=None):
     f32), as ``ref.rwkv6_scan_ref``.
 
     On CUDA: r, k, v and w in one of bf16/f32; u and the state are read
-    as f32; D at most ``MAX_DIM``; any S >= 0.
+    as f32; D at most ``MAX_DIM``; any S >= 0.  The kernel is
+    ``schedule(r.dtype, S)``'s.
     """
     if r.device.type == "cpu":
         return ref.rwkv6_scan_ref(r, k, v, w, u, state)
@@ -69,6 +82,7 @@ def rwkv6_scan(r, k, v, w, u, state=None):
             r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
             u.data_ptr(), None if s0 is None else s0.data_ptr(),
             y.data_ptr(), sout.data_ptr(), B, S, H, D, _DTYPES[r.dtype],
+            int(schedule(r.dtype, S) == "chunked"),
             torch.cuda.current_stream().cuda_stream)
     _build.check(err, "rwkv6_scan")
     rwkv6_scan.launches += 1
