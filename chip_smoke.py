@@ -16,7 +16,24 @@ Phases, each printing its own lines:
    prefill) HMMA/HGMMA and no spill, and the gather's 16-byte copy
    (burst_vec<uint4>) the 64 registers that hold a lane's loads of a row
    in flight.
-3. kernels: each kernel against its plain PyTorch version on the card, in
+3. the simulator (``repro_torch.core.simulate_batch``): the sweep kernel
+   (``csrc/sim_sweep.cu``) against its plain version on the card, exactly
+   in cycles, deadlock verdicts, firings and ``steps``, and run twice for
+   the same bits: a mixed batch (random graphs, the edge jobs and some of
+   the paper's designs), firings 0, a batch with no data stream (S* = 0),
+   deadlock (the tokenless loop, a FIFO of capacity 0), horizons at, one
+   before and well before the slowest job's end, II up to 8, a ring too
+   deep for shared memory (latency 4,000) and a chain whose whole state
+   leaves it (6,000 tasks); a lone job with the backend forced to torch
+   against the plain version and the event engine.  Then the main path:
+   ``simulate_batch(jobs, firings=300)`` with backend auto on the card
+   over 384 jobs (8 seeded variants of each of the paper's 48 rows),
+   equal to the plain version on the card, its 48 first variants (a
+   batch of their own) equal to ``_simulate_batch_numpy`` with ``steps``,
+   one launch a chunk and no fallback; times of the kernel, the plain
+   version and the NumPy oracle on the 48 jobs in three rounds; the
+   ``simulate_batch`` line (jobs, wall seconds, jobs/s).
+4. kernels: each kernel against its plain PyTorch version on the card, in
    bf16 (tolerance rtol = atol = 2e-2, as in tests/test_kernels.py; one f32
    case at 2e-5), the gather exactly.  Prefill attention at the three
    served shapes (granite-8b, zamba2-7b's H layers, granite-moe) and edge
@@ -42,32 +59,32 @@ Phases, each printing its own lines:
    gives the same bits. The gather, exactly, on granite-8b's embedding
    streams, granite-moe's prefill and decode dispatch and an odd row width,
    with its count of burst tiles equal to the detector's rule.
-4. reference: granite-8b-, zamba2-7b-, rwkv6- and granite-moe-3b-reduced
+5. reference: granite-8b-, zamba2-7b-, rwkv6- and granite-moe-3b-reduced
    on the card (kernels) against the same weights on the CPU (plain
    versions), teacher-forced, atol 2e-2; for the MoE model a batch row may
    exceed it only after one of its tokens was routed to other experts on
    the two devices, first at a near-tie (see ``check_reference``).
-5. serve, for granite-8b, zamba2-7b, rwkv6-1.6b and granite-moe-3b-a800m
+6. serve, for granite-8b, zamba2-7b, rwkv6-1.6b and granite-moe-3b-a800m
    in turn, each at full width and depth (random weights from seed 0): 4
    prompts of 512 tokens, greedy prefill then 32 decode steps through
    ``repro_torch.launch.serve``; checks finite logits and the exact launch
    count of every kernel (and of the MoE plans: one per layer and step).
-6. no sync: for each model a prefill and a decode step run with PyTorch's
+7. no sync: for each model a prefill and a decode step run with PyTorch's
    sync debug mode set to "error".
-7. cache, for each model: a second prefill over prompt + first generated
+8. cache, for each model: a second prefill over prompt + first generated
    token must give the first decode step's logits: in bf16 to a relative
    L2 error of 5e-2, then, with the weights widened to f32, elementwise to
    rtol = atol = 1e-3 (see ``check_cache``).  For zamba2 and rwkv6 this
    checks the carried conv, ssd, token-shift and wkv states.
-8. times: both attention kernels at each served model's shapes beside
+9. times: both attention kernels at each served model's shapes beside
    SDPA and their bound (``time flash_attention[<model>]``,
    ``time decode_attention[<model>]``), the gather at the embedding and
    the MoE dispatch beside ``index_select`` (three rounds, alternating),
    the scans, and the grouped matmul with its plan inside the call and
    with a shared plan, beside ``torch._grouped_mm``, with the schedule it
    chose;
-   a JSON line with each kernel's launches, error, times and bound, then
-   the result line.
+   a JSON line with each kernel's launches, error, times and bound (the
+   sweep's launches from its main path), then the result line.
 
 Exits non-zero, printing no result line, if any phase fails or there is no
 CUDA device.  Imports nothing of JAX.
@@ -81,18 +98,28 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch import configs  # noqa: E402
+from repro_torch.core import (SimJob, Stream, Task, TaskGraph,  # noqa: E402
+                              TaskGraphBuilder, pipeline_headroom)
+from repro_torch.core.simulate import (  # noqa: E402
+    _simulate_batch_numpy, engine_counts, reset_engine_counts,
+    simulate_batch)
+from repro_torch.fpga import benchmarks  # noqa: E402
+from repro_torch.obs import trace  # noqa: E402
 from repro_torch.kernels import _build, ref  # noqa: E402
 from repro_torch.kernels import burst_gather as bg  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import mamba2_scan as m2  # noqa: E402
 from repro_torch.kernels import moe_gmm as gmm  # noqa: E402
 from repro_torch.kernels import rwkv6_scan as r6  # noqa: E402
+from repro_torch.kernels import sim_sweep as ss  # noqa: E402
+from repro_torch.kernels.padded_batch import build_padded_batch  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.model import lm, moe  # noqa: E402
 
@@ -731,7 +758,7 @@ SOURCE = {"moe_plan": "moe_gmm.cu",
           "decode_attention": "flash_attention.cu",
           "burst_gather": "burst_gather.cu",
           "mamba2_scan": "mamba2_scan.cu", "rwkv6_scan": "rwkv6_scan.cu",
-          "moe_gmm": "moe_gmm.cu"}
+          "moe_gmm": "moe_gmm.cu", "sim_sweep": "sim_sweep.cu"}
 
 
 #: (model, Hq, Hkv, D) of each served model's attention layers
@@ -954,6 +981,325 @@ def moe_rows(errs, flush, gen):
     return [row, plan_row]
 
 
+#: the sweep's firings on the main path, and int32 peak of the card: 132
+#: SMs x 64 int32 lanes x 1.98 GHz (Hopper white paper, SXM5 boost clock)
+SIM_FIRINGS = 300
+#: seeded variants of each of the paper's 48 (design, device) rows
+SIM_VARIANTS = 8
+PEAK_INT32_OPS = 132 * 64 * 1.98e9
+#: int32 operations of the reference sweep's body a stream, and a task, per
+#: cycle (``_sweep``: look-up, visibility and space tests, the AND counts,
+#: pops / pushes / ring update, in-flight tests; firing rule, fired,
+#: next_free, progress and II tests, the done test)
+SIM_OPS_STREAM, SIM_OPS_TASK = 16, 14
+#: the kernel's block barriers a simulated cycle, and an assumed cost of
+#: one barrier of 8 warps with no work between, at the boost clock
+SIM_BARRIERS, SIM_BARRIER_CLOCKS, SIM_CLOCK_HZ = 3, 24, 1.98e9
+#: a latency deep enough that the ring of a 24-task chain leaves shared
+#: memory, and a chain long enough that the per-row state does too
+SIM_DEEP_LATENCY = 4000
+SIM_LONG_CHAIN = 6000
+
+
+def _sim_graph(rng, name):
+    """A random dataflow graph: a layered DAG with random fan-in, skip
+    edges, zero-capacity FIFOs, control streams, detached sinks and, now
+    and then, a feedback edge that may close a tokenless cycle."""
+    n = int(rng.integers(2, 14))
+    g = TaskGraph(name)
+    for i in range(n):
+        g.add_task(Task(f"t{i}", detached=bool(i == n - 1 and n > 3 and
+                                               rng.random() < 0.3)))
+    edges = [(int(rng.integers(0, i)), i) for i in range(1, n)
+             for _ in range(int(rng.integers(1, 3)))]
+    edges += [(int(rng.integers(0, n - 1)), int(rng.integers(1, n)))
+              for _ in range(int(rng.integers(0, 3)))]
+    if n > 2 and rng.random() < 0.2:
+        edges.append((int(rng.integers(1, n)), 0))
+    for k, (a, b) in enumerate(edges):
+        if a == b:
+            continue
+        depth = 0 if rng.random() < 0.03 else int(rng.choice([1, 2, 4]))
+        g.add_stream(Stream(f"s{k}", f"t{a}", f"t{b}", depth=depth,
+                            control=bool(rng.random() < 0.1)),
+                     validate=False)
+    return g
+
+
+def _sim_knobs(rng, g, ii_max=4):
+    """Random latency 0-4, headroom and II 1-``ii_max`` knobs."""
+    lat = {s.name: int(rng.integers(0, 5)) for s in g.streams}
+    extra = {s.name: int(rng.choice([0, 0, 2, 2 * lat[s.name]]))
+             for s in g.streams}
+    ii = {t: int(rng.integers(1, ii_max + 1)) for t in g.tasks}
+    return SimJob(g, latency=lat, extra_capacity=extra, ii=ii)
+
+
+def _sim_chain(name, n, depth=2, control=False, detached=False):
+    g = TaskGraph(name)
+    for i in range(n):
+        g.add_task(Task(f"t{i}", detached=detached and i == n - 1))
+    for i in range(n - 1):
+        g.add_stream(Stream(f"s{i}", f"t{i}", f"t{i + 1}", depth=depth,
+                            control=control), validate=False)
+    return g
+
+
+def _sim_edge_jobs():
+    """Deadlock (the tokenless loop of ``analysis/__init__.py``'s doctest,
+    a FIFO of capacity 0), its control-closed twin, control-only and
+    stream-less graphs, detached tasks, II > 1."""
+    def loop(name, control):
+        b = TaskGraphBuilder(name)
+        b.stream("ab")
+        b.stream("ba", control=control)
+        b.invoke("A", ins=["ba"], outs=["ab"])
+        b.invoke("B", ins=["ab"], outs=["ba"])
+        return b.build()
+
+    return [SimJob(loop("loop", False)), SimJob(loop("loop2", True)),
+            SimJob(_sim_chain("zero", 2, depth=0), latency={"s0": 1}),
+            SimJob(_sim_chain("ctl", 3, control=True), ii={"t1": 2}),
+            SimJob(_sim_chain("det", 4, detached=True),
+                   latency={"s2": 3}, ii={"t3": 3}),
+            SimJob(_sim_chain("solo", 1)),
+            SimJob(_sim_chain("ii", 3), latency={"s0": 2},
+                   extra_capacity={"s0": 4}, ii={"t0": 2, "t2": 5})]
+
+
+def sim_paper_jobs(seed=0, variants=SIM_VARIANTS):
+    """``variants`` seeded variants of each of the 48 (design, device) rows
+    of ``autobridge_suite()`` + ``hbm_suite()``: latency 0-4 on ~30 % of
+    the data streams, ``pipeline_headroom`` as extra capacity, II = 2 on
+    ~5 % of the tasks."""
+    rng = np.random.default_rng(seed)
+    jobs = []
+    for _, _, g in benchmarks.autobridge_suite() + benchmarks.hbm_suite():
+        data = [s.name for s in g.streams if not s.control]
+        for _ in range(variants):
+            lat = {s: int(rng.integers(0, 5)) for s in data
+                   if rng.random() < 0.3}
+            ii = {t: 2 for t in g.tasks if rng.random() < 0.05}
+            jobs.append(SimJob(g, latency=lat,
+                               extra_capacity=pipeline_headroom(lat), ii=ii))
+    return jobs
+
+
+def _sim_key(r):
+    return r.cycles, r.fired, r.deadlocked, r.steps
+
+
+def _sweep_case(name, jobs, firings, max_cycles=None):
+    """The kernel against its plain version on the card, exactly in every
+    output, and run twice for the same bits.  Returns the layout and the
+    kernel's results."""
+    max_cycles = max_cycles or firings * 64 + 10_000
+    pb = build_padded_batch(jobs)
+    args = ss.padded_tensors(pb, "cuda")
+    got = ss.sim_sweep(*args, pb.H, firings, max_cycles)
+    again = ss.sim_sweep(*args, pb.H, firings, max_cycles)
+    want = ref.sim_sweep_ref(*args, pb.H, firings, max_cycles)
+    torch.cuda.synchronize()
+    lib = _build.load("sim_sweep")
+    with torch.cuda.device(0):
+        scratch = lib.sim_sweep_scratch(pb.S, pb.T, pb.H)
+    for what, other in (("plain", want), ("second run", again)):
+        same = all(torch.equal(a, b) for a, b in zip(got[:3], other[:3])) \
+            and got[3] == other[3]
+        if not same:
+            bad = (got[0] != other[0]) | (got[1] != other[1]) | \
+                (got[2] != other[2]).any(1)
+            raise AssertionError(
+                f"sim_sweep[{name}]: differs from its {what} in rows "
+                f"{bad.nonzero().flatten().tolist()[:10]} (steps "
+                f"{got[3]} vs {other[3]})")
+    _phase(f"check sim_sweep[{name}] V={pb.V} T*={pb.T} S*={pb.S} "
+           f"H={pb.H} firings={firings} max_cycles={max_cycles}: cycles "
+           f"{int(got[0].min()) if pb.V else 0}-"
+           f"{int(got[0].max()) if pb.V else 0}, "
+           f"{int(got[1].sum())} deadlocked, steps {got[3]}, global "
+           f"scratch {scratch} ints a row; exact against the plain "
+           f"version, same bits twice ok")
+    return pb, got
+
+
+def check_sim_sweep():
+    """Every case of the sweep kernel against its plain version."""
+    rng = np.random.default_rng(17)
+    mixed = [_sim_knobs(rng, _sim_graph(rng, f"g{i}")) for i in range(40)]
+    mixed += _sim_edge_jobs() + sim_paper_jobs(seed=5, variants=1)[::6]
+    _sweep_case("mixed", mixed, 25)
+    _sweep_case("mixed-firings-0", mixed[:12], 0)
+    _sweep_case("no-data-stream", [
+        SimJob(_sim_chain("solo", 1)), SimJob(_sim_chain("ctl", 3,
+                                                         control=True)),
+        SimJob(_sim_chain("ctl2", 2, control=True), ii={"t1": 3})], 9)
+    _, dead = _sweep_case("deadlock", _sim_edge_jobs()[:3], 10)
+    if dead[1].tolist() != [True, False, True]:
+        raise AssertionError(f"sim_sweep: deadlock verdicts "
+                             f"{dead[1].tolist()}, want [True, False, "
+                             f"True]")
+    _, full = _sweep_case("horizon-free", mixed, 12)
+    finished = full[0][~full[1]]
+    last = int(finished.max())
+    for cut in (last, last - 1, 7):
+        _, cutres = _sweep_case(f"horizon-{cut}", mixed, 12, max_cycles=cut)
+        at = (full[0] == last) & ~full[1]
+        if cut != 7 and not bool((cutres[0][at] == cut).all()) or \
+                cut == last and bool(cutres[1][at].any()) or \
+                cut == last - 1 and not bool(cutres[1][at].all()):
+            raise AssertionError(f"sim_sweep: horizon {cut} mishandled the "
+                                 f"jobs finishing at {last}")
+    _sweep_case("ii", [_sim_knobs(rng, _sim_graph(rng, f"h{i}"), ii_max=8)
+                       for i in range(16)], 20)
+    deep = [SimJob(_sim_chain("deep", 24),
+                   latency={"s0": SIM_DEEP_LATENCY, "s1": 1},
+                   extra_capacity={"s0": 2 * SIM_DEEP_LATENCY}),
+            SimJob(_sim_chain("pc", 2))]
+    pb, _ = _sweep_case("deep-ring", deep, 5)
+    long = [SimJob(_sim_chain("long", SIM_LONG_CHAIN)),
+            SimJob(_sim_chain("pc", 2), ii={"t1": 2})]
+    _sweep_case("long-chain", long, 3)
+    lib = _build.load("sim_sweep")
+    with torch.cuda.device(0):
+        deep_scratch = lib.sim_sweep_scratch(pb.S, pb.T, pb.H)
+        long_scratch = lib.sim_sweep_scratch(SIM_LONG_CHAIN - 1,
+                                             SIM_LONG_CHAIN, 2)
+    if deep_scratch != pb.S * pb.H or \
+            long_scratch <= (SIM_LONG_CHAIN - 1) * 2:
+        raise AssertionError(f"sim_sweep: the deep ring and the long chain "
+                             f"must take global memory ({deep_scratch}, "
+                             f"{long_scratch} ints a row)")
+    # a lone job with the backend forced to torch, against the event engine
+    one = [_sim_knobs(rng, _sim_graph(rng, "lone"))]
+    got = simulate_batch(one, firings=20, backend="torch")
+    ev = simulate_batch(one, firings=20, backend="event")
+    want = simulate_batch(one, firings=20, backend="torch", device="cpu")
+    if _sim_key(got[0]) != _sim_key(want[0]) or \
+            _sim_key(got[0])[:3] != _sim_key(ev[0])[:3] or \
+            got[0].engine != "torch-padded":
+        raise AssertionError(f"sim_sweep: a lone job differs: {got[0]}, "
+                             f"plain {want[0]}, event {ev[0]}")
+    _phase(f"check simulate_batch(backend='torch') on one job: "
+           f"{got[0].cycles} cycles, as the plain version and the event "
+           f"engine ok")
+
+
+def _sim_bound(pb, cycles):
+    """Least time of the sweep on the card: each row does ~16 int32
+    operations a real stream and ~14 a real task for each of its cycles
+    (its active iterations equal its cycles), over the int32 peak; bytes
+    are the inputs read once and the outputs written once."""
+    ops = float((cycles.astype("int64") * (
+        SIM_OPS_STREAM * pb.stream_active.sum(axis=1)
+        + SIM_OPS_TASK * pb.task_active.sum(axis=1))).sum())
+    nbytes = 4 * 4 * pb.V * pb.S + 5 * pb.V * pb.T + 4 * 2 * pb.V \
+        + 4 * pb.V * (pb.T + 3)
+    t_ops, t_bytes = ops / PEAK_INT32_OPS, nbytes / PEAK_BYTES
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops > t_bytes else "bytes", ops, nbytes)
+
+
+def sim_phase(flush):
+    """The main path: ``simulate_batch(jobs, firings=300)`` with backend
+    auto on the card over 384 jobs of the paper's designs, its launches
+    counted; every result against the plain version's run on the card, and
+    each design's first variant (48 jobs, a batch of their own) against
+    the NumPy oracle, ``steps`` included.  Then the times.  Returns the
+    kernels-line row."""
+    jobs = sim_paper_jobs()
+    ss.sim_sweep.launches = 0
+    reset_engine_counts()
+    t0 = time.perf_counter()
+    res = simulate_batch(jobs, firings=SIM_FIRINGS)
+    wall = time.perf_counter() - t0
+    launches, counts = ss.sim_sweep.launches, engine_counts()
+    if launches < 1 or launches != counts["torch"] or counts["fallback"] \
+            or counts["numpy"] or counts["event"] or \
+            any(r.engine != "torch-padded" for r in res):
+        raise AssertionError(f"simulate_batch: {launches} launches, engine "
+                             f"counts {counts}")
+    max_cycles = SIM_FIRINGS * 64 + 10_000
+    pb = build_padded_batch(jobs)
+    args = ss.padded_tensors(pb, "cuda")
+    plain = pb.unpack(*(x.cpu().numpy() if torch.is_tensor(x) else x
+                        for x in ref.sim_sweep_ref(
+                            *args, pb.H, SIM_FIRINGS, max_cycles)),
+                      "torch-padded")
+    if [_sim_key(r) for r in res] != [_sim_key(r) for r in plain]:
+        raise AssertionError("simulate_batch: the kernel's results differ "
+                             "from the plain version's on the card")
+    first = jobs[::SIM_VARIANTS]
+    t0 = time.perf_counter()
+    oracle = _simulate_batch_numpy(first, firings=SIM_FIRINGS,
+                                       max_cycles=max_cycles)
+    np_times = [time.perf_counter() - t0]
+    got48 = simulate_batch(first, firings=SIM_FIRINGS)
+    if [_sim_key(r) for r in got48] != [_sim_key(r) for r in oracle]:
+        raise AssertionError(f"simulate_batch: the {len(first)} first "
+                             f"variants differ from _simulate_batch_numpy")
+    cycles = np.array([r.cycles for r in res])
+    _phase(f"check simulate_batch[paper x {SIM_VARIANTS}] {len(jobs)} jobs, T*={pb.T} "
+           f"S*={pb.S} H={pb.H}: equal to the plain version on the card; "
+           f"{len(first)} first variants equal to the NumPy oracle, steps "
+           f"{got48[0].steps} included; cycles {cycles.min()}-"
+           f"{cycles.max()}, {sum(r.deadlocked for r in res)} deadlocked; "
+           f"{launches} launch(es) for {counts['torch']} chunk(s) ok")
+
+    # times: three rounds, the kernel (CUDA events, median of 10 calls) and
+    # the plain version on the card (one call) in turns; the NumPy oracle
+    # on the 48-job batch by the host clock
+    k_ms, p_ms, walls = [], [], [wall]
+    for _ in range(3):
+        k_ms.append(time_ms(lambda: ss.sim_sweep(*args, pb.H, SIM_FIRINGS,
+                                                 max_cycles), flush, reps=10))
+        p_ms.append(time_ms(lambda: ref.sim_sweep_ref(
+            *args, pb.H, SIM_FIRINGS, max_cycles), flush, reps=1))
+        t0 = time.perf_counter()
+        simulate_batch(jobs, firings=SIM_FIRINGS)
+        walls.append(time.perf_counter() - t0)
+    for _ in range(2):
+        t0 = time.perf_counter()
+        _simulate_batch_numpy(first, firings=SIM_FIRINGS,
+                                  max_cycles=max_cycles)
+        np_times.append(time.perf_counter() - t0)
+    # where a warm call's wall time goes, by the port's own spans
+    trace.enable(clear=True)
+    simulate_batch(jobs, firings=SIM_FIRINGS)
+    trace.disable()
+    spans = {e["name"]: e["dur_ns"] / 1e9 for e in trace.drain()}
+    t0 = time.perf_counter()
+    build_padded_batch(jobs)
+    layout_s = time.perf_counter() - t0
+    ms, plain_ms = statistics.median(k_ms), statistics.median(p_ms)
+    b_ms, b_by, ops, nbytes = _sim_bound(pb, cycles)
+    per_cycle_us = ms * 1e3 / int(cycles.max())
+    chain_ms = int(cycles.max()) * SIM_BARRIERS * SIM_BARRIER_CLOCKS \
+        / SIM_CLOCK_HZ * 1e3
+    _phase(f"time sim_sweep[paper x {SIM_VARIANTS}] V={pb.V}: {ms:.4f} ms "
+           f"(rounds {', '.join(f'{t:.4f}' for t in k_ms)}), "
+           f"{pb.V / ms * 1e3:.0f} jobs/s; plain on the card {plain_ms:.1f} "
+           f"ms (rounds {', '.join(f'{t:.1f}' for t in p_ms)}); NumPy "
+           f"oracle on {len(first)} jobs {statistics.median(np_times):.2f} s "
+           f"(rounds {', '.join(f'{t:.2f}' for t in np_times)}), "
+           f"{len(first) / statistics.median(np_times):.2f} jobs/s; bound "
+           f"{b_ms:.4f} ms ({b_by}; {ops / 1e9:.3f} G int32 ops, "
+           f"{nbytes / 1e6:.2f} MB); chain: {int(cycles.max())} cycles of "
+           f"the longest row x {SIM_BARRIERS} barriers of "
+           f"~{SIM_BARRIER_CLOCKS} clocks = {chain_ms:.4f} ms; "
+           f"{per_cycle_us:.3f} us a cycle measured")
+    _phase(f"time simulate_batch[paper x {SIM_VARIANTS}] warm call by its "
+           f"spans: simulate.batch {spans['simulate.batch']:.4f} s, of which "
+           f"sim_sweep (copies in and out, the kernel) "
+           f"{spans['sim_sweep']:.4f} s; build_padded_batch alone "
+           f"{layout_s:.4f} s")
+    _phase(f"simulate_batch {json.dumps({'jobs': len(jobs), 'firings': SIM_FIRINGS, 'wall_s': wall, 'jobs_per_s': len(jobs) / wall, 'warm_wall_s': walls[1:], 'warm_jobs_per_s': len(jobs) / statistics.median(walls[1:])})}")
+    row = _row("sim_sweep", "src/repro/kernels/sim_sweep.py:108", 0.0, ms,
+               plain_ms, None, b_ms, b_by)
+    row["launches"] = launches
+    return row
+
+
 def _params_b(params):
     return sum(p.numel() for p in params.parameters()) / 1e9
 
@@ -1101,6 +1447,10 @@ def main() -> int:
     _phase(f"build: {_build.build_all():.1f}s (nvcc, sm_90a)")
     check_build_report()
 
+    flush = torch.empty(64 << 20, dtype=torch.int8, device="cuda")
+    check_sim_sweep()
+    sim_row = sim_phase(flush)
+
     gen = torch.Generator(device="cuda").manual_seed(0)
     errs = check_attention(gen)
     scan_errs = check_scans(gen)
@@ -1108,7 +1458,6 @@ def main() -> int:
     for arch in ARCHS:
         check_reference(arch)
 
-    flush = torch.empty(64 << 20, dtype=torch.int8, device="cuda")
     tgen = torch.Generator(device="cuda").manual_seed(11)
     kernels, launches = [], dict.fromkeys(COUNTERS, 0)
     for arch in ARCHS:
@@ -1125,6 +1474,8 @@ def main() -> int:
     # each kernel's launches, summed over the serve runs
     for row in kernels:
         row["launches"] = launches[row["name"]]
+    # the sweep's, from its own main path
+    kernels.append(sim_row)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

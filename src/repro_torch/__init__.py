@@ -1,4 +1,5 @@
-"""PyTorch/CUDA port of the LM serving path of ``repro`` for one NVIDIA H100.
+"""PyTorch/CUDA port of ``repro`` for one NVIDIA H100: the LM serving path
+and the paper's dataflow simulator (``core.simulate_batch``).
 
 The package imports ``torch`` and never ``jax`` or anything of ``repro``;
 where it needs code from ``repro`` it keeps its own copy.  Kernels on the

@@ -25,7 +25,7 @@ from pathlib import Path
 _CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("flash_attention", "burst_gather", "mamba2_scan", "rwkv6_scan",
-           "moe_gmm")
+           "moe_gmm", "sim_sweep")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -51,7 +51,13 @@ _SIGNATURES = {
         "moe_gmm_plan": [_P] * 5 + [_I] * 4 + [_P],
         "moe_gmm_fwd": [_P] * 5 + [_I] * 9 + [_P],
     },
+    "sim_sweep": {
+        "sim_sweep_scratch": [_I] * 3,
+        "sim_sweep_fwd": [_P] * 8 + [_I] * 6 + [_P] * 5 + [_LL, _P],
+    },
 }
+#: functions that return something other than a CUDA error code
+_RESTYPES = {"sim_sweep_scratch": ctypes.c_longlong}
 
 _loaded: dict[str, ctypes.CDLL] = {}
 
@@ -114,7 +120,7 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(target))
         for fn, argtypes in _SIGNATURES[name].items():
             getattr(lib, fn).argtypes = argtypes
-            getattr(lib, fn).restype = ctypes.c_int
+            getattr(lib, fn).restype = _RESTYPES.get(fn, ctypes.c_int)
         _loaded[name] = lib
     return lib
 

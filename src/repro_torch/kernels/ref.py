@@ -1,8 +1,9 @@
-"""Plain PyTorch versions of the kernels on the serving path.
+"""Plain PyTorch versions of the port's kernels.
 
 Counterpart of ``repro/kernels/ref.py`` (``attention_ref``,
 ``mamba2_scan_ref``, ``rwkv6_scan_ref``, ``burst_gather_ref``,
-``moe_gmm_ref``), with the same signatures and layouts.  They are the
+``moe_gmm_ref``, and ``_sweep`` of ``repro/kernels/sim_sweep.py`` as
+``sim_sweep_ref``), with the same signatures and layouts.  They are the
 semantics contract: the CUDA kernels in ``csrc/`` are held to them on the
 card, and the wrappers run them for tensors that lie on the CPU.
 """
@@ -149,3 +150,88 @@ def moe_gmm_ref(x: torch.Tensor, w: torch.Tensor,
         rows = torch.nonzero(ids == e).squeeze(1)
         out[rows] = x[rows].float() @ w[e].float()
     return out.to(x.dtype)
+
+
+def sim_sweep_ref(lat: torch.Tensor, cap: torch.Tensor, ii: torch.Tensor,
+                  task_active: torch.Tensor, counted: torch.Tensor,
+                  cons: torch.Tensor, prod: torch.Tensor, H: int,
+                  firings: int, max_cycles: int):
+    """The padded dataflow sweep: every job row to completion, one
+    synchronous cycle per iteration, all rows in lockstep.
+
+    A transcription of ``repro/kernels/sim_sweep.py::_sweep`` in torch
+    ops.  lat, cap, cons, prod: (V, S) int32; ii: (V, T) int32;
+    task_active, counted: (V, T) bool; phantom streams carry the sentinel
+    task column T in ``cons``/``prod``; H is the push-history ring depth
+    (``PaddedBatch.H``).  Returns ``(cycles, dead, fired, steps)``:
+    (V,) int32, (V,) bool, (V, T) int32 and the int count of lockstep
+    iterations in which some row was active.
+    """
+    V, S = lat.shape
+    T = ii.shape[1]
+    dev, i32 = lat.device, torch.int32
+    hist = torch.zeros((V, S, H), dtype=i32, device=dev)
+    pops = torch.zeros((V, S), dtype=i32, device=dev)
+    pushes = torch.zeros((V, S), dtype=i32, device=dev)
+    fired = torch.zeros((V, T), dtype=i32, device=dev)
+    next_free = torch.zeros((V, T), dtype=i32, device=dev)
+    active = torch.ones(V, dtype=torch.bool, device=dev)
+    out_cycles = torch.full((V,), max_cycles, dtype=i32, device=dev)
+    out_dead = torch.zeros(V, dtype=torch.bool, device=dev)
+    cons, prod = cons.long(), prod.long()
+    sent = torch.zeros((V, 1), dtype=i32, device=dev)
+    steps = 0
+
+    def all_done():
+        # phantom and detached tasks are vacuously done
+        return ((fired >= firings) | ~counted).all(dim=1)
+
+    for t in range(max_cycles):
+        newly = active & all_done()
+        out_cycles = torch.where(newly, t, out_cycles)
+        out_dead &= ~newly
+        active &= ~newly
+        if not bool(active.any()):
+            break
+        steps += 1
+
+        # firing rule against the state produced by cycles < t
+        if S:
+            look = torch.remainder(t - 1 - lat, H).long()
+            vis = hist.gather(2, look[:, :, None])[:, :, 0]
+            tok_ok = vis > pops
+            space_ok = (pushes - pops) < cap
+            in_bad = torch.zeros((V, T + 1), dtype=i32, device=dev)
+            in_bad.scatter_add_(1, cons, (~tok_ok).to(i32))
+            out_bad = torch.zeros((V, T + 1), dtype=i32, device=dev)
+            out_bad.scatter_add_(1, prod, (~space_ok).to(i32))
+            in_ok, out_ok = in_bad[:, :T] == 0, out_bad[:, :T] == 0
+        else:
+            in_ok = out_ok = torch.ones((V, T), dtype=torch.bool, device=dev)
+        can = (active[:, None] & task_active & (fired < firings)
+               & (next_free <= t) & in_ok & out_ok)
+        can_i = can.to(i32)
+        fired += can_i
+        next_free = torch.where(can, t + ii, next_free)
+        if S:
+            can_pad = torch.cat([can_i, sent], dim=1)
+            pops += can_pad.gather(1, cons)
+            pushes += can_pad.gather(1, prod)
+            hist[:, :, t % H] = pushes
+
+        progressed = can.any(dim=1)
+        # post-update in-flight check at cycle t: vis from the cycle
+        # start, pops/pushes after the update
+        if S:
+            tok_flight = ((pops < pushes) & (vis <= pops)).any(dim=1)
+        else:
+            tok_flight = torch.zeros(V, dtype=torch.bool, device=dev)
+        ii_flight = (next_free > t).any(dim=1)
+        quiet = active & ~progressed & ~tok_flight & ~ii_flight
+        out_cycles = torch.where(quiet, t + 1, out_cycles)
+        out_dead = torch.where(quiet, ~all_done(), out_dead)
+        active &= ~quiet
+    # rows still active at the horizon: truncated (or done exactly there)
+    out_cycles = torch.where(active, max_cycles, out_cycles)
+    out_dead = torch.where(active, ~all_done(), out_dead)
+    return out_cycles, out_dead, fired, steps
