@@ -20,19 +20,27 @@ Phases, each printing its own lines:
    (``csrc/sim_sweep.cu``) against its plain version on the card, exactly
    in cycles, deadlock verdicts, firings and ``steps``, and run twice for
    the same bits: a mixed batch (random graphs, the edge jobs and some of
-   the paper's designs), firings 0, a batch with no data stream (S* = 0),
-   deadlock (the tokenless loop, a FIFO of capacity 0), horizons at, one
-   before and well before the slowest job's end, II up to 8, a ring too
-   deep for shared memory (latency 4,000) and a chain whose whole state
-   leaves it (6,000 tasks); a lone job with the backend forced to torch
-   against the plain version and the event engine.  Then the main path:
-   ``simulate_batch(jobs, firings=300)`` with backend auto on the card
-   over 384 jobs (8 seeded variants of each of the paper's 48 rows),
-   equal to the plain version on the card, its 48 first variants (a
-   batch of their own) equal to ``_simulate_batch_numpy`` with ``steps``,
-   one launch a chunk and no fallback; times of the kernel, the plain
-   version and the NumPy oracle on the 48 jobs in three rounds; the
-   ``simulate_batch`` line (jobs, wall seconds, jobs/s).
+   the paper's designs), warp rows and block rows of every width in one
+   launch (the 48 paper designs with small random graphs), firings 0, a
+   batch with no data stream (S* = 0), deadlock (the tokenless loop, a FIFO
+   of capacity 0), horizons at, one before and well before the slowest
+   job's end, II up to 8, a ring too deep for its row's shared memory
+   (latency 4,000) and a chain whose streams and tasks overflow a block's
+   registers into global scratch (6,000 tasks), these two also launched
+   on a scratch followed by a guard that must come back untouched and
+   the long chain's scratch of exactly its surplus streams and tasks; a
+   lone job with the
+   backend forced to torch against the plain version and the event
+   engine.  Then the main path: ``simulate_batch(jobs, firings=300)``
+   with backend auto on the card over 384 jobs (8 seeded variants of each
+   of the paper's 48 rows), equal to the plain version on the card, its 48
+   first variants (a batch of their own) equal to ``_simulate_batch_numpy``
+   with ``steps``, one launch a chunk and no fallback; times of the kernel
+   (beside the earlier kernel's), the wrapper's whole call (the rows'
+   extents read from the tensors and the work list built), the plain
+   version and the NumPy oracle
+   on the 48 jobs in three rounds; the ``simulate_batch`` line (jobs, wall
+   seconds, jobs/s).
 4. kernels: each kernel against its plain PyTorch version on the card, in
    bf16 (tolerance rtol = atol = 2e-2, as in tests/test_kernels.py; one f32
    case at 2e-5), the gather exactly.  Prefill attention at the three
@@ -992,13 +1000,18 @@ PEAK_INT32_OPS = 132 * 64 * 1.98e9
 #: pops / pushes / ring update, in-flight tests; firing rule, fired,
 #: next_free, progress and II tests, the done test)
 SIM_OPS_STREAM, SIM_OPS_TASK = 16, 14
-#: the kernel's block barriers a simulated cycle, and an assumed cost of
-#: one barrier of 8 warps with no work between, at the boost clock
-SIM_BARRIERS, SIM_BARRIER_CLOCKS, SIM_CLOCK_HZ = 3, 24, 1.98e9
-#: a latency deep enough that the ring of a 24-task chain leaves shared
-#: memory, and a chain long enough that the per-row state does too
+#: the kernel's group barriers a simulated cycle, and an assumed cost of
+#: one barrier of 16 warps with no work between, at the boost clock
+SIM_BARRIERS, SIM_BARRIER_CLOCKS, SIM_CLOCK_HZ = 2, 24, 1.98e9
+#: a latency deep enough that the ring of a 24-task chain leaves its warp
+#: row's shared memory, and a chain long enough that its streams and tasks
+#: overflow a block's registers into global scratch
 SIM_DEEP_LATENCY = 4000
 SIM_LONG_CHAIN = 6000
+#: the sweep's time on the main path's batch with the earlier kernel,
+#: ``sweep_row`` (a 256-thread block a row, three barriers a cycle; PERF.md
+#: section 6, NVIDIA H100 80GB HBM3 at 700 W)
+SIM_SWEEP_ROW_MS = 3.158
 
 
 def _sim_graph(rng, name):
@@ -1089,10 +1102,82 @@ def _sim_key(r):
     return r.cycles, r.fired, r.deadlocked, r.steps
 
 
+def _plan_text(plan):
+    rows = plan.rows
+    warp = int((rows["warps"] == 1).sum())
+    return (f"{warp} warp rows, {len(rows) - warp} block rows (warps "
+            f"{sorted(set(rows['warps'].tolist()))}) in {plan.blocks} "
+            f"blocks, {plan.smem} B shared a block, {plan.scratch} ints of "
+            f"global scratch")
+
+
+def _sweep_plan(args):
+    """The kernel's work list for the sweep's inputs, as the wrapper builds
+    it."""
+    lat, _, _, active, counted, cons, prod = args
+    return ss.schedule(*ss.row_shapes(lat, active, counted, cons, prod))
+
+
+#: ints past the end of the global scratch that must stay as they were
+SIM_GUARD = 1 << 16
+
+
+def _launch(args, plan, scratch, firings, max_cycles):
+    """The kernel launched as the wrapper launches it, on a work list and a
+    scratch given here; returns (cycles, dead, fired, row_steps) on the
+    card, uncounted."""
+    lat, cap, ii, active, counted, cons, prod = args
+    V, S = lat.shape
+    T = ii.shape[1]
+    flags = (active.to(torch.uint8) | (counted.to(torch.uint8) << 1))
+    meta = torch.from_numpy(np.concatenate(
+        [plan.rows.view(np.uint8), plan.warp_row.view(np.uint8)])).cuda()
+    outs = [torch.empty(V, dtype=torch.int32, device="cuda"),
+            torch.empty(V, dtype=torch.int32, device="cuda"),
+            torch.empty((V, T), dtype=torch.int32, device="cuda"),
+            torch.empty(V, dtype=torch.int32, device="cuda")]
+    err = _build.load("sim_sweep").sim_sweep_fwd(
+        lat.data_ptr(), cap.data_ptr(), cons.data_ptr(), prod.data_ptr(),
+        ii.data_ptr(), flags.data_ptr(), meta.data_ptr(),
+        meta.data_ptr() + plan.rows.nbytes, plan.blocks, S, T, firings,
+        max_cycles, *(o.data_ptr() for o in outs), scratch.data_ptr(),
+        plan.smem, torch.cuda.current_stream().cuda_stream)
+    _build.check(err, "sim_sweep")
+    return outs
+
+
+def _scratch_guard(name, pb, got, firings, max_cycles):
+    """The kernel on a scratch of its work list's size followed by a guard
+    of ``SIM_GUARD`` ints holding a pattern: the guard must come back
+    untouched and the results equal the wrapper's ``got``."""
+    args = ss.padded_tensors(pb, "cuda")
+    plan = _sweep_plan(args)
+    pattern = torch.randint(-(1 << 30), 1 << 30, (SIM_GUARD,),
+                            dtype=torch.int32, device="cuda",
+                            generator=torch.Generator("cuda").manual_seed(3))
+    scratch = torch.cat([torch.full((plan.scratch,), -7, dtype=torch.int32,
+                                    device="cuda"), pattern])
+    outs = _launch(args, plan, scratch, firings, max_cycles)
+    torch.cuda.synchronize()
+    if not torch.equal(scratch[plan.scratch:], pattern):
+        hit = (scratch[plan.scratch:] != pattern).nonzero().flatten()
+        raise AssertionError(f"sim_sweep[{name}]: the kernel wrote "
+                             f"{hit.numel()} ints past its {plan.scratch} "
+                             f"ints of scratch (up to +{int(hit.max()) + 1})")
+    if not (torch.equal(outs[0], got[0]) and torch.equal(outs[1].bool(),
+                                                         got[1])
+            and torch.equal(outs[2], got[2])
+            and int(outs[3].max()) == got[3]):
+        raise AssertionError(f"sim_sweep[{name}]: the guarded launch "
+                             f"differs from the wrapper's")
+    _phase(f"check sim_sweep[{name}] scratch: {plan.scratch} ints, "
+           f"nothing written in the {SIM_GUARD} past them ok")
+
+
 def _sweep_case(name, jobs, firings, max_cycles=None):
     """The kernel against its plain version on the card, exactly in every
-    output, and run twice for the same bits.  Returns the layout and the
-    kernel's results."""
+    output, and run twice for the same bits.  Returns the layout, the
+    kernel's results and its work list."""
     max_cycles = max_cycles or firings * 64 + 10_000
     pb = build_padded_batch(jobs)
     args = ss.padded_tensors(pb, "cuda")
@@ -1100,9 +1185,7 @@ def _sweep_case(name, jobs, firings, max_cycles=None):
     again = ss.sim_sweep(*args, pb.H, firings, max_cycles)
     want = ref.sim_sweep_ref(*args, pb.H, firings, max_cycles)
     torch.cuda.synchronize()
-    lib = _build.load("sim_sweep")
-    with torch.cuda.device(0):
-        scratch = lib.sim_sweep_scratch(pb.S, pb.T, pb.H)
+    plan = _sweep_plan(args)
     for what, other in (("plain", want), ("second run", again)):
         same = all(torch.equal(a, b) for a, b in zip(got[:3], other[:3])) \
             and got[3] == other[3]
@@ -1117,10 +1200,10 @@ def _sweep_case(name, jobs, firings, max_cycles=None):
            f"H={pb.H} firings={firings} max_cycles={max_cycles}: cycles "
            f"{int(got[0].min()) if pb.V else 0}-"
            f"{int(got[0].max()) if pb.V else 0}, "
-           f"{int(got[1].sum())} deadlocked, steps {got[3]}, global "
-           f"scratch {scratch} ints a row; exact against the plain "
-           f"version, same bits twice ok")
-    return pb, got
+           f"{int(got[1].sum())} deadlocked, steps {got[3]}; "
+           f"{_plan_text(plan)}; exact against the plain version, same "
+           f"bits twice ok")
+    return pb, got, plan
 
 
 def check_sim_sweep():
@@ -1129,21 +1212,33 @@ def check_sim_sweep():
     mixed = [_sim_knobs(rng, _sim_graph(rng, f"g{i}")) for i in range(40)]
     mixed += _sim_edge_jobs() + sim_paper_jobs(seed=5, variants=1)[::6]
     _sweep_case("mixed", mixed, 25)
+    _, _, plan = _sweep_case(
+        "warp-and-block-rows",
+        sim_paper_jobs(seed=9, variants=1)
+        + [_sim_knobs(rng, _sim_graph(rng, f"w{i}")) for i in range(24)], 20)
+    widths = plan.rows["warps"]
+    per_block = np.bincount((np.cumsum(widths) - widths) // ss.WARPS)
+    if set(widths.tolist()) != {1, 2, 4, 8, 16} or per_block.max() < 2:
+        raise AssertionError(f"sim_sweep: the warp-and-block-rows case must "
+                             f"hold rows of 1-16 warps, several in a block, "
+                             f"got {sorted(set(widths.tolist()))} and "
+                             f"{per_block.max()} rows a block at most")
     _sweep_case("mixed-firings-0", mixed[:12], 0)
     _sweep_case("no-data-stream", [
         SimJob(_sim_chain("solo", 1)), SimJob(_sim_chain("ctl", 3,
                                                          control=True)),
         SimJob(_sim_chain("ctl2", 2, control=True), ii={"t1": 3})], 9)
-    _, dead = _sweep_case("deadlock", _sim_edge_jobs()[:3], 10)
+    _, dead, _ = _sweep_case("deadlock", _sim_edge_jobs()[:3], 10)
     if dead[1].tolist() != [True, False, True]:
         raise AssertionError(f"sim_sweep: deadlock verdicts "
                              f"{dead[1].tolist()}, want [True, False, "
                              f"True]")
-    _, full = _sweep_case("horizon-free", mixed, 12)
+    _, full, _ = _sweep_case("horizon-free", mixed, 12)
     finished = full[0][~full[1]]
     last = int(finished.max())
     for cut in (last, last - 1, 7):
-        _, cutres = _sweep_case(f"horizon-{cut}", mixed, 12, max_cycles=cut)
+        _, cutres, _ = _sweep_case(f"horizon-{cut}", mixed, 12,
+                                   max_cycles=cut)
         at = (full[0] == last) & ~full[1]
         if cut != 7 and not bool((cutres[0][at] == cut).all()) or \
                 cut == last and bool(cutres[1][at].any()) or \
@@ -1156,20 +1251,25 @@ def check_sim_sweep():
                    latency={"s0": SIM_DEEP_LATENCY, "s1": 1},
                    extra_capacity={"s0": 2 * SIM_DEEP_LATENCY}),
             SimJob(_sim_chain("pc", 2))]
-    pb, _ = _sweep_case("deep-ring", deep, 5)
+    deep_pb, deep_got, deep_plan = _sweep_case("deep-ring", deep, 5)
+    _scratch_guard("deep-ring", deep_pb, deep_got, 5, 5 * 64 + 10_000)
     long = [SimJob(_sim_chain("long", SIM_LONG_CHAIN)),
             SimJob(_sim_chain("pc", 2), ii={"t1": 2})]
-    _sweep_case("long-chain", long, 3)
-    lib = _build.load("sim_sweep")
-    with torch.cuda.device(0):
-        deep_scratch = lib.sim_sweep_scratch(pb.S, pb.T, pb.H)
-        long_scratch = lib.sim_sweep_scratch(SIM_LONG_CHAIN - 1,
-                                             SIM_LONG_CHAIN, 2)
-    if deep_scratch != pb.S * pb.H or \
-            long_scratch <= (SIM_LONG_CHAIN - 1) * 2:
-        raise AssertionError(f"sim_sweep: the deep ring and the long chain "
-                             f"must take global memory ({deep_scratch}, "
-                             f"{long_scratch} ints a row)")
+    long_pb, long_got, long_plan = _sweep_case("long-chain", long, 3)
+    _scratch_guard("long-chain", long_pb, long_got, 3, 3 * 64 + 10_000)
+    kept = ss.PER_THREAD * 32 * ss.WARPS
+    deep_row = deep_plan.rows[deep_plan.rows["n_streams"] == 23]
+    long_row = long_plan.rows[long_plan.rows["n_tasks"] == SIM_LONG_CHAIN]
+    # the long chain's streams (9 ints each) and tasks (5) past a block's
+    # registers, and nothing else: both rows' rings and flags are shared
+    long_spill = 9 * (SIM_LONG_CHAIN - 1 - kept) + 5 * (SIM_LONG_CHAIN - kept)
+    if len(deep_row) != 1 or deep_row["ring_shared"][0] or \
+            len(long_row) != 1 or long_plan.scratch != long_spill:
+        raise AssertionError(f"sim_sweep: the deep ring must take global "
+                             f"memory, and the long chain's streams and "
+                             f"tasks past the registers {long_spill} ints "
+                             f"of it ({deep_plan.rows}, {long_plan.scratch} "
+                             f"ints)")
     # a lone job with the backend forced to torch, against the event engine
     one = [_sim_knobs(rng, _sim_graph(rng, "lone"))]
     got = simulate_batch(one, firings=20, backend="torch")
@@ -1249,10 +1349,20 @@ def sim_phase(flush):
     # times: three rounds, the kernel (CUDA events, median of 10 calls) and
     # the plain version on the card (one call) in turns; the NumPy oracle
     # on the 48-job batch by the host clock
-    k_ms, p_ms, walls = [], [], [wall]
+    # the kernel on a work list built beforehand (its launch as the
+    # wrapper makes it, with the list's copy); the wrapper's whole call,
+    # which also reads the rows' extents from the tensors (one copy to the
+    # host) and builds the list
+    plan = _sweep_plan(args)
+    scratch = torch.empty(max(plan.scratch, 1), dtype=torch.int32,
+                          device="cuda")
+    k_ms, p_ms, c_ms, walls = [], [], [], [wall]
     for _ in range(3):
-        k_ms.append(time_ms(lambda: ss.sim_sweep(*args, pb.H, SIM_FIRINGS,
-                                                 max_cycles), flush, reps=10))
+        k_ms.append(time_ms(lambda: _launch(args, plan, scratch, SIM_FIRINGS,
+                                            max_cycles), flush, reps=10))
+        c_ms.append(time_ms(lambda: ss.sim_sweep(*args, pb.H, SIM_FIRINGS,
+                                                 max_cycles),
+                            flush, reps=10))
         p_ms.append(time_ms(lambda: ref.sim_sweep_ref(
             *args, pb.H, SIM_FIRINGS, max_cycles), flush, reps=1))
         t0 = time.perf_counter()
@@ -1263,22 +1373,38 @@ def sim_phase(flush):
         _simulate_batch_numpy(first, firings=SIM_FIRINGS,
                                   max_cycles=max_cycles)
         np_times.append(time.perf_counter() - t0)
-    # where a warm call's wall time goes, by the port's own spans
+    # where a warm call's wall time goes, by the port's own spans, and the
+    # host's parts of it timed alone
     trace.enable(clear=True)
     simulate_batch(jobs, firings=SIM_FIRINGS)
     trace.disable()
     spans = {e["name"]: e["dur_ns"] / 1e9 for e in trace.drain()}
     t0 = time.perf_counter()
+    ss.fits_int32(jobs, SIM_FIRINGS, max_cycles)
+    t1 = time.perf_counter()
     build_padded_batch(jobs)
-    layout_s = time.perf_counter() - t0
+    t2 = time.perf_counter()
+    outs = ss.simulate_padded_torch(pb, firings=SIM_FIRINGS,
+                                    max_cycles=max_cycles, device="cuda")
+    t3 = time.perf_counter()
+    pb.unpack(*outs, "torch-padded")
+    t4 = time.perf_counter()
+    fits_s, layout_s, sweep_s, unpack_s = t1 - t0, t2 - t1, t3 - t2, t4 - t3
     ms, plain_ms = statistics.median(k_ms), statistics.median(p_ms)
     b_ms, b_by, ops, nbytes = _sim_bound(pb, cycles)
     per_cycle_us = ms * 1e3 / int(cycles.max())
     chain_ms = int(cycles.max()) * SIM_BARRIERS * SIM_BARRIER_CLOCKS \
         / SIM_CLOCK_HZ * 1e3
     _phase(f"time sim_sweep[paper x {SIM_VARIANTS}] V={pb.V}: {ms:.4f} ms "
-           f"(rounds {', '.join(f'{t:.4f}' for t in k_ms)}), "
-           f"{pb.V / ms * 1e3:.0f} jobs/s; plain on the card {plain_ms:.1f} "
+           f"(rounds {', '.join(f'{t:.4f}' for t in k_ms)}; the earlier "
+           f"sweep_row {SIM_SWEEP_ROW_MS} ms, {SIM_SWEEP_ROW_MS / ms:.2f}x), "
+           f"{pb.V / ms * 1e3:.0f} jobs/s; {per_cycle_us:.3f} us a "
+           f"simulated cycle over the longest row's {int(cycles.max())}; "
+           f"{_plan_text(plan)}; the wrapper's whole call, extents read "
+           f"from the tensors and the work list built, "
+           f"{statistics.median(c_ms):.4f} ms (rounds "
+           f"{', '.join(f'{t:.4f}' for t in c_ms)}); plain on the card "
+           f"{plain_ms:.1f} "
            f"ms (rounds {', '.join(f'{t:.1f}' for t in p_ms)}); NumPy "
            f"oracle on {len(first)} jobs {statistics.median(np_times):.2f} s "
            f"(rounds {', '.join(f'{t:.2f}' for t in np_times)}), "
@@ -1286,13 +1412,13 @@ def sim_phase(flush):
            f"{b_ms:.4f} ms ({b_by}; {ops / 1e9:.3f} G int32 ops, "
            f"{nbytes / 1e6:.2f} MB); chain: {int(cycles.max())} cycles of "
            f"the longest row x {SIM_BARRIERS} barriers of "
-           f"~{SIM_BARRIER_CLOCKS} clocks = {chain_ms:.4f} ms; "
-           f"{per_cycle_us:.3f} us a cycle measured")
+           f"~{SIM_BARRIER_CLOCKS} clocks = {chain_ms:.4f} ms")
     _phase(f"time simulate_batch[paper x {SIM_VARIANTS}] warm call by its "
            f"spans: simulate.batch {spans['simulate.batch']:.4f} s, of which "
-           f"sim_sweep (copies in and out, the kernel) "
-           f"{spans['sim_sweep']:.4f} s; build_padded_batch alone "
-           f"{layout_s:.4f} s")
+           f"sim_sweep (copies in and out, the work list, the kernel) "
+           f"{spans['sim_sweep']:.4f} s; alone: fits_int32 {fits_s:.4f} s, "
+           f"build_padded_batch {layout_s:.4f} s, simulate_padded_torch "
+           f"{sweep_s:.4f} s, unpack {unpack_s:.4f} s")
     _phase(f"simulate_batch {json.dumps({'jobs': len(jobs), 'firings': SIM_FIRINGS, 'wall_s': wall, 'jobs_per_s': len(jobs) / wall, 'warm_wall_s': walls[1:], 'warm_jobs_per_s': len(jobs) / statistics.median(walls[1:])})}")
     row = _row("sim_sweep", "src/repro/kernels/sim_sweep.py:108", 0.0, ms,
                plain_ms, None, b_ms, b_by)

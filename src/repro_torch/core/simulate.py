@@ -527,12 +527,14 @@ def simulate_batch(jobs: Sequence[SimJob | TaskGraph], *, firings: int,
     its own event simulation.
 
     backend — "auto" (default): the torch sweep on ``device`` whenever
-              every knob fits the sweep's int32 range, else the NumPy
+              every knob fits the sweep's int32 range and no latency is
+              below 0, else the NumPy
               sweep, with a warning and one ``engine_counts()["fallback"]``
               tick; a lone job runs the event engine, by design.
               "torch": force the torch sweep (``repro_torch.kernels.
               sim_sweep``: the CUDA kernel on the card, its plain version
-              on the CPU; raises when the knobs overflow int32).
+              on the CPU; raises when the knobs overflow int32 or a
+              latency is below 0).
               "numpy": force the NumPy array engine, the bit-exact oracle.
               "event": force per-job event simulation.
     max_bytes — byte budget for the padded array state (default 1 GiB,
@@ -591,8 +593,8 @@ def simulate_batch(jobs: Sequence[SimJob | TaskGraph], *, firings: int,
     if backend == "torch" and not fits_int32(norm, firings, max_cycles):
         raise ValueError(
             "torch backend is int32-only: firings, max_cycles and every "
-            "latency/capacity/II knob must stay below 2**30 "
-            "(use backend='numpy' for larger values)")
+            "latency/capacity/II knob must stay below 2**30, and no "
+            "latency below 0 (use backend='numpy' for such values)")
     resolved = backend
     if backend == "auto":
         if len(norm) <= 1:
@@ -603,7 +605,8 @@ def simulate_batch(jobs: Sequence[SimJob | TaskGraph], *, firings: int,
             _ENGINE_INVOCATIONS["fallback"] += 1
             warnings.warn(
                 "simulate_batch(backend='auto'): knobs exceed the torch "
-                "sweep's int32 range, degrading to the NumPy backend",
+                "sweep's int32 range or a latency is below 0, degrading "
+                "to the NumPy backend",
                 stacklevel=2)
             resolved = "numpy"
     with _trace.span("simulate.batch", backend=resolved, jobs=len(norm),

@@ -52,13 +52,9 @@ _SIGNATURES = {
         "moe_gmm_fwd": [_P] * 5 + [_I] * 9 + [_P],
     },
     "sim_sweep": {
-        "sim_sweep_scratch": [_I] * 3,
-        "sim_sweep_fwd": [_P] * 8 + [_I] * 6 + [_P] * 5 + [_LL, _P],
+        "sim_sweep_fwd": [_P] * 8 + [_I] * 5 + [_P] * 5 + [_I, _P],
     },
 }
-#: functions that return something other than a CUDA error code
-_RESTYPES = {"sim_sweep_scratch": ctypes.c_longlong}
-
 _loaded: dict[str, ctypes.CDLL] = {}
 
 
@@ -120,7 +116,7 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(target))
         for fn, argtypes in _SIGNATURES[name].items():
             getattr(lib, fn).argtypes = argtypes
-            getattr(lib, fn).restype = _RESTYPES.get(fn, ctypes.c_int)
+            getattr(lib, fn).restype = ctypes.c_int
         _loaded[name] = lib
     return lib
 

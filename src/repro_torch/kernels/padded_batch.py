@@ -23,12 +23,14 @@ unpadded event simulation; only the array shapes are shared.
 
 The builder lives in ``repro_torch.kernels`` because the padded sweep is
 the simulator's hot path: the torch backend (``repro_torch.kernels.
-sim_sweep``) hands this layout to one CUDA block per job row.
+sim_sweep``) hands this layout to a kernel that gives each job row a
+group of warps sized to it.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from itertools import repeat
 
 import numpy as np
 
@@ -91,55 +93,98 @@ class PaddedBatch:
         the original job order (inverse of the grouping permutation)."""
         from repro_torch.core.simulate import SimResult
 
+        cycles = np.asarray(cycles).tolist()
+        dead = np.asarray(dead, dtype=bool).tolist()
+        fired = np.asarray(fired)
+        steps = int(steps)
         out = [None] * self.V
         for g in self.groups:
-            for v in range(g.r0, g.r1):
+            names = g.names
+            for v, row in zip(range(g.r0, g.r1),
+                              fired[g.r0:g.r1, :g.T].tolist()):
                 out[self.perm[v]] = SimResult(
                     cycles=int(cycles[v]),
-                    fired={n: int(fired[v, i]) for i, n in enumerate(g.names)},
-                    deadlocked=bool(dead[v]),
-                    steps=int(steps),
+                    fired=dict(zip(names, row)),
+                    deadlocked=dead[v],
+                    steps=steps,
                     engine=engine,
                 )
         return out
 
 
+def _knob_cells(rows, dicts, names):
+    """(row, column, value) arrays of every knob in ``dicts`` (a dict or
+    None per row of ``rows``) whose name is one of ``names``, the columns;
+    other names are ignored.  ``TaskGraph.add_stream`` accepts a stream
+    name twice (it checks ends, width and depth), and ``_Model`` resolves
+    a knob by name, so a knob sets every column of its name."""
+    col = {n: i for i, n in enumerate(names)}    # the last column of a name
+    keys, vals, counts = [], [], []
+    for d in dicts:
+        if d:
+            keys.extend(d)
+            vals.extend(d.values())
+        counts.append(len(d) if d else 0)
+    r = np.repeat(np.asarray(rows, dtype=np.int64), counts)
+    c = np.fromiter(map(col.get, keys, repeat(-1, len(keys))),
+                    dtype=np.int64, count=len(keys))
+    keep = c >= 0
+    # values of ignored names are never read, as _Model never reads them
+    x = np.array(vals, dtype=object)[keep].astype(np.int64)
+    r, c = r[keep], c[keep]
+    for i, n in enumerate(names if len(col) < len(names) else ()):
+        if col[n] != i:            # an earlier column of a repeated name
+            hit = c == col[n]
+            r, x = np.concatenate([r, r[hit]]), np.concatenate([x, x[hit]])
+            c = np.concatenate([c, np.full(int(hit.sum()), i)])
+    return r, c, x
+
+
 def build_padded_batch(jobs) -> PaddedBatch:
     """Group ``SimJob``s by topology signature and build the canonical
-    padded (V, T*, S*) layout both array backends consume."""
+    padded (V, T*, S*) layout both array backends consume.
+
+    Each group's index structures (task and data-stream columns, producer
+    and consumer columns, FIFO depths, the detached mask) are built once,
+    from its first graph, as ``core.simulate._Model`` resolves them; each
+    job then contributes only its own ``latency``, ``extra_capacity`` and
+    ``ii`` entries.  Knobs that name a control stream or nothing in the
+    graph are ignored, as ``_Model`` ignores them."""
     # imported here: repro_torch.core.simulate imports this module lazily,
     # so a top-level import back into it would be circular at load time
-    from repro_torch.core.simulate import _Model, _topology_signature
+    from repro_torch.core.simulate import _topology_signature
 
-    sig_cache: dict[int, tuple] = {}
+    # a signature is hashed once per distinct graph object, not per job
+    of_graph: dict[int, list[int]] = {}
     members: dict[tuple, list[int]] = {}
     for v, j in enumerate(jobs):
-        sig = sig_cache.get(id(j.graph))
-        if sig is None:
-            sig = _topology_signature(j.graph)
-            sig_cache[id(j.graph)] = sig
-        members.setdefault(sig, []).append(v)
+        mem = of_graph.get(id(j.graph))
+        if mem is None:
+            mem = members.setdefault(_topology_signature(j.graph), [])
+            of_graph[id(j.graph)] = mem
+        mem.append(v)
     perm = [v for mem in members.values() for v in mem]
-    models = [
-        _Model(jobs[v].graph, jobs[v].latency, jobs[v].extra_capacity, jobs[v].ii)
-        for v in perm
-    ]
 
     groups: list[PaddedGroup] = []
+    depths, detached = [], []
     r0 = 0
     for mem in members.values():
-        m0 = models[r0]
-        names = m0.names
-        snames = [s.name for s in m0.data]
+        graph = jobs[mem[0]].graph
+        names = list(graph.tasks)
+        data = [s for s in graph.streams if not s.control]
+        snames = [s.name for s in data]
         T, S = len(names), len(snames)
         tidx = {n: i for i, n in enumerate(names)}
-        prod = np.array([tidx[m0.producer[s]] for s in snames], dtype=np.int64)
-        cons = np.array([tidx[m0.consumer[s]] for s in snames], dtype=np.int64)
+        # by name, as _Model keys them: the last stream of a name wins
+        producer = {s.name: s.src for s in data}
+        consumer = {s.name: s.dst for s in data}
+        depth = {s.name: int(s.depth) for s in data}
+        prod = np.array([tidx[producer[s]] for s in snames], dtype=np.int64)
+        cons = np.array([tidx[consumer[s]] for s in snames], dtype=np.int64)
         a_in = np.zeros((S, T), dtype=np.int64)
         a_out = np.zeros((S, T), dtype=np.int64)
-        for si in range(S):
-            a_in[si, cons[si]] = 1
-            a_out[si, prod[si]] = 1
+        a_in[np.arange(S), cons] = 1
+        a_out[np.arange(S), prod] = 1
         groups.append(
             PaddedGroup(
                 r0=r0,
@@ -152,10 +197,12 @@ def build_padded_batch(jobs) -> PaddedBatch:
                 cons=cons,
                 a_in=a_in,
                 a_out=a_out,
-                indeg=a_in.sum(axis=0),
-                outdeg=a_out.sum(axis=0),
+                indeg=np.bincount(cons, minlength=T),
+                outdeg=np.bincount(prod, minlength=T),
             )
         )
+        depths.append([depth[s] for s in snames])
+        detached.append([graph.tasks[n].detached for n in names])
         r0 += len(mem)
 
     V = len(jobs)
@@ -172,16 +219,21 @@ def build_padded_batch(jobs) -> PaddedBatch:
     # them read the all-zero sentinel, so they can never gate or be gated
     cons = np.full((V, S), T, dtype=np.int64)
     prod = np.full((V, S), T, dtype=np.int64)
-    for g in groups:
+    for g, depth, det in zip(groups, depths, detached):
         r0, r1, gT, gS = g.r0, g.r1, g.T, g.S
-        for v in range(r0, r1):
-            m = models[v]
-            if gS:
-                lat[v, :gS] = [m.lat[s] for s in g.snames]
-                cap[v, :gS] = [m.cap[s] for s in g.snames]
-            if gT:
-                ii[v, :gT] = [m.ii[n] for n in g.names]
-                counted[v, :gT] = [not m.detached[n] for n in g.names]
+        rows = range(r0, r1)
+        mine = [jobs[perm[v]] for v in rows]
+        if gS:
+            cap[r0:r1, :gS] = depth
+            r, c, x = _knob_cells(rows, (j.latency for j in mine), g.snames)
+            lat[r, c] = x
+            r, c, x = _knob_cells(rows, (j.extra_capacity for j in mine),
+                                  g.snames)
+            cap[r, c] += x
+        if gT:
+            r, c, x = _knob_cells(rows, (j.ii for j in mine), g.names)
+            ii[r, c] = x
+            counted[r0:r1, :gT] = ~np.array(det, dtype=bool)
         task_active[r0:r1, :gT] = True
         stream_active[r0:r1, :gS] = True
         cons[r0:r1, :gS] = g.cons

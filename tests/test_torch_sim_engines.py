@@ -12,7 +12,8 @@ import numpy as np
 import pytest
 from _propcheck import given, settings, strategies as st
 from _torch_sim import (edge_jobs, key, paper_jobs, port_graph, port_job,
-                        port_obs_isolation, random_mixed_jobs)
+                        port_obs_isolation, random_mixed_jobs,
+                        streamless_jobs)
 
 import repro.core as rcore
 import repro_torch.core as pcore
@@ -145,3 +146,91 @@ def test_padded_layout_of_the_paper_designs_equals_the_reference():
     pb = p_build(paper_jobs(pcore, seed=1))
     assert (pb.V, pb.T, pb.S, pb.H, len(pb.groups)) == (96, 480, 905, 6, 28)
     assert _layout(pb) == _layout(rb)
+
+
+def _port_jobs_sharing(rjobs):
+    """The port's jobs of ``rjobs``, sharing a graph object exactly where
+    the reference's jobs share one."""
+    graphs = {}
+    out = []
+    for j in rjobs:
+        g = graphs.get(id(j.graph))
+        if g is None:
+            g = graphs[id(j.graph)] = port_graph(j.graph)
+        out.append(pcore.SimJob(g, latency=j.latency,
+                                extra_capacity=j.extra_capacity, ii=j.ii))
+    return out
+
+
+def _layout_case(name):
+    """Reference jobs for the layout cases ``_Model`` used to resolve
+    implicitly, one job at a time."""
+    rng = random.Random(sum(map(ord, name)))
+    J = rcore.SimJob
+    if name == "control-and-unknown-knobs":
+        jobs = []
+        for g in [e.graph for e in edge_jobs(rcore)] + \
+                [random_graph(rng) for _ in range(4)]:
+            names = [s.name for s in g.streams] + ["nope", "s999"]
+            jobs.append(J(g, latency={n: rng.randint(0, 4) for n in names},
+                          extra_capacity={n: rng.randint(0, 3)
+                                          for n in names},
+                          ii={n: rng.randint(1, 3)
+                              for n in list(g.tasks) + ["ghost"]}))
+        return jobs
+    if name == "one-graph-object":
+        g = random_graph(rng)
+        return [J(g, **_knobs(rng, g)) for _ in range(6)] + [J(g)]
+    if name == "equal-topologies-apart":
+        a, b = (random_graph(random.Random(7)) for _ in range(2))
+        c = random_graph(rng)
+        assert a is not b
+        return [J(a, **_knobs(rng, a)), J(c, **_knobs(rng, c)),
+                J(b, **_knobs(rng, b)), J(a, **_knobs(rng, a))]
+    if name == "no-knobs":
+        g, h = random_graph(rng), random_graph(rng)
+        return [J(g), J(h, latency={}, extra_capacity={}, ii={}),
+                J(g, latency=None, ii={})]
+    if name == "no-data-stream":
+        return [J(e.graph, ii=e.ii) for e in streamless_jobs(rcore)] + \
+            [J(rcore.TaskGraph("empty"))]
+    # two streams of one name, which add_stream accepts with its checks
+    # on: a knob of that name sets both, and the reference resolves both
+    # to the last one's ends and depth
+    b = rcore.TaskGraphBuilder("twins")
+    b.stream("x", depth=3)
+    b.stream("y", depth=1)
+    b.invoke("P", outs=["x", "y"])
+    b.invoke("C", ins=["x", "y"])
+    g = b.build()
+    g.add_stream(rcore.Stream(name="x", src="P", dst="C", depth=5))
+    return [J(g, latency={"x": 2}, extra_capacity={"x": 1, "y": 4}),
+            J(g), J(random_graph(rng))]
+
+
+@pytest.mark.parametrize("name", [
+    "control-and-unknown-knobs", "one-graph-object",
+    "equal-topologies-apart", "no-knobs", "no-data-stream",
+    "streams-of-one-name"])
+def test_padded_layout_of_edge_cases_equals_the_reference(name):
+    """The port builds each topology group's columns once and walks only
+    each job's own knobs; its layout and ``unpack`` must equal the
+    reference's, which resolves every job through ``_Model``."""
+    rjobs = _layout_case(name)
+    pjobs = _port_jobs_sharing(rjobs)
+    rb, pb = r_build(rjobs), p_build(pjobs)
+    assert _layout(pb) == _layout(rb)
+    rng = np.random.default_rng(len(name))
+    V, T = pb.V, pb.T
+    cycles = rng.integers(0, 99, V)
+    dead = rng.random(V) < 0.5
+    fired = rng.integers(0, 9, (V, T))
+    got = pb.unpack(cycles, dead, fired, 3, "torch-padded")
+    want = rb.unpack(cycles, dead, fired, 3, "torch-padded")
+    assert [dataclasses.asdict(r) for r in got] == \
+        [dataclasses.asdict(r) for r in want]
+    # and the simulation of the same jobs, through the port's layout
+    res = pcore.simulate_batch(pjobs, firings=7, backend="torch",
+                               device="cpu")
+    ref_res = rcore.simulate_batch(rjobs, firings=7, backend="numpy")
+    assert [key(r) for r in res] == [key(r) for r in ref_res]
