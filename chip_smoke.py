@@ -41,6 +41,19 @@ Phases, each printing its own lines:
    version and the NumPy oracle
    on the 48 jobs in three rounds; the ``simulate_batch`` line (jobs, wall
    seconds, jobs/s).
+   Then the paper's co-optimization flow (``coopt``) on the same 48 rows:
+   the baseline (``packed_placement``, ``analyze_timing``) and TAPA's
+   (``autobridge`` at the first feasible util of 0.70-1.0, then
+   ``analyze_timing``) on the host, each row's plan and both timing
+   reports equal to the reference's (``tests/torch_coopt_golden.json``),
+   every SDC balance checked; then the throughput check, one
+   ``simulate_batch`` (firings 200) on the card over every feasible row's
+   baseline and optimized job, its launches counted: equal to the plain
+   version on the card, the rows but cnn_13x10-16 and gaussian_24 to the
+   NumPy oracle (``steps`` included), no optimized job deadlocked, each
+   within its plan's fill/drain cycles, one launch a chunk; the kernel's
+   time on this batch and the ``coopt`` line (rows, mean MHz, failures
+   recovered, host seconds, counters, wall and spans).
 4. kernels: each kernel against its plain PyTorch version on the card, in
    bf16 (tolerance rtol = atol = 2e-2, as in tests/test_kernels.py; one f32
    case at 2e-5), the gather exactly.  Prefill attention at the three
@@ -92,13 +105,15 @@ Phases, each printing its own lines:
    with a shared plan, beside ``torch._grouped_mm``, with the schedule it
    chose;
    a JSON line with each kernel's launches, error, times and bound (the
-   sweep's launches from its main path), then the result line.
+   sweep's launches from its main path and the ``coopt`` path, each also
+   by path), then the result line.
 
 Exits non-zero, printing no result line, if any phase fails or there is no
 CUDA device.  Imports nothing of JAX.
 """
 from __future__ import annotations
 
+import hashlib
 import json
 import statistics
 import subprocess
@@ -113,12 +128,16 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch import configs  # noqa: E402
-from repro_torch.core import (SimJob, Stream, Task, TaskGraph,  # noqa: E402
-                              TaskGraphBuilder, pipeline_headroom)
+from repro_torch.core import (InfeasibleError, SimJob, Stream,  # noqa: E402
+                              Task, TaskGraph, TaskGraphBuilder,
+                              analyze_timing, autobridge, floorplan_counts,
+                              packed_placement, pipeline_headroom,
+                              reset_floorplan_counts)
+from repro_torch.core.ilp import solve_counts  # noqa: E402
 from repro_torch.core.simulate import (  # noqa: E402
     _simulate_batch_numpy, engine_counts, reset_engine_counts,
     simulate_batch)
-from repro_torch.fpga import benchmarks  # noqa: E402
+from repro_torch.fpga import benchmarks, grid_for  # noqa: E402
 from repro_torch.obs import trace  # noqa: E402
 from repro_torch.kernels import _build, ref  # noqa: E402
 from repro_torch.kernels import burst_gather as bg  # noqa: E402
@@ -1426,6 +1445,212 @@ def sim_phase(flush):
     return row
 
 
+#: the co-optimization flow's utilization sweep and throughput firings
+#: (``benchmarks/fmax_suite.py``'s ``UTIL_SWEEP`` and ``DEFAULT_FIRINGS``)
+COOPT_UTILS = (0.70, 0.75, 0.80, 0.85, 0.90, 0.95, 1.0)
+COOPT_FIRINGS = 200
+#: the reference's plans of the 48 rows (``tests/test_torch_floorplan.py``)
+COOPT_GOLDEN = ROOT / "tests" / "torch_coopt_golden.json"
+#: designs left out of the NumPy oracle's check, for the script's time
+COOPT_ORACLE_SKIP = ("cnn_13x10", "cnn_13x12", "cnn_13x14", "cnn_13x16",
+                     "gaussian_24")
+
+
+def _digest(obj):
+    return hashlib.sha256(json.dumps(obj).encode()).hexdigest()[:16]
+
+
+def _timing(rep):
+    return [rep.fmax_mhz, rep.routed, rep.fail_reason]
+
+
+def coopt_row(name, board, graph):
+    """One (design, board) row of the paper's flow on the host: the
+    baseline (``packed_placement`` then ``analyze_timing``) and TAPA's
+    (``autobridge`` at the first feasible util, then ``analyze_timing``).
+    Returns the row's record, as the golden file keeps it, its plan (None
+    if no util is feasible), the row's host seconds and, of those, the
+    seconds spent on utils found infeasible."""
+    t0 = time.perf_counter()
+    grid = grid_for(board)
+    base = analyze_timing(graph, grid, packed_placement(graph, grid))
+    rec = {"name": name, "board": board, "util": None, "base": _timing(base)}
+    infeasible_s = 0.0
+    for u in COOPT_UTILS:
+        t1 = time.perf_counter()
+        try:
+            plan = autobridge(graph, grid, max_util=u)
+        except InfeasibleError:
+            infeasible_s += time.perf_counter() - t1
+            continue
+        opt = analyze_timing(graph, grid, plan.floorplan.placement,
+                             plan.depth)
+        rec.update(
+            util=u,
+            placement=_digest(sorted(plan.floorplan.placement.items())),
+            depth=_digest(sorted(plan.depth.items())),
+            cost=plan.floorplan.cost,
+            exact=[st["exact"] for st in plan.floorplan.iteration_stats],
+            feedback_rounds=plan.feedback_rounds,
+            co_located=sorted(sorted(g) for g in plan.co_located),
+            demoted_streams=plan.demoted_streams,
+            tapa=_timing(opt))
+        return rec, plan, time.perf_counter() - t0, infeasible_s
+    return rec, None, time.perf_counter() - t0, infeasible_s
+
+
+def _check_sdc(name, graph, plan):
+    """Every data stream's balance is S[src] - S[dst] - lat >= 0 over the
+    balancer's potentials; every control stream's is 0."""
+    S, lat = plan.balancing.potentials, plan.pipelining.lat
+    bal = plan.balancing.balance
+    for s in graph.streams:
+        want = 0 if s.control else S[s.src] - S[s.dst] - lat[s.name]
+        if bal[s.name] != want or want < 0 or \
+                plan.depth[s.name] != lat[s.name] + bal[s.name]:
+            raise AssertionError(f"coopt {name}: stream {s.name} balance "
+                                 f"{bal[s.name]}, want {want} >= 0")
+
+
+def coopt_phase(flush):
+    """The paper's co-optimization flow through the port, on all 48 rows of
+    ``autobridge_suite()`` + ``hbm_suite()``: each row's baseline and TAPA
+    plans on the host, held to the reference's (the golden file) and to the
+    SDC; then the throughput check, one ``simulate_batch`` on the card over
+    every feasible row's ``SimJob(graph)`` and ``plan.sim_job()``, its
+    launches counted, equal to the plain version on the card, a subset to
+    the NumPy oracle (``steps`` included), with no deadlock and no more
+    than the fill/drain cycles of each plan.  Returns the sweep's launches
+    on this path and its phase line's numbers."""
+    golden = {(r["name"], r["board"]): r
+              for r in json.loads(COOPT_GOLDEN.read_text())}
+    rows = benchmarks.autobridge_suite() + benchmarks.hbm_suite()
+    reset_floorplan_counts()
+    recs, plans, secs, infeasible_s = [], [], [], 0.0
+    for name, board, graph in rows:
+        rec, plan, sec, lost = coopt_row(name, board, graph)
+        infeasible_s += lost
+        if rec != golden.get((name, board)):
+            raise AssertionError(f"coopt {name}/{board}: the plan differs "
+                                 f"from the reference's: {rec} vs "
+                                 f"{golden.get((name, board))}")
+        if plan is not None:
+            _check_sdc(f"{name}/{board}", graph, plan)
+        recs.append(rec)
+        plans.append(plan)
+        secs.append(sec)
+    counts, ilp = floorplan_counts(), solve_counts()
+    flow_s = sum(secs)
+    feasible = [i for i, p in enumerate(plans) if p is not None]
+    _phase(f"check coopt: {len(rows)} rows, {len(feasible)} feasible, "
+           f"each plan (placement, depths, cost, exact flags, feedback "
+           f"rounds, co-location, demotions, util) and both timing reports "
+           f"equal to the reference's; SDC balances S[src] - S[dst] - lat "
+           f">= 0, control streams 0 ok; host {flow_s:.2f} s")
+
+    # the throughput check: one call over every feasible row's baseline and
+    # optimized job, on the card
+    jobs = []
+    for i in feasible:
+        jobs += [SimJob(rows[i][2]), plans[i].sim_job()]
+    max_cycles = COOPT_FIRINGS * 64 + 10_000
+    ss.sim_sweep.launches = 0
+    reset_engine_counts()
+    trace.enable(clear=True)
+    t0 = time.perf_counter()
+    res = simulate_batch(jobs, firings=COOPT_FIRINGS)
+    wall = time.perf_counter() - t0
+    trace.disable()
+    launches, engines = ss.sim_sweep.launches, engine_counts()
+    spans = {e["name"]: e["dur_ns"] / 1e9 for e in trace.drain()}
+    if launches < 1 or launches != engines["torch"] or engines["fallback"] \
+            or engines["numpy"] or engines["event"] or \
+            any(r.engine != "torch-padded" for r in res):
+        raise AssertionError(f"coopt simulate_batch: {launches} launches, "
+                             f"engine counts {engines}")
+    pb = build_padded_batch(jobs)
+    args = ss.padded_tensors(pb, "cuda")
+    plain = pb.unpack(*(x.cpu().numpy() if torch.is_tensor(x) else x
+                        for x in ref.sim_sweep_ref(
+                            *args, pb.H, COOPT_FIRINGS, max_cycles)),
+                      "torch-padded")
+    if [_sim_key(r) for r in res] != [_sim_key(r) for r in plain]:
+        raise AssertionError("coopt simulate_batch: the kernel's results "
+                             "differ from the plain version's on the card")
+    for k, i in enumerate(feasible):
+        base, opt = res[2 * k], res[2 * k + 1]
+        slack = sum(plans[i].depth.values()) + rows[i][2].num_tasks
+        if opt.deadlocked or opt.cycles - base.cycles > slack:
+            raise AssertionError(f"coopt {rows[i][0]}/{rows[i][1]}: "
+                                 f"optimized {opt}, baseline {base}, "
+                                 f"slack {slack}")
+    sub = [j for k, i in enumerate(feasible)
+           if rows[i][0] not in COOPT_ORACLE_SKIP
+           for j in jobs[2 * k:2 * k + 2]]
+    t0 = time.perf_counter()
+    oracle = _simulate_batch_numpy(sub, firings=COOPT_FIRINGS,
+                                   max_cycles=max_cycles)
+    oracle_s = time.perf_counter() - t0
+    if [_sim_key(r) for r in simulate_batch(sub, firings=COOPT_FIRINGS)] \
+            != [_sim_key(r) for r in oracle]:
+        raise AssertionError(f"coopt simulate_batch: the {len(sub)} jobs of "
+                             f"the subset differ from _simulate_batch_numpy")
+    # the default device of the entry point a user calls on one plan
+    one = feasible[0]
+    vt = plans[one].verify_throughput()
+    if [_sim_key(r)[:3] for r in vt] != \
+            [_sim_key(r)[:3] for r in res[:2]]:
+        raise AssertionError(f"coopt verify_throughput: {vt} vs {res[:2]}")
+    cycles = np.array([r.cycles for r in res])
+    plan = _sweep_plan(args)
+    _phase(f"check coopt simulate_batch {len(jobs)} jobs (baseline and "
+           f"optimized of {len(feasible)} rows), T*={pb.T} S*={pb.S} "
+           f"H={pb.H} firings={COOPT_FIRINGS}: equal to the plain version "
+           f"on the card; {len(sub)} jobs equal to the NumPy oracle, steps "
+           f"included ({oracle_s:.2f} s); cycles {cycles.min()}-"
+           f"{cycles.max()}, no optimized job deadlocked, each within its "
+           f"plan's fill/drain slack; {launches} launch(es) for "
+           f"{engines['torch']} chunk(s); {_plan_text(plan)} ok")
+
+    scratch = torch.empty(max(plan.scratch, 1), dtype=torch.int32,
+                          device="cuda")
+    k_ms = [time_ms(lambda: _launch(args, plan, scratch, COOPT_FIRINGS,
+                                    max_cycles), flush, reps=10)
+            for _ in range(3)]
+    plain_ms = time_ms(lambda: ref.sim_sweep_ref(
+        *args, pb.H, COOPT_FIRINGS, max_cycles), flush, reps=1)
+    ms = statistics.median(k_ms)
+    b_ms, b_by, ops, nbytes = _sim_bound(pb, cycles)
+    _phase(f"time sim_sweep[coopt] V={pb.V}: {ms:.4f} ms (rounds "
+           f"{', '.join(f'{t:.4f}' for t in k_ms)}), plain on the card "
+           f"{plain_ms:.1f} ms, bound {b_ms:.4f} ms ({b_by}; "
+           f"{ops / 1e9:.3f} G int32 ops, {nbytes / 1e6:.2f} MB)")
+
+    base_mhz = [r["base"][0] if r["base"][1] else 0.0 for r in recs]
+    tapa_mhz = [r["tapa"][0] if r["util"] is not None and r["tapa"][1]
+                else 0.0 for r in recs]
+    failed = [i for i, r in enumerate(recs) if not r["base"][1]]
+    slowest = sorted(range(len(rows)), key=lambda i: -secs[i])[:5]
+    line = {
+        "rows": len(rows), "feasible": len(feasible),
+        "infeasible_at_every_util": [f"{n}/{b}" for (n, b, _), p
+                                     in zip(rows, plans) if p is None],
+        "base_mhz_mean": statistics.mean(base_mhz),
+        "tapa_mhz_mean": statistics.mean(tapa_mhz),
+        "base_failures": len(failed),
+        "recovered_by_tapa": sum(tapa_mhz[i] > 0 for i in failed),
+        "flow_s": flow_s, "infeasible_utils_s": infeasible_s,
+        "slowest_s": {f"{rows[i][0]}/{rows[i][1]}": secs[i] for i in slowest},
+        "floorplan": counts, "ilp": ilp, "jobs": len(jobs),
+        "firings": COOPT_FIRINGS, "launches": launches,
+        "simulate_batch_wall_s": wall,
+        "simulate_batch_span_s": spans["simulate.batch"],
+        "sim_sweep_span_s": spans["sim_sweep"], "sim_sweep_ms": ms,
+        "sim_sweep_plain_ms": plain_ms, "sim_sweep_bound_ms": b_ms}
+    _phase(f"coopt {json.dumps(line)}")
+    return launches
+
+
 def _params_b(params):
     return sum(p.numel() for p in params.parameters()) / 1e9
 
@@ -1576,6 +1801,7 @@ def main() -> int:
     flush = torch.empty(64 << 20, dtype=torch.int8, device="cuda")
     check_sim_sweep()
     sim_row = sim_phase(flush)
+    coopt_launches = coopt_phase(flush)
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     errs = check_attention(gen)
@@ -1600,7 +1826,10 @@ def main() -> int:
     # each kernel's launches, summed over the serve runs
     for row in kernels:
         row["launches"] = launches[row["name"]]
-    # the sweep's, from its own main path
+    # the sweep's, from its own main path and the co-optimization flow's
+    sim_row["launches_by_path"] = {"simulate_batch": sim_row["launches"],
+                                   "coopt": coopt_launches}
+    sim_row["launches"] += coopt_launches
     kernels.append(sim_row)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -17,8 +17,9 @@ error/warn/info, subjects, fix hint) to a structured ``Report``.
 The verifier is wired in as a pre-flight gate across the stack:
 ``simulate(check="warn"|"raise")``, the search engine's static candidate
 gate (``prepare_design_space(static_check=...)``, skipped candidates
-counted by ``analysis_counts()``), and ``autobridge(check=True)`` caching
-static-infeasibility verdicts in its ``FloorplanCache``.  See
+counted by ``analysis_counts()``), and
+``repro_torch.core.autobridge(check=True)`` caching static-infeasibility
+verdicts in its ``repro_torch.core.FloorplanCache``.  See
 ``docs/analysis-guide.md`` for the full code table and semantics.
 
 >>> from repro_torch.core import TaskGraphBuilder

@@ -8,11 +8,11 @@ the deadlock pass's firing bounds and the rate pass's repetition vector /
 static cycle lower bound.
 
 The module-global counters mirror ``simulate.engine_counts()`` /
-``autobridge.floorplan_counts()``: benchmark drivers snapshot them into the
-BENCH JSON ``sim.analysis`` block and the CI regression gate reads them to
-prove the pre-flight gate actually ran (``analyzed > 0``) and that static
-skipping never changed a frontier (``skipped > 0`` implies frontier
-unchanged vs baseline).
+``repro_torch.core.floorplan_counts()``: benchmark drivers snapshot them
+into the BENCH JSON ``sim.analysis`` block and the CI regression gate
+reads them to prove the pre-flight gate actually ran (``analyzed > 0``)
+and that static skipping never changed a frontier (``skipped > 0``
+implies frontier unchanged vs baseline).
 """
 from __future__ import annotations
 
@@ -27,7 +27,8 @@ INFO = "info"
 _SEVERITIES = (ERROR, WARN, INFO)
 
 # analyze() runs / doomed verdicts / gate-skipped candidates / structural
-# static-infeasibility verdicts recorded by ``autobridge(check=True)`` —
+# static-infeasibility verdicts recorded by
+# ``repro_torch.core.autobridge(check=True)`` —
 # global like the engine/floorplan counters, reset per benchmark run.
 _ANALYSIS_COUNTS = _metrics.group(
     "analysis",
@@ -145,8 +146,9 @@ class Report:
 
     def error_summary(self) -> str:
         """Deterministic one-line reason string for error diagnostics —
-        the text ``autobridge(check=True)`` raises and caches, so parallel
-        and sequential search paths produce identical verdicts."""
+        the text ``repro_torch.core.autobridge(check=True)`` raises and
+        caches, so parallel and sequential search paths produce identical
+        verdicts."""
         return "; ".join(f"{d.code}: {d.message}" for d in self.errors)
 
     def as_dict(self) -> dict:

@@ -1,6 +1,7 @@
 """The port stands alone: ``repro_torch`` and ``chip_smoke.py`` import
-neither JAX nor anything of the JAX package ``repro``, and importing the
-port builds no kernel."""
+neither JAX nor anything of the JAX package ``repro``, nor any third-party
+package the card's machine lacks (it has torch, numpy, scipy, einops and
+triton, and no networkx), and importing the port builds no kernel."""
 import ast
 import json
 import os
@@ -15,6 +16,9 @@ pytest.importorskip("torch")
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 FORBIDDEN = {"jax", "jaxlib", "repro"}
+#: the third-party packages the card's machine has; ``triton`` only inside
+#: the functions that launch a kernel
+THIRD_PARTY = {"torch", "numpy", "scipy", "einops", "triton"}
 
 _PROBE = """
 import importlib, json, pkgutil, sys
@@ -45,12 +49,21 @@ def test_importing_every_module_pulls_in_no_jax():
     assert not got["build_imported"], got
 
 
-def _imported_roots(path):
-    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+def _imports(path):
+    """(top-level package, at module level) of every absolute import, those
+    inside functions included."""
+    tree = ast.parse(path.read_text(), str(path))
+    top = {id(n) for n in tree.body}
+    for node in ast.walk(tree):
         if isinstance(node, ast.Import):
-            yield from (a.name.split(".")[0] for a in node.names)
+            for a in node.names:
+                yield a.name.split(".")[0], id(node) in top
         elif isinstance(node, ast.ImportFrom) and node.level == 0:
-            yield node.module.split(".")[0]
+            yield node.module.split(".")[0], id(node) in top
+
+
+def _imported_roots(path):
+    return {root for root, _ in _imports(path)}
 
 
 @pytest.mark.parametrize("path", sorted(PORT.rglob("*.py"))
@@ -59,3 +72,19 @@ def _imported_roots(path):
 def test_sources_import_no_jax_and_nothing_of_repro(path):
     roots = set(_imported_roots(path))
     assert not roots & FORBIDDEN, f"{path.name} imports {roots & FORBIDDEN}"
+
+
+@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py"))
+                         + [ROOT / "chip_smoke.py"],
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_sources_import_only_what_the_card_machine_has(path):
+    """No import, lazy ones included, of a package outside the standard
+    library and the card machine's list (networkx above all: the reference's
+    balancer runs on it); ``triton`` never at module level."""
+    own = {"repro_torch"}
+    for root, at_top in _imports(path):
+        if root in sys.stdlib_module_names or root in own:
+            continue
+        assert root in THIRD_PARTY, f"{path.name} imports {root}"
+        assert not (root == "triton" and at_top), \
+            f"{path.name} imports triton at module level"
