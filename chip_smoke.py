@@ -54,6 +54,22 @@ Phases, each printing its own lines:
    within its plan's fill/drain cycles, one launch a chunk; the kernel's
    time on this batch and the ``coopt`` line (rows, mean MHz, failures
    recovered, host seconds, counters, wall and spans).
+   Then the paper's §6.3 design-space search (``search``) on the 10
+   (design, board) rows of ``benchmarks/fmax_suite.py``'s fast subset:
+   ``prepare_design_space`` over the util sweep on the host, then one
+   ``timed_pool_simulations`` (firings 200) on the card over all 80 jobs
+   in one launch, equal to the plain version on the card and to
+   ``_simulate_batch_numpy`` (``steps`` included), each row's frontier and
+   best candidate equal to the reference's
+   (``tests/torch_search_golden.json``); the kernel's time on the batch
+   and ``measure_backend_speedup``; then ``search_until_converged`` on
+   each row as ``--converge --jobs 2`` runs it, its pool forked after the
+   card is in use: rounds, points, hypervolumes, frontiers and the ILP's
+   ``exact`` flags equal to the golden file, no pool retry, timeout,
+   quarantine or rebuild, one launch a round; the ``search`` line. Then
+   ``run_differential`` on the card over 26 generated designs
+   (``corpus``): ``ok``, every design's torch result equal to NumPy's,
+   the counters equal to the golden file; the ``corpus`` line.
 4. kernels: each kernel against its plain PyTorch version on the card, in
    bf16 (tolerance rtol = atol = 2e-2, as in tests/test_kernels.py; one f32
    case at 2e-5), the gather exactly.  Prefill attention at the three
@@ -105,14 +121,15 @@ Phases, each printing its own lines:
    with a shared plan, beside ``torch._grouped_mm``, with the schedule it
    chose;
    a JSON line with each kernel's launches, error, times and bound (the
-   sweep's launches from its main path and the ``coopt`` path, each also
-   by path), then the result line.
+   sweep's launches from its main path and the ``coopt``, ``search`` and
+   ``corpus`` paths, each also by path), then the result line.
 
 Exits non-zero, printing no result line, if any phase fails or there is no
 CUDA device.  Imports nothing of JAX.
 """
 from __future__ import annotations
 
+import dataclasses
 import hashlib
 import json
 import statistics
@@ -128,17 +145,22 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch import configs  # noqa: E402
-from repro_torch.core import (InfeasibleError, SimJob, Stream,  # noqa: E402
-                              Task, TaskGraph, TaskGraphBuilder,
+from repro_torch.core import (FloorplanCache, InfeasibleError,  # noqa: E402
+                              Interval, SearchPoint, SearchSpace, SimJob,
+                              Stream, Task, TaskGraph, TaskGraphBuilder,
                               analyze_timing, autobridge, floorplan_counts,
-                              packed_placement, pipeline_headroom,
-                              reset_floorplan_counts)
+                              measure_backend_speedup, packed_placement,
+                              pipeline_headroom, prepare_design_space,
+                              reset_floorplan_counts, search_until_converged,
+                              timed_pool_simulations)
 from repro_torch.core.ilp import solve_counts  # noqa: E402
+from repro_torch.corpus import run_differential, sample_corpus  # noqa: E402
 from repro_torch.core.simulate import (  # noqa: E402
     _simulate_batch_numpy, engine_counts, reset_engine_counts,
     simulate_batch)
 from repro_torch.fpga import benchmarks, grid_for  # noqa: E402
 from repro_torch.obs import trace  # noqa: E402
+from repro_torch.search import pool_counts, reset_pool_counts  # noqa: E402
 from repro_torch.kernels import _build, ref  # noqa: E402
 from repro_torch.kernels import burst_gather as bg  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
@@ -1651,6 +1673,294 @@ def coopt_phase(flush):
     return launches
 
 
+#: the paper's §6.3 search as ``benchmarks/fmax_suite.py --subset fast``
+#: runs it: its fast subset (10 (design, board) rows of
+#: ``autobridge_suite()``), ``UTIL_SWEEP`` (``COOPT_UTILS``), 200 firings,
+#: and ``--converge``'s 3 rounds of 12 points over ``Interval(0.70, 1.0)``
+SEARCH_FAST = ("stencil_x2", "stencil_x4", "cnn_13x2", "gaussian_12",
+               "bucket_sort", "page_rank")
+SEARCH_FIRINGS = 200
+CONVERGE_ROUNDS = 3
+CONVERGE_POINTS = 12
+#: pool workers of the converged path, forked after the card is in use
+SEARCH_JOBS = 2
+#: the reference's results of both paths and of the corpus batch
+#: (``tests/test_torch_search.py``)
+SEARCH_GOLDEN = ROOT / "tests" / "torch_search_golden.json"
+#: the corpus batch: (family, designs, first seed)
+CORPUS_BATCH = (("dag", 4, 500), ("cyclic", 4, 500), ("sdf", 4, 500),
+                ("wide", 4, 500), ("hbm", 4, 500), ("fuzz", 6, 600))
+CORPUS_COUNTERS = ("designs", "families", "verdicts_checked",
+                   "sims_checked", "feasible", "infeasible",
+                   "searches_checked", "surrogate_checked", "mismatches",
+                   "torch_checked")
+
+
+def _cand_row(c):
+    return [list(dataclasses.astuple(c.point)), c.fmax, c.plan.area_overhead,
+            c.sim.cycles if c.sim is not None else None,
+            c.sim.deadlocked if c.sim is not None else None]
+
+
+def _best_row(res):
+    try:
+        c = res.best
+    except InfeasibleError:
+        return None
+    return [list(dataclasses.astuple(c.point)), c.fmax]
+
+
+def _exact(c):
+    return [st["exact"] for st in c.plan.floorplan.iteration_stats]
+
+
+def _spans():
+    """Seconds by span name over the trace just taken, nested spans each
+    counted under their own name."""
+    out = {}
+    for e in trace.drain():
+        out[e["name"]] = out.get(e["name"], 0.0) + e["dur_ns"] / 1e9
+    return out
+
+
+def _check_launches(where, launches, engines, want=None):
+    if launches < 1 or launches != engines["torch"] or \
+            engines["fallback"] or engines["numpy"] or \
+            (want is not None and launches != want):
+        raise AssertionError(f"{where}: {launches} launches, engine counts "
+                             f"{engines}, want {want}")
+
+
+def search_default(golden, flush):
+    """The default path: one ``prepare_design_space`` a row over the util
+    sweep (host), then ONE ``timed_pool_simulations`` on the card over
+    every row's baseline and candidates, in one launch; its results against
+    the plain version on the card and the NumPy oracle (``steps``
+    included), each row's frontier and best candidate against the golden
+    file.  Returns the launches, the rows and the numbers of the line."""
+    rows = [r for r in benchmarks.autobridge_suite() if r[0] in SEARCH_FAST]
+    space = SearchSpace(seeds=(0,), utils=COOPT_UTILS)
+    reset_floorplan_counts()
+    t0 = time.perf_counter()
+    preps = [prepare_design_space(g, grid_for(b), space=space)
+             for _, b, g in rows]
+    prep_s = time.perf_counter() - t0
+    ss.sim_sweep.launches = 0
+    trace.enable(clear=True)
+    t0 = time.perf_counter()
+    res, meta = timed_pool_simulations(preps, firings=SEARCH_FIRINGS)
+    score_s = time.perf_counter() - t0
+    trace.disable()
+    launches, spans = ss.sim_sweep.launches, _spans()
+    _check_launches("search simulate_batch", launches, meta["counts"], 1)
+    if meta["jobs"] != golden["default_jobs"] or \
+            any(r.engine != "torch-padded" for r in res):
+        raise AssertionError(f"search: {meta['jobs']} jobs on "
+                             f"{meta['backends']}")
+    # the call's jobs, in the order the search gathered them
+    jobs = []
+    for p in preps:
+        jobs.append(SimJob(p.graph))
+        jobs += [c.plan.sim_job() for c in p.feasible
+                 if c.sim.engine != "static"]
+    max_cycles = SEARCH_FIRINGS * 64 + 10_000
+    pb = build_padded_batch(jobs)
+    args = ss.padded_tensors(pb, "cuda")
+    plain = pb.unpack(*(x.cpu().numpy() if torch.is_tensor(x) else x
+                        for x in ref.sim_sweep_ref(
+                            *args, pb.H, SEARCH_FIRINGS, max_cycles)),
+                      "torch-padded")
+    t0 = time.perf_counter()
+    oracle = _simulate_batch_numpy(jobs, firings=SEARCH_FIRINGS,
+                                   max_cycles=max_cycles)
+    oracle_s = time.perf_counter() - t0
+    got = [_sim_key(r) for r in res]
+    if got != [_sim_key(r) for r in plain] or \
+            got != [_sim_key(r) for r in oracle]:
+        raise AssertionError("search simulate_batch: the kernel's results "
+                             "differ from the plain version's on the card "
+                             "or from _simulate_batch_numpy")
+    recs = []
+    for (name, board, g), prep in zip(rows, preps):
+        grid = grid_for(board)
+        base = analyze_timing(g, grid, packed_placement(g, grid))
+        r = prep.finish(sim_calls=1)
+        recs.append({
+            "name": name, "board": board,
+            "base_mhz": base.fmax_mhz if base.routed else 0.0,
+            "space_size": r.space_size, "feasible": len(prep.feasible),
+            "base_cycles": prep.base_sim.cycles,
+            "frontier": [_cand_row(c) for c in r.frontier],
+            "exact": [_exact(c) for c in r.frontier],
+            "best": _best_row(r)})
+    for rec, want in zip(recs, golden["default"]):
+        if rec != want:
+            raise AssertionError(f"search {rec['name']}/{rec['board']}: the "
+                                 f"frontier differs from the reference's: "
+                                 f"{rec} vs {want}")
+    plan = _sweep_plan(args)
+    _phase(f"check search default path: {len(rows)} rows, {len(jobs)} jobs "
+           f"(T*={pb.T} S*={pb.S} H={pb.H}) in {launches} launch; equal to "
+           f"the plain version on the card and to the NumPy oracle, steps "
+           f"included ({oracle_s:.2f} s); every row's frontier and best "
+           f"candidate equal to the reference's; {_plan_text(plan)} ok")
+
+    scratch = torch.empty(max(plan.scratch, 1), dtype=torch.int32,
+                          device="cuda")
+    k_ms = [time_ms(lambda: _launch(args, plan, scratch, SEARCH_FIRINGS,
+                                    max_cycles), flush, reps=10)
+            for _ in range(3)]
+    plain_ms = time_ms(lambda: ref.sim_sweep_ref(
+        *args, pb.H, SEARCH_FIRINGS, max_cycles), flush, reps=1)
+    ms = statistics.median(k_ms)
+    cycles = np.array([r.cycles for r in res])
+    b_ms, b_by, ops, nbytes = _sim_bound(pb, cycles)
+    speed = measure_backend_speedup(jobs, firings=SEARCH_FIRINGS)
+    _phase(f"time sim_sweep[search] V={pb.V}: {ms:.4f} ms (rounds "
+           f"{', '.join(f'{t:.4f}' for t in k_ms)}), plain on the card "
+           f"{plain_ms:.1f} ms, bound {b_ms:.4f} ms ({b_by}; "
+           f"{ops / 1e9:.3f} G int32 ops, {nbytes / 1e6:.2f} MB); "
+           f"measure_backend_speedup {json.dumps(speed)}")
+    best = [r["best"][1] if r["best"] else 0.0 for r in recs]
+    line = {"rows": len(rows), "jobs": len(jobs), "launches": launches,
+            "base_mhz_mean": statistics.mean(r["base_mhz"] for r in recs),
+            "best_mhz_mean": statistics.mean(best),
+            "prepare_s": prep_s, "score_s": score_s,
+            "simulate_batch_wall_s": meta["wall_s"],
+            "simulate_batch_span_s": spans["simulate.batch"],
+            "sim_sweep_span_s": spans["sim_sweep"], "sim_sweep_ms": ms,
+            "sim_sweep_ms_rounds": k_ms, "sim_sweep_plain_ms": plain_ms,
+            "sim_sweep_bound_ms": b_ms, "speedup": speed,
+            "floorplan": floorplan_counts()}
+    return launches, line
+
+
+def search_converged(golden):
+    """The converged path: ``search_until_converged`` on each row as
+    ``fmax_suite.py --converge --jobs 2`` runs it, the pool forked after
+    the card is in use, one ``FloorplanCache`` for the suite; rounds,
+    points, hypervolumes and frontier against the golden file (the ILP's
+    ``exact`` flags first), no pool rebuild, retry or quarantine, each
+    round's scoring on the card.  Returns the launches and the line."""
+    gold = {(r["name"], r["board"]): r for r in golden["converged"]}
+    rows = [r for r in benchmarks.autobridge_suite() if r[0] in SEARCH_FAST]
+    anchors = [SearchPoint(seed=0, max_util=u) for u in COOPT_UTILS]
+    space = SearchSpace(utils=Interval(COOPT_UTILS[0], COOPT_UTILS[-1]))
+    cache = FloorplanCache()
+    reset_floorplan_counts()
+    reset_pool_counts()
+    reset_engine_counts()
+    ss.sim_sweep.launches = 0
+    trace.enable(clear=True)
+    t0 = time.perf_counter()
+    per_row, sim_calls, points, pool = {}, 0, 0, None
+    for name, board, g in rows:
+        t1 = time.perf_counter()
+        res = search_until_converged(
+            g, grid_for(board), space=space, rounds=CONVERGE_ROUNDS,
+            points_per_round=CONVERGE_POINTS, sim_firings=SEARCH_FIRINGS,
+            initial_points=anchors, cache=cache, jobs=SEARCH_JOBS)
+        per_row[f"{name}/{board}"] = time.perf_counter() - t1
+        every = [c for r in res.rounds for c in r.candidates
+                 if c.plan is not None]
+        rec = {"name": name, "board": board, "rounds_run": res.rounds_run,
+               "converged": res.converged,
+               "points_evaluated": res.points_evaluated,
+               "hypervolumes": res.hypervolumes,
+               "frontier": [_cand_row(c) for c in res.frontier],
+               "exact": [_exact(c) for c in res.frontier],
+               "inexact": sum(not e for c in every for e in _exact(c)),
+               "best": _best_row(res)}
+        want = gold[(name, board)]
+        if (rec["exact"], rec["inexact"]) != (want["exact"],
+                                              want["inexact"]):
+            raise AssertionError(f"search converged {name}/{board}: the "
+                                 f"ILP's exact flags differ from the "
+                                 f"reference's (its time limit was hit on "
+                                 f"one side): {rec['exact']}, "
+                                 f"{rec['inexact']} inexact vs "
+                                 f"{want['exact']}, {want['inexact']}")
+        if rec != want:
+            raise AssertionError(f"search converged {name}/{board}: differs "
+                                 f"from the reference's: {rec} vs {want}")
+        p = res.pool
+        if p is None or p.merged != p.dispatched or p.retried or \
+                p.timed_out or p.quarantined or p.pool_rebuilds:
+            raise AssertionError(f"search converged {name}/{board}: pool "
+                                 f"{p}")
+        if pool is None:
+            pool = p
+        else:
+            pool.absorb(p)
+        sim_calls += res.sim_calls
+        points += res.points_evaluated
+    wall = time.perf_counter() - t0
+    trace.disable()
+    launches, engines = ss.sim_sweep.launches, engine_counts()
+    spans = _spans()
+    _check_launches("search converged", launches, engines)
+    if engines["torch"] + engines["event"] != sim_calls:
+        raise AssertionError(f"search converged: {sim_calls} simulate_batch "
+                             f"calls, engine counts {engines}")
+    counts = floorplan_counts()
+    _phase(f"check search converged path: {len(rows)} rows, {points} points "
+           f"in {sim_calls} simulate_batch calls, jobs={SEARCH_JOBS} forked "
+           f"after the card was in use; rounds, points, hypervolumes, "
+           f"frontiers and exact flags equal to the reference's; pool "
+           f"{pool.dispatched} dispatched, {pool.merged} merged, no retry, "
+           f"timeout, quarantine or rebuild; {launches} launches ok")
+    slowest = sorted(per_row, key=lambda k: -per_row[k])[:3]
+    line = {"rows": len(rows), "points": points, "sim_calls": sim_calls,
+            "launches": launches, "engines": engines, "wall_s": wall,
+            "slowest_s": {k: per_row[k] for k in slowest},
+            "spans_s": {k: spans.get(k, 0.0) for k in (
+                "search.round", "search.prepare", "pool.warm",
+                "pool.worker_solve", "floorplan.ilp", "simulate.batch",
+                "sim_sweep")},
+            "floorplan": counts, "pool": pool.as_dict(),
+            "pool_counts": pool_counts(), "cache": cache.stats()}
+    return launches, line
+
+
+def search_phase(flush):
+    """The paper's §6.3 search through the port, both paths, and its
+    ``search`` line.  Returns the sweep's launches on this path."""
+    golden = json.loads(SEARCH_GOLDEN.read_text())
+    d_launches, default = search_default(golden, flush)
+    c_launches, converged = search_converged(golden)
+    _phase(f"search {json.dumps({'default': default, 'converged': converged})}")
+    return d_launches + c_launches
+
+
+def corpus_phase():
+    """``run_differential`` on the card over the corpus batch: ``ok``, the
+    torch row on every design (one launch), the counters equal to the
+    reference's.  Returns the sweep's launches on this path."""
+    want = json.loads(SEARCH_GOLDEN.read_text())["corpus"]
+    designs = [d for fam, n, seed in CORPUS_BATCH
+               for d in sample_corpus(fam, n, seed=seed)]
+    reset_engine_counts()
+    ss.sim_sweep.launches = 0
+    t0 = time.perf_counter()
+    rep = run_differential(designs, device="cuda")
+    wall = time.perf_counter() - t0
+    launches, engines = ss.sim_sweep.launches, engine_counts()
+    got = {k: getattr(rep, k) for k in CORPUS_COUNTERS}
+    if not rep.ok or rep.torch_checked != len(designs) or got != want:
+        raise AssertionError(f"corpus: {got} vs the reference's {want}")
+    if launches < 1 or launches != engines["torch"] or engines["fallback"]:
+        raise AssertionError(f"corpus: {launches} launches, engine counts "
+                             f"{engines}")
+    _phase(f"check corpus: {len(designs)} designs, run_differential ok, "
+           f"torch_checked {rep.torch_checked} (the kernel against the "
+           f"NumPy oracle, steps included), counters equal to the "
+           f"reference's; {launches} launch(es) ok")
+    line = dict(got, ok=rep.ok, launches=launches, engines=engines,
+                wall_s=wall)
+    _phase(f"corpus {json.dumps(line)}")
+    return launches
+
+
 def _params_b(params):
     return sum(p.numel() for p in params.parameters()) / 1e9
 
@@ -1802,6 +2112,8 @@ def main() -> int:
     check_sim_sweep()
     sim_row = sim_phase(flush)
     coopt_launches = coopt_phase(flush)
+    search_launches = search_phase(flush)
+    corpus_launches = corpus_phase()
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     errs = check_attention(gen)
@@ -1826,10 +2138,13 @@ def main() -> int:
     # each kernel's launches, summed over the serve runs
     for row in kernels:
         row["launches"] = launches[row["name"]]
-    # the sweep's, from its own main path and the co-optimization flow's
+    # the sweep's, from its own main path, the co-optimization flow's, the
+    # search's and the corpus's
     sim_row["launches_by_path"] = {"simulate_batch": sim_row["launches"],
-                                   "coopt": coopt_launches}
-    sim_row["launches"] += coopt_launches
+                                   "coopt": coopt_launches,
+                                   "search": search_launches,
+                                   "corpus": corpus_launches}
+    sim_row["launches"] += coopt_launches + search_launches + corpus_launches
     kernels.append(sim_row)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -4,10 +4,11 @@ throughput-safe latency balancing, the timing model, and the dataflow
 simulator, with ``simulate_batch`` (and so ``Plan.verify_throughput``) on
 the card.
 
-Counterpart of ``repro.core``.  The names it re-exports from the
-design-space search, which the port does not have yet, raise
-``NotImplementedError`` naming the item of ``ROADMAP.md``'s port queue
-that brings them.
+Counterpart of ``repro.core``.  The design-space search names
+(``explore_design_space``, ``search_until_converged``, ``SearchSpace``,
+...) live in ``repro_torch.search`` and are re-exported here lazily
+(PEP 562): the search package imports this package's submodules, so an
+eager import would be circular.
 """
 from .autobridge import (FloorplanCache, Plan, autobridge, floorplan_counts,
                          initial_floorplan_key, merge_floorplan_counts,
@@ -23,19 +24,18 @@ from .simulate import (SimJob, SimResult, StreamProfile, engine_counts,
                        pipeline_headroom, reset_engine_counts, simulate,
                        simulate_batch)
 
-_SEARCH = "port queue item 5d (search and corpus)"
-
-#: name re-exported by ``repro.core`` -> the ROADMAP item that brings it
-_PENDING = dict.fromkeys((
+#: names re-exported from ``repro_torch.search`` (resolved lazily via
+#: ``__getattr__`` below to break the core <-> search import cycle)
+_SEARCH_EXPORTS = (
     "BackendSweep", "Candidate", "ConvergedSearch", "DeferredSearch",
     "DiskFloorplanStore", "FaultPlan", "Interval", "SearchJournal",
     "SearchPoint", "SearchResult", "SearchSpace",
     "best_candidate", "explore_design_space", "explore_floorplans",
     "gather_sim_jobs", "hypervolume", "measure_backend_speedup",
     "pareto_frontier", "pareto_indices", "pool_simulations",
-    "prepare_design_space", "scatter_sim_results",
-    "search_until_converged", "sweep_backends",
-    "timed_pool_simulations"), _SEARCH)
+    "prepare_design_space", "scatter_sim_results", "search_until_converged",
+    "sweep_backends", "timed_pool_simulations",
+)
 
 __all__ = [
     "FloorplanCache", "Plan", "autobridge", "floorplan_counts",
@@ -48,12 +48,16 @@ __all__ = [
     "PhysicalModel", "TimingReport", "analyze_timing", "packed_placement",
     "SimJob", "SimResult", "StreamProfile", "engine_counts",
     "pipeline_headroom", "reset_engine_counts", "simulate", "simulate_batch",
+    *_SEARCH_EXPORTS,
 ]
 
 
 def __getattr__(name: str):
-    if name in _PENDING:
-        raise NotImplementedError(
-            f"repro_torch.core.{name} is not ported yet: see ROADMAP.md, "
-            f"{_PENDING[name]}")
+    if name in _SEARCH_EXPORTS:
+        import repro_torch.search as _search
+        return getattr(_search, name)
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
+def __dir__():
+    return sorted(set(globals()) | set(_SEARCH_EXPORTS))

@@ -57,6 +57,7 @@ agree bit-for-bit on ``cycles``/``fired``/``deadlocked``.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import heapq
 import warnings
@@ -137,10 +138,31 @@ def engine_counts() -> dict[str, int]:
     return dict(_ENGINE_INVOCATIONS)
 
 
+#: why ``simulate_batch`` may not run in this process, or None.  The
+#: search's pool workers set it (``sweep_forbidden``): they run the NumPy
+#: floorplan chain only, and a worker forked from a process that uses the
+#: card must never touch CUDA.
+_SWEEP_FORBIDDEN: str | None = None
+
+
+@contextlib.contextmanager
+def sweep_forbidden(where: str):
+    """Within the block, ``simulate_batch`` (every backend) raises
+    ``RuntimeError`` naming ``where`` instead of running."""
+    global _SWEEP_FORBIDDEN
+    prev, _SWEEP_FORBIDDEN = _SWEEP_FORBIDDEN, where
+    try:
+        yield
+    finally:
+        _SWEEP_FORBIDDEN = prev
+
+
 def _sweep_device(device):
     """``device`` as a ``torch.device``, checked: the array sweep runs on
     the card unless the caller asks for the CPU, and never carries on on
     the host when the card is missing."""
+    if _SWEEP_FORBIDDEN is not None:
+        raise RuntimeError(f"simulate_batch: not run in {_SWEEP_FORBIDDEN}")
     import torch
 
     dev = torch.device(device)

@@ -162,3 +162,191 @@ def port_obs_isolation():
         else:
             trace.disable()
         trace.absorb(saved)
+
+
+# ---- the design-space search (``test_torch_search*.py``) ------------------
+
+#: ``benchmarks/fmax_suite.py``'s utilization sweep, fast subset, firings
+#: and converged-mode budget
+UTIL_SWEEP = (0.70, 0.75, 0.80, 0.85, 0.90, 0.95, 1.0)
+FAST_SUBSET = ("stencil_x2", "stencil_x4", "cnn_13x2", "gaussian_12",
+               "bucket_sort", "page_rank")
+SEARCH_FIRINGS = 200
+CONVERGE_ROUNDS = 3
+CONVERGE_POINTS = 12
+#: the corpus batch ``chip_smoke.py`` runs: (family, designs, first seed)
+CORPUS_BATCH = (("dag", 4, 500), ("cyclic", 4, 500), ("sdf", 4, 500),
+                ("wide", 4, 500), ("hbm", 4, 500), ("fuzz", 6, 600))
+
+
+def pkg_module(pkg: str, name: str):
+    from importlib import import_module
+    return import_module(f"{pkg}.{name}")
+
+
+def sim_kwargs(pkg: str, key: str = "sim_backend") -> dict:
+    """How each package scores a search's throughput here: the reference
+    on its NumPy sweep, the port on the sweep's plain version on the CPU
+    (``key`` is ``"backend"`` for the functions that take that name)."""
+    if pkg == "repro":
+        return {key: "numpy"}
+    return {key: "torch", "device": "cpu"}
+
+
+def fast_rows(pkg: str):
+    """The fast subset's (design, board, graph) rows of
+    ``autobridge_suite()``, in the suite's order."""
+    return [r for r in pkg_module(pkg, "fpga.benchmarks").autobridge_suite()
+            if r[0] in FAST_SUBSET]
+
+
+def vecadd(core, pe=4):
+    """``tests/test_sweeps.py``'s HBM-bound vector add."""
+    b = core.TaskGraphBuilder("VecAdd")
+    a = b.streams("str_a", n=pe, width=512)
+    bb = b.streams("str_b", n=pe, width=512)
+    c = b.streams("str_c", n=pe, width=512)
+    b.invoke("LoadA", area={"LUT": 12e3, "BRAM": 30, "hbm_channels": 1},
+             outs=a, count=pe)
+    b.invoke("LoadB", area={"LUT": 12e3, "BRAM": 30, "hbm_channels": 1},
+             outs=bb, count=pe)
+    b.invoke("Add", area={"LUT": 60e3, "DSP": 256}, ins=a + bb, outs=c,
+             count=pe)
+    b.invoke("Store", area={"LUT": 12e3, "hbm_channels": 1}, ins=c, count=pe)
+    return b.build()
+
+
+def chain_graph(core, n=4, width=64, lut=100):
+    """``tests/test_robustness.py``'s chain of ``n`` tasks."""
+    b = core.TaskGraphBuilder("chain")
+    for i in range(n - 1):
+        b.stream(f"s{i}", width=width)
+    for i in range(n):
+        b.invoke(f"K{i}", area={"LUT": lut},
+                 ins=[f"s{i - 1}"] if i > 0 else [],
+                 outs=[f"s{i}"] if i < n - 1 else [])
+    return b.build()
+
+
+def cand_row(c):
+    """(point, fmax, buffer bits, cycles, deadlock) of one candidate."""
+    return [list(dataclasses.astuple(c.point)), c.fmax, c.plan.area_overhead,
+            c.sim.cycles if c.sim is not None else None,
+            c.sim.deadlocked if c.sim is not None else None]
+
+
+def best_row(core, res):
+    try:
+        c = res.best
+    except core.InfeasibleError:
+        return None
+    return [list(dataclasses.astuple(c.point)), c.fmax]
+
+
+def _exact(c):
+    return [st["exact"] for st in c.plan.floorplan.iteration_stats]
+
+
+def default_search(pkg: str, rows, **sim):
+    """The fast subset's default path as ``fmax_suite.py`` runs it: one
+    ``prepare_design_space`` over ``UTIL_SWEEP`` a row, then ONE
+    ``timed_pool_simulations`` over every row's jobs.  Returns each row's
+    record and the call's metadata."""
+    core = pkg_module(pkg, "core")
+    grid_for = pkg_module(pkg, "fpga").grid_for
+    space = core.SearchSpace(seeds=(0,), utils=UTIL_SWEEP)
+    preps = [core.prepare_design_space(g, grid_for(b), space=space)
+             for _, b, g in rows]
+    _, meta = core.timed_pool_simulations(preps, firings=SEARCH_FIRINGS,
+                                          **sim)
+    recs = []
+    for (name, board, g), prep in zip(rows, preps):
+        grid = grid_for(board)
+        base = core.analyze_timing(g, grid, core.packed_placement(g, grid))
+        res = prep.finish(sim_calls=1)
+        recs.append({
+            "name": name, "board": board,
+            "base_mhz": base.fmax_mhz if base.routed else 0.0,
+            "space_size": res.space_size, "feasible": len(prep.feasible),
+            "base_cycles": prep.base_sim.cycles,
+            "frontier": [cand_row(c) for c in res.frontier],
+            "exact": [_exact(c) for c in res.frontier],
+            "best": best_row(core, res)})
+    return recs, meta
+
+
+def converged_search(pkg: str, name, board, graph, *, cache, jobs=1, **sim):
+    """One row through ``search_until_converged`` as ``fmax_suite.py
+    --converge`` runs it: the ``UTIL_SWEEP`` anchors, a continuous
+    ``Interval(0.70, 1.0)``, 3 rounds of 12 points.  Returns the record and
+    the result."""
+    core = pkg_module(pkg, "core")
+    grid = pkg_module(pkg, "fpga").grid_for(board)
+    anchors = [core.SearchPoint(seed=0, max_util=u) for u in UTIL_SWEEP]
+    res = core.search_until_converged(
+        graph, grid,
+        space=core.SearchSpace(utils=core.Interval(UTIL_SWEEP[0],
+                                                   UTIL_SWEEP[-1])),
+        rounds=CONVERGE_ROUNDS, points_per_round=CONVERGE_POINTS,
+        sim_firings=SEARCH_FIRINGS, initial_points=anchors, cache=cache,
+        jobs=jobs, **sim)
+    every = [c for r in res.rounds for c in r.candidates
+             if c.plan is not None]
+    rec = {"name": name, "board": board, "rounds_run": res.rounds_run,
+           "converged": res.converged,
+           "points_evaluated": res.points_evaluated,
+           "hypervolumes": res.hypervolumes,
+           "frontier": [cand_row(c) for c in res.frontier],
+           "exact": [_exact(c) for c in res.frontier],
+           "inexact": sum(not e for c in every for e in _exact(c)),
+           "best": best_row(core, res)}
+    return rec, res
+
+
+#: the reference and the port
+PKGS = ("repro", "repro_torch")
+
+
+def search_design(pkg, name):
+    """(graph, grid): vecadd on the U280, or a design of
+    ``autobridge_suite()`` on its board."""
+    core = pkg_module(pkg, "core")
+    fpga = pkg_module(pkg, "fpga")
+    if name == "vecadd":
+        return vecadd(core), fpga.u280_grid()
+    _, board, g = next(r for r in fpga.benchmarks.autobridge_suite()
+                       if r[0] == name)
+    return g, fpga.grid_for(board)
+
+
+def search_plan_rows(cands):
+    """Each candidate's point, objectives, placement and depths."""
+    return [cand_row(c) + [sorted(c.plan.floorplan.placement.items()),
+                           sorted(c.plan.depth.items())]
+            for c in cands]
+
+
+def search_rows(res):
+    """A ``SearchResult`` as plain data: its frontier, every candidate's
+    point and feasibility, the space size and the simulator calls."""
+    return (search_plan_rows(res.frontier),
+            [(dataclasses.astuple(c.point), c.error is None)
+             for c in res.candidates],
+            res.space_size, res.sim_calls)
+
+
+def corpus_designs(pkg: str):
+    """``CORPUS_BATCH``'s designs."""
+    corpus = pkg_module(pkg, "corpus")
+    return [d for fam, n, seed in CORPUS_BATCH
+            for d in corpus.sample_corpus(fam, n, seed=seed)]
+
+
+#: the ``DifferentialReport`` counters both packages share
+CORPUS_COUNTERS = ("designs", "families", "verdicts_checked",
+                   "sims_checked", "feasible", "infeasible",
+                   "searches_checked", "surrogate_checked", "mismatches")
+
+
+def corpus_counters(rep) -> dict:
+    return {k: getattr(rep, k) for k in CORPUS_COUNTERS}

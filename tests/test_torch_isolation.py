@@ -33,7 +33,7 @@ built = build in sys.modules
 importlib.import_module(build)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
-print(json.dumps({"n": len(names), "bad": bad, "build_imported": built}))
+print(json.dumps({"names": names, "bad": bad, "build_imported": built}))
 """
 
 
@@ -43,7 +43,13 @@ def test_importing_every_module_pulls_in_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     got = json.loads(out.stdout.strip().splitlines()[-1])
-    assert got["n"] >= 15, got
+    assert len(got["names"]) >= 15, got
+    # the search and the corpus, every module of both
+    for pkg in ("search", "corpus"):
+        want = {f"repro_torch.{pkg}.{p.stem}"
+                for p in (PORT / pkg).glob("*.py") if p.stem != "__init__"}
+        assert want and want <= set(got["names"]), got["names"]
+    assert "repro_torch.core.explorer" in got["names"]
     assert got["bad"] == [], got
     # the wrappers build and load kernels only when they launch one
     assert not got["build_imported"], got
@@ -72,6 +78,19 @@ def _imported_roots(path):
 def test_sources_import_no_jax_and_nothing_of_repro(path):
     roots = set(_imported_roots(path))
     assert not roots & FORBIDDEN, f"{path.name} imports {roots & FORBIDDEN}"
+
+
+def test_lazy_imports_name_the_port():
+    """Imports inside functions (the reference's search has them:
+    ``engine.py`` and ``pool.py`` import ``repro.analysis`` lazily) name
+    the port and never ``repro`` or ``jax``."""
+    lazy = {}
+    for path in sorted(PORT.rglob("*.py")):
+        roots = {root for root, at_top in _imports(path) if not at_top}
+        assert not roots & FORBIDDEN, f"{path.name} imports {roots} lazily"
+        lazy[str(path.relative_to(PORT))] = roots
+    for name in ("search/engine.py", "search/pool.py"):
+        assert "repro_torch" in lazy[name], lazy[name]
 
 
 @pytest.mark.parametrize("path", sorted(PORT.rglob("*.py"))
