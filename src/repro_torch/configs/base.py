@@ -1,6 +1,10 @@
 """Architecture configuration system (the port's own copy of
 ``repro/configs/base.py``; the port imports nothing of ``repro``).
 
+Two fields are the port's own: ``embed_scale`` and ``global_rope_theta``
+say what the JAX package decides from the config's name (a name starting
+with "gemma" / "gemma3"), so that a renamed config keeps its arithmetic.
+
 One ``ArchConfig`` describes everything the model builder needs.  Every
 supported architecture provides a module with ``CONFIG`` (full-size, exact
 public numbers) and ``reduced()`` (a tiny same-family config for CPU tests).
@@ -42,6 +46,9 @@ class ArchConfig:
     final_logit_softcap: float | None = None
     #: query scaling ("head_dim" default, gemma2 uses d_model/n_heads)
     query_scale: float | None = None
+    #: rope theta of the global layers (G, X, H); None = ``rope_theta``
+    #: (gemma3 runs them at 50 x its local theta)
+    global_rope_theta: float | None = None
 
     # ---- MLP ----------------------------------------------------------------
     mlp_act: str = "silu"                # silu | gelu
@@ -69,6 +76,9 @@ class ArchConfig:
     # ---- norms / misc ---------------------------------------------------------
     norm: str = "rmsnorm"
     post_norms: bool = False             # gemma2-style post-attn/post-mlp norm
+    #: gemma: token embeddings times sqrt(d_model), rounded to the
+    #: activations' dtype first
+    embed_scale: bool = False
     tie_embeddings: bool = True
     max_seq: int = 524_288
 

@@ -2,8 +2,10 @@
 
   PYTHONPATH=src python -m repro_torch.launch.profile_serve [--arch ARCH]
 
-Runs one architecture (default granite-8b) at full width and depth, at
-``chip_smoke.py``'s serve shapes (B=4 prompts of 512 tokens), under
+Runs one architecture (default granite-8b; any of the ten but arctic-480b,
+whose ~960 GB do not fit one card) at full width and depth, at
+``chip_smoke.py``'s serve shapes (B=4 prompts of 512 tokens; a vlm or
+audio model with ``serve.frontend_inputs``), under
 ``torch.profiler``: one greedy prefill and four decode steps, after an
 untraced warm-up of the same shapes. For the prefill and for the decode
 steps it prints:
@@ -67,10 +69,13 @@ def main(argv=None):
     cfg = configs.get(args.arch)
     params = lm.init_params(cfg, seed=0, device=device)
     prompts = serve.make_prompts(cfg, B, PROMPT, device)
+    extra = serve.frontend_inputs(cfg, B, device)
     max_seq = PROMPT + 2 * STEPS
-    serve.generate(params, cfg, prompts, STEPS, max_seq=max_seq)
+    serve.generate(params, cfg, prompts, STEPS, max_seq=max_seq, extra=extra)
 
-    cache = lm.init_cache(params, cfg, B, max_seq, device=device)
+    # whisper's encoder runs here, outside the traced windows
+    cache = lm.init_cache(params, cfg, B, max_seq, device=device,
+                          extra=extra)
     state = {}
 
     def prefill():

@@ -7,7 +7,11 @@ scan, expert FFN and embedding lookup runs through the hand-written CUDA
 kernels; with ``--device cpu`` the plain PyTorch versions run instead.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-8b
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-tiny
   PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu
+
+Every name of ``repro_torch.configs.ARCHS`` serves; a vlm or audio model
+gets the JAX package's stub frontend inputs (``frontend_inputs``).
 """
 from __future__ import annotations
 
@@ -44,13 +48,26 @@ def make_prompts(cfg: ArchConfig, batch: int, prompt_len: int, device,
                          dtype=torch.int32).to(device)
 
 
+def frontend_inputs(cfg: ArchConfig, batch: int, device):
+    """The stub frontend's inputs, as the JAX package's serve builds them:
+    ``{"vision": ...}`` for a vlm, ``{"frames": ...}`` for an audio model,
+    each (batch, frontend_tokens, frontend_dim) bf16 of 0.01; else None."""
+    key = {"vlm": "vision", "audio": "frames"}.get(cfg.family)
+    if key is None:
+        return None
+    return {key: torch.ones((batch, cfg.frontend_tokens, cfg.frontend_dim),
+                            dtype=torch.bfloat16, device=device) * .01}
+
+
 def generate(params, cfg: ArchConfig, prompts: torch.Tensor, gen: int, *,
-             max_seq: int | None = None) -> Generation:
-    """Greedy prefill of ``prompts`` (B, P), then ``gen`` decode steps."""
+             max_seq: int | None = None, extra=None) -> Generation:
+    """Greedy prefill of ``prompts`` (B, P), then ``gen`` decode steps.
+    ``extra`` (the stub frontend's inputs) goes to ``lm.init_cache``,
+    which builds the memory before the prefill's clock starts."""
     B, P = prompts.shape
     device = prompts.device
     cache = lm.init_cache(params, cfg, B, max_seq=max_seq or P + gen,
-                          device=device)
+                          device=device, extra=extra)
     _sync(device)
     t0 = time.perf_counter()
     logits, cache = lm.step(params, cfg, cache, prompts)
@@ -89,7 +106,8 @@ def main(argv=None):
 
     B = args.batch
     prompts = make_prompts(cfg, B, args.prompt_len, device)
-    res = generate(params, cfg, prompts, args.gen)
+    res = generate(params, cfg, prompts, args.gen,
+                   extra=frontend_inputs(cfg, B, device))
     print(f"prefill {args.prompt_len} tokens x {B}: {res.prefill_s:.2f}s")
     dt = res.decode_s
     print(f"decoded {args.gen} x {B} tokens in {dt:.2f}s "

@@ -30,9 +30,13 @@ def from_jax_params(tree: dict, cfg: ArchConfig, device="cuda") -> LM:
 
     The stacked ``groups`` leaves (leading ``n_groups`` axis, one list entry
     per position in ``cfg.layer_pattern``) are split into per-layer
-    tensors: layer ``n * len(pattern) + i`` takes ``groups[i][...][n]``.
-    Other lists (zamba2's ``shared`` blocks) are indexed by position:
-    ``shared[1]["attn"]["wq"]`` becomes ``shared.1.attn.wq``.  Weights keep their ``(d_in, d_out)`` layouts and their dtypes: bf16
+    tensors: layer ``n * len(pattern) + i`` takes ``groups[i][...][n]``;
+    so an X position's stacked ``xattn_gate`` (n_groups,) becomes one 0-d
+    f32 parameter a layer.  Other lists (zamba2's ``shared`` blocks,
+    whisper's ``encoder``) are indexed by position:
+    ``shared[1]["attn"]["wq"]`` becomes ``shared.1.attn.wq``; top-level
+    leaves (``lm_head``, ``frontend_proj``, ``ln_enc``) keep their names.
+    Weights keep their ``(d_in, d_out)`` layouts and their dtypes: bf16
     weights stay bf16 and f32 norm weights f32.  Leaves may be numpy arrays
     of any float dtype (bf16 leaves can come as float32: the widening and
     the cast back are exact).  ``device`` defaults to the card; with no

@@ -1,29 +1,33 @@
 """Model assembly for serving: config -> params, caches, prefill/decode
 ``step``.
 
-Counterpart of ``repro/model/lm.py`` for the layer kinds the port serves
-today:
+Counterpart of ``repro/model/lm.py``, for every layer kind:
 
   G  global attention block        L  sliding-window attention block
+  X  attention block + gated cross-attention over a memory
   M  mamba2 block                  H  mamba2 + shared attention (zamba2)
   R  rwkv6 block (time-mix + channel-mix)
 
-A G or L layer's FFN is the MLP or, with ``cfg.n_experts``, the MoE (plus
-the MLP as arctic's dense residual).  The JAX package scans over stacked
-group params; here the layers are an ``nn.ModuleList`` walked by a Python
-loop, run eagerly.  The X kind, encoders and the features of the other
-families raise ``NotImplementedError`` naming the ROADMAP item that
-brings them.
+A G, L or X layer's FFN is the MLP or, with ``cfg.n_experts``, the MoE
+(plus the MLP as arctic's dense residual), each sublayer optionally
+post-normed (gemma).  The memory an X layer attends to is the stub
+frontend's embeddings projected to d (llama-vision) or the output of the
+encoder over them (whisper), built once by ``init_cache``.  The JAX
+package scans over stacked group params; here the layers are an
+``nn.ModuleList`` walked by a Python loop, run eagerly.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 from torch import nn
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops
-from .layers import (MLP, PDTYPE, Attention, AttnSpec, RMSNorm, _weight,
-                     attn_cache_init, rope_dim, rope_tables)
+from .layers import (MLP, PDTYPE, Attention, AttnSpec, RMSNorm, _f32,
+                     _rounded, _weight, attn_cache_init, rope_dim,
+                     rope_tables)
 from .mamba2 import Mamba2, mamba2_cache_init
 from .moe import MoE
 from .rwkv6 import RWKV6, rwkv6_cache_init
@@ -40,21 +44,8 @@ def resolve_device(device) -> torch.device:
 
 
 def check_supported(cfg: ArchConfig) -> None:
-    """Raise ``NotImplementedError`` for what the port does not serve yet."""
-    pattern = set(cfg.layer_pattern)
-    checks = [
-        ("X" in pattern or cfg.n_enc_layers or cfg.cross_attn_period
-         or cfg.frontend_tokens, "cross-attention, encoders, frontends", 6),
-        (cfg.post_norms or cfg.final_logit_softcap
-         or cfg.name.startswith("gemma") or not cfg.tie_embeddings,
-         "post-norms, final softcap, gemma embedding scale, untied head", 6),
-    ]
-    for present, what, item in checks:
-        if present:
-            raise NotImplementedError(
-                f"{cfg.name}: {what} not ported yet; see ROADMAP.md, port "
-                f"queue item {item}")
-    bad = pattern - set("GLMHR")
+    """Raise ``ValueError`` for a layer kind the model does not know."""
+    bad = set(cfg.layer_pattern) - set("GLXMHR")
     if bad:
         raise ValueError(f"unknown layer kinds {sorted(bad)}")
 
@@ -64,14 +55,17 @@ def check_supported(cfg: ArchConfig) -> None:
 # ---------------------------------------------------------------------------
 
 def build_specs(cfg: ArchConfig) -> list[AttnSpec]:
-    """One spec per position of ``cfg.layer_pattern``: L is windowed, G and
-    H global at ``cfg.rope_theta``, and the attention-free M and R take the
-    default spec.  ``check_supported`` raises for kinds not ported."""
+    """One spec per position of ``cfg.layer_pattern``: L is windowed, G, X
+    and H global at ``cfg.global_rope_theta`` (gemma3's 50 x theta, which
+    the JAX package sets by the name), and the attention-free M and R take
+    the default spec."""
     check_supported(cfg)
-    return [AttnSpec(window=cfg.sliding_window if ch == "L" else None,
+    theta = cfg.global_rope_theta or cfg.rope_theta
+    return [AttnSpec(window=cfg.sliding_window,
                      softcap=cfg.attn_logit_softcap,
-                     rope_theta=cfg.rope_theta) if ch in "GLH"
-            else AttnSpec()
+                     rope_theta=cfg.rope_theta) if ch == "L"
+            else AttnSpec(softcap=cfg.attn_logit_softcap, rope_theta=theta)
+            if ch in "GXH" else AttnSpec()
             for ch in cfg.layer_pattern]
 
 
@@ -88,9 +82,10 @@ def shared_indices(cfg: ArchConfig) -> list[int]:
 # ---------------------------------------------------------------------------
 
 class Block(nn.Module):
-    """A G or L layer: pre-norm attention and a pre-norm FFN, residual.
-    The FFN is the MLP, or with ``cfg.n_experts`` the MoE, plus the MLP
-    under ``cfg.dense_residual`` (arctic)."""
+    """A G or L layer: pre-norm attention and a pre-norm FFN, residual,
+    each sublayer's output normed again under ``cfg.post_norms``.  The FFN
+    is the MLP, or with ``cfg.n_experts`` the MoE, plus the MLP under
+    ``cfg.dense_residual`` (arctic).  Also whisper's encoder layers."""
 
     def __init__(self, cfg: ArchConfig, device):
         super().__init__()
@@ -101,6 +96,9 @@ class Block(nn.Module):
             self.moe = MoE(cfg, device)
         if not cfg.n_experts or cfg.dense_residual:
             self.mlp = MLP(cfg, device)
+        if cfg.post_norms:
+            self.ln_attn_post = RMSNorm(cfg.d_model, device)
+            self.ln_mlp_post = RMSNorm(cfg.d_model, device)
 
     def ffn(self, h, cfg: ArchConfig):
         """The JAX package's ``_ffn``.  Serving drops the MoE's aux loss,
@@ -112,11 +110,47 @@ class Block(nn.Module):
             y = y + self.mlp(h, cfg)
         return y
 
+    def self_attention(self, x, cfg: ArchConfig, spec: AttnSpec, rope,
+                       cache, pos: int):
+        a = self.attn(self.ln_attn(x), cfg, spec, rope, cache=cache,
+                      pos=pos)
+        if cfg.post_norms:
+            a = self.ln_attn_post(a)
+        return x + a
+
+    def feed_forward(self, x, cfg: ArchConfig):
+        f = self.ffn(self.ln_mlp(x), cfg)
+        if cfg.post_norms:
+            f = self.ln_mlp_post(f)
+        return x + f
+
     def forward(self, x, cfg: ArchConfig, spec: AttnSpec, rope, *,
                 cache=None, pos: int = 0):
-        x = x + self.attn(self.ln_attn(x), cfg, spec, rope, cache=cache,
-                          pos=pos)
-        return x + self.ffn(self.ln_mlp(x), cfg)
+        return self.feed_forward(
+            self.self_attention(x, cfg, spec, rope, cache, pos), cfg)
+
+
+class CrossBlock(Block):
+    """An X layer: the G block with a gated cross-attention over the
+    memory between its attention and its FFN.  The gate is an f32 scalar,
+    zero at init as in the JAX package, so a fresh model's X layers add
+    nothing until it is set.  With no memory the cross-attention is
+    skipped."""
+
+    def __init__(self, cfg: ArchConfig, device):
+        super().__init__(cfg, device)
+        self.ln_xattn = RMSNorm(cfg.d_model, device)
+        self.xattn = Attention(cfg, device)
+        self.xattn_gate = _f32((), device)
+
+    def forward(self, x, cfg: ArchConfig, spec: AttnSpec, rope, *,
+                cache=None, pos: int = 0, memory=None):
+        x = self.self_attention(x, cfg, spec, rope, cache, pos)
+        if memory is not None:
+            xa = self.xattn(self.ln_xattn(x), cfg, spec, None,
+                            kv_from=memory)
+            x = x + torch.tanh(self.xattn_gate).to(x.dtype) * xa
+        return self.feed_forward(x, cfg)
 
 
 class MambaBlock(nn.Module):
@@ -189,16 +223,18 @@ class RWKVBlock(nn.Module):
         return x + y
 
 
-_BLOCKS = {"G": Block, "L": Block, "M": MambaBlock, "H": HybridBlock,
-           "R": RWKVBlock}
+_BLOCKS = {"G": Block, "L": Block, "X": CrossBlock, "M": MambaBlock,
+           "H": HybridBlock, "R": RWKVBlock}
 
 
 class LM(nn.Module):
     """Parameters of a served model, with the JAX package's names:
     ``embed`` (vocab_padded, d), ``ln_f``, ``layers`` (one block per layer,
-    of its kind in ``cfg.layer_pattern``) and, for zamba2, ``shared`` (the
-    two shared attention + MLP blocks).  Allocated uninitialised; see
-    ``init_params``."""
+    of its kind in ``cfg.layer_pattern``); ``lm_head`` (d, vocab_padded)
+    for an untied head; for zamba2, ``shared`` (the two shared attention +
+    MLP blocks); for a model with a frontend, ``frontend_proj``
+    (frontend_dim, d); for whisper, ``encoder`` (G blocks) and ``ln_enc``.
+    Allocated uninitialised; see ``init_params``."""
 
     def __init__(self, cfg: ArchConfig, device):
         super().__init__()
@@ -211,17 +247,28 @@ class LM(nn.Module):
         self.layers = nn.ModuleList(
             _BLOCKS[pattern[i % len(pattern)]](cfg, device)
             for i in range(cfg.n_layers))
+        if not cfg.tie_embeddings:
+            self.lm_head = _weight((cfg.d_model, cfg.vocab_padded), device)
         if "H" in pattern:
             self.shared = nn.ModuleList(SharedBlock(cfg, device)
                                         for _ in range(2))
+        if cfg.cross_attn_period or cfg.family in ("vlm", "audio"):
+            self.frontend_proj = _weight((cfg.frontend_dim, cfg.d_model),
+                                         device)
+        if cfg.n_enc_layers:
+            self.encoder = nn.ModuleList(Block(cfg, device)
+                                         for _ in range(cfg.n_enc_layers))
+            self.ln_enc = RMSNorm(cfg.d_model, device)
 
 
 #: std of the normal draw where it is not 1/sqrt(fan_in), as in the JAX
 #: package's init
 _STD = {"embed": 0.02, "conv_w": 0.2, "w_B": 0.01, "u": 0.3, "router": 0.02}
 #: constant parameters: norm weights and mamba2's skip D are ones, the
-#: mamba2 dt bias zeros, the rwkv6 decay base -6
-_CONST = {"w": 1.0, "D": 1.0, "dt_bias": 0.0, "w_base": -6.0}
+#: mamba2 dt bias and the X layers' cross-attention gate zeros, the rwkv6
+#: decay base -6
+_CONST = {"w": 1.0, "D": 1.0, "dt_bias": 0.0, "w_base": -6.0,
+          "xattn_gate": 0.0}
 
 
 @torch.no_grad()
@@ -229,8 +276,8 @@ def init_params(cfg: ArchConfig, seed: int = 0, device="cuda") -> LM:
     """Random weights drawn on ``device`` from a seeded ``torch.Generator``.
 
     Each weight is drawn in f32 and cast to its dtype, one tensor at a
-    time, so the transient f32 buffer is one tensor (under 1 GB at
-    granite-8b's width).  The distributions are the JAX package's: normal
+    time, so the transient f32 buffer is one tensor (the largest,
+    gemma2-27b's embedding, is 4.7 GB).  The distributions are the JAX package's: normal
     at std 1/sqrt(fan_in) unless ``_STD`` says otherwise (fan_in is
     ``shape[0]``, as the JAX package's ``_dense_init`` takes it: for the
     expert stacks (E, d, f) and (E, f, d) that is E), uniform on [0, 1)
@@ -265,16 +312,59 @@ def init_params(cfg: ArchConfig, seed: int = 0, device="cuda") -> LM:
 # ---------------------------------------------------------------------------
 
 def _embed(params: LM, cfg: ArchConfig, tokens):
-    """tokens (B, S), ids below ``cfg.vocab`` -> (B, S, d)."""
+    """tokens (B, S), ids below ``cfg.vocab`` -> (B, S, d).  gemma scales
+    (``cfg.embed_scale``) by sqrt(d) rounded to the activations' dtype
+    first, as the JAX package does: 68.0 for gemma2's 4608 in bf16, 62.0
+    for gemma3's 3840."""
     B, S = tokens.shape
     x = ops.burst_gather(params.embed, tokens.reshape(-1))
-    return x.view(B, S, cfg.d_model)
+    x = x.view(B, S, cfg.d_model)
+    if cfg.embed_scale:
+        x = x * _rounded(math.sqrt(cfg.d_model), x.dtype)
+    return x
+
+
+def _frontend(params: LM, embeddings):
+    """Stub frontend embeddings (B, T, frontend_dim) projected to d and
+    rounded to bf16, as the JAX package casts them.  They are taken in the
+    weights' dtype, and with f32 weights the result goes back to f32 (the
+    JAX package's promotion at the next product)."""
+    w = params.frontend_proj
+    return (embeddings.to(w.dtype) @ w).to(PDTYPE).to(w.dtype)
+
+
+def _encode(params: LM, cfg: ArchConfig, frames):
+    """Whisper's encoder over (stub) frame embeddings: non-causal G
+    blocks with rope, then ``ln_enc``."""
+    x = _frontend(params, frames)
+    spec = AttnSpec(causal=False, rope_theta=cfg.rope_theta)
+    rope = rope_tables(torch.arange(x.shape[1], device=x.device),
+                       rope_dim(cfg), spec.rope_theta)
+    for block in params.encoder:
+        x = block(x, cfg, spec, rope)
+    return params.ln_enc(x)
+
+
+def _memory(params: LM, cfg: ArchConfig, extra):
+    """The memory the X layers attend to, or None: the encoder's output
+    for ``extra["frames"]`` (whisper), the projected
+    ``extra["vision"]`` (llama-vision)."""
+    if cfg.n_enc_layers and extra is not None and "frames" in extra:
+        return _encode(params, cfg, extra["frames"])
+    if extra is not None and "vision" in extra:
+        return _frontend(params, extra["vision"])
+    return None
 
 
 def lm_head(params: LM, cfg: ArchConfig, x):
-    """Final norm + tied LM head.  Returns logits over the PADDED vocab
-    with pad rows masked to -1e30."""
-    logits = params.ln_f(x) @ params.embed.T
+    """Final norm, the tied or untied LM head, and the final softcap
+    (``tanh(logits / c) * c`` op by op in the logits' dtype).  Returns
+    logits over the PADDED vocab with pad rows masked to -1e30."""
+    x = params.ln_f(x)
+    logits = x @ (params.embed.T if cfg.tie_embeddings else params.lm_head)
+    if cfg.final_logit_softcap:
+        c = _rounded(cfg.final_logit_softcap, logits.dtype)
+        logits = torch.tanh(logits / c) * c
     if cfg.vocab_padded != cfg.vocab:
         logits[..., cfg.vocab:] = -1e30
     return logits
@@ -284,20 +374,26 @@ def lm_head(params: LM, cfg: ArchConfig, x):
 # KV-cache serving
 # ---------------------------------------------------------------------------
 
-def init_cache(params: LM, cfg: ArchConfig, batch, max_seq, device="cuda"):
-    """{"layers": [one cache dict per layer], "pos": 0}.  By kind: G and L
-    dict(k, v); M the mamba2 dict(conv, ssd); H dict(mamba, attn); R
+@torch.no_grad()
+def init_cache(params: LM, cfg: ArchConfig, batch, max_seq, device="cuda",
+               extra=None):
+    """{"layers": [one cache dict per layer], "pos": 0}.  By kind: G, L
+    and X dict(k, v); M the mamba2 dict(conv, ssd); H dict(mamba, attn); R
     dict(tm_shift, cm_shift, wkv).  The position counter is kept once, at
     top level, as a Python int.  k/v, conv and token shifts take the dtype
     of the weights (bf16 when served), since each kernel takes one dtype
-    for its activations; the ssd and wkv states are f32."""
+    for its activations; the ssd and wkv states are f32.
+
+    extra: the stub frontend's inputs, ``{"vision": (B, T, frontend_dim)}``
+    or ``{"frames": ...}``.  When given, ``cache["memory"]`` holds what the
+    X layers attend to (``_memory``): whisper's encoder runs here, once."""
     device = resolve_device(device)
     specs = build_specs(cfg)
     dtype = params.embed.dtype
     pattern = cfg.layer_pattern
 
     def one(kind, spec):
-        if kind in "GL":
+        if kind in "GLX":
             return attn_cache_init(cfg, spec, batch, max_seq, device, dtype)
         if kind == "M":
             return mamba2_cache_init(cfg, batch, device, dtype)
@@ -308,10 +404,13 @@ def init_cache(params: LM, cfg: ArchConfig, batch, max_seq, device="cuda"):
                                             device, dtype)}
         return rwkv6_cache_init(cfg, batch, device, dtype)
 
-    return {"layers": [one(pattern[i % len(pattern)],
-                           specs[i % len(pattern)])
-                       for i in range(cfg.n_layers)],
-            "pos": 0}
+    cache = {"layers": [one(pattern[i % len(pattern)],
+                            specs[i % len(pattern)])
+                        for i in range(cfg.n_layers)],
+             "pos": 0}
+    if extra:
+        cache["memory"] = _memory(params, cfg, extra)
+    return cache
 
 
 @torch.no_grad()
@@ -327,6 +426,7 @@ def step(params: LM, cfg: ArchConfig, cache, tokens):
     shared_idx = shared_indices(cfg)
     S = tokens.shape[1]
     pos = cache["pos"]
+    memory = cache.get("memory")
     x0 = x = _embed(params, cfg, tokens)
     positions = torch.arange(pos, pos + S, device=x.device)
     ropes = {}
@@ -345,6 +445,9 @@ def step(params: LM, cfg: ArchConfig, cache, tokens):
         kind, spec, c = pattern[j], specs[j], cache["layers"][i]
         if kind in "GL":
             x = layer(x, cfg, spec, rope(spec), cache=c, pos=pos)
+        elif kind == "X":
+            x = layer(x, cfg, spec, rope(spec), cache=c, pos=pos,
+                      memory=memory)
         elif kind == "H":
             x = layer(x, cfg, spec, rope(spec),
                       shared=params.shared[shared_idx[j]], x0=x0, cache=c,
