@@ -146,6 +146,25 @@ Phases, each printing its own lines:
    a JSON line with each kernel's launches, error, times and bound (the
    sweep's launches from its main path and the ``coopt``, ``search`` and
    ``corpus`` paths, each also by path), then the result line.
+10. train: ``flash_attention_bwd`` (reached through autograd) against
+   autograd through the plain version at the training shape and the
+   families' modes (softcap 50 with scale 1/12 and a window, D = 256,
+   g = 16, cross-attention with Sq != Skv, whisper's encoder, a ragged
+   head size, f32), and ``burst_gather_bwd`` with heavily repeated ids
+   (one id taken by every row too) bit for bit equal to a sequential f32
+   sum, both run twice for the same bits; the four wrappers with no
+   backward kernel (decode attention, the two scans, the grouped matmul)
+   must raise on a CUDA input that requires grad; one f32 step of
+   granite-8b-reduced on the card against the CPU (loss and every
+   gradient); the restart on the card (checkpoint at step 2, a failure at
+   step 3, resumed into fresh tensors: the same losses, norms and final
+   checkpoint bit for bit); then the main path,
+   ``repro_torch.launch.train.train`` on granite-8b at full width and 8
+   of its 36 layers for 5 steps of B 4 x S 1024 (exact launches of the
+   four kernels on its path, finite losses; each step's loss, grad norm
+   and seconds, tokens/s, peak memory); the two backward kernels' times
+   beside SDPA's backward and ``index_add_``, and their rows in the
+   kernels line (the forward rows' launches by path).
 
 Exits non-zero, printing no result line, if any phase fails or there is no
 CUDA device.  Imports nothing of JAX.
@@ -159,6 +178,7 @@ import math
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -169,6 +189,7 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch import configs  # noqa: E402
+from repro_torch.ckpt import restore_checkpoint  # noqa: E402
 from repro_torch.core import (FloorplanCache, InfeasibleError,  # noqa: E402
                               Interval, SearchPoint, SearchSpace, SimJob,
                               Stream, Task, TaskGraph, TaskGraphBuilder,
@@ -179,11 +200,13 @@ from repro_torch.core import (FloorplanCache, InfeasibleError,  # noqa: E402
                               timed_pool_simulations)
 from repro_torch.core.ilp import solve_counts  # noqa: E402
 from repro_torch.corpus import run_differential, sample_corpus  # noqa: E402
+from repro_torch.data import SyntheticTokens  # noqa: E402
 from repro_torch.core.simulate import (  # noqa: E402
     _simulate_batch_numpy, engine_counts, reset_engine_counts,
     simulate_batch)
 from repro_torch.fpga import benchmarks, grid_for  # noqa: E402
 from repro_torch.obs import trace  # noqa: E402
+from repro_torch.optim import adamw_init  # noqa: E402
 from repro_torch.search import pool_counts, reset_pool_counts  # noqa: E402
 from repro_torch.kernels import _build, ref  # noqa: E402
 from repro_torch.kernels import burst_gather as bg  # noqa: E402
@@ -193,7 +216,7 @@ from repro_torch.kernels import moe_gmm as gmm  # noqa: E402
 from repro_torch.kernels import rwkv6_scan as r6  # noqa: E402
 from repro_torch.kernels import sim_sweep as ss  # noqa: E402
 from repro_torch.kernels.padded_batch import build_padded_batch  # noqa: E402
-from repro_torch.launch import serve  # noqa: E402
+from repro_torch.launch import serve, train  # noqa: E402
 from repro_torch.model import lm, moe  # noqa: E402
 
 #: H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, f32
@@ -221,8 +244,10 @@ F32_DEPTH = {"gemma2-27b": 4}
 XATTN_GATE = 0.5
 #: kernel name -> wrapper, each counting its launches
 COUNTERS = {"flash_attention": fa.flash_attention,
+            "flash_attention_bwd": fa.flash_attention_bwd,
             "decode_attention": fa.decode_attention,
             "burst_gather": bg.burst_gather,
+            "burst_gather_bwd": bg.burst_gather_bwd,
             "mamba2_scan": m2.mamba2_scan,
             "rwkv6_scan": r6.rwkv6_scan,
             "moe_gmm": gmm.moe_gmm,
@@ -1047,6 +1072,8 @@ def _row(name, replaces, err, ms, plain, lib, bound_ms, bound_by):
 
 SOURCE = {"moe_plan": "moe_gmm.cu",
           "flash_attention": "flash_attention.cu",
+          "flash_attention_bwd": "flash_attention.cu",
+          "burst_gather_bwd": "burst_gather.cu",
           "decode_attention": "flash_attention.cu",
           "burst_gather": "burst_gather.cu",
           "mamba2_scan": "mamba2_scan.cu", "rwkv6_scan": "rwkv6_scan.cu",
@@ -2278,7 +2305,9 @@ def serve_phase(arch, gen):
             "rwkv6_scan": kinds.count("R") * (1 + GEN),
             "moe_gmm": (3 if cfg.gated_mlp else 2) * n_moe * (1 + GEN),
             # one plan per MoE layer and step, shared by its products
-            "moe_plan": n_moe * (1 + GEN)}
+            "moe_plan": n_moe * (1 + GEN),
+            # serving takes no gradient
+            "flash_attention_bwd": 0, "burst_gather_bwd": 0}
     memory = ""
     if extra:
         memory = (f"; memory {tuple(next(iter(extra.values())).shape)} -> "
@@ -2302,6 +2331,427 @@ def serve_phase(arch, gen):
     check_no_sync(params, cfg, prompts, extra)
     check_cache("bf16", params, cfg, prompts, res, extra)
     return params, prompts, launches, extra
+
+
+# ----------------------------------------------------------------- training
+
+#: the train phase's model: granite-8b at full width, 8 of its 36 layers.
+#: All 36 need 8.05 B params x 12 B (bf16 weights and grads, f32 AdamW
+#: moments), ~97 GB before any activation, over the card's 80 GB; 8 layers
+#: hold ~1.95 B params, ~23 GB
+TRAIN_ARCH, TRAIN_DEPTH = "granite-8b", 8
+TRAIN_B, TRAIN_S, TRAIN_STEPS = 4, 1024, 5
+#: the backward kernels' f32 cases against autograd through the plain
+#: version: the same f32 arithmetic summed in another order, over up to 1024
+#: keys and, for dK and dV, the group's query heads as well
+F32_BWD_TOL = dict(rtol=1e-4, atol=1e-4)
+#: (case, (B, Sq, Skv, Hq, Hkv, D), kwargs, dtype) of flash_attention_bwd:
+#: the training shape, the families' modes (gemma2's softcap 50 with scale
+#: 1/12, with and without a window that bites; gemma3's D = 256;
+#: chatglm3's g = 16; cross-attention with Sq != Skv; whisper's encoder),
+#: a ragged head size, and f32
+BWD_CASES = (
+    ("train", (TRAIN_B, TRAIN_S, TRAIN_S, 32, 8, 128), dict(causal=True),
+     torch.bfloat16),
+    ("gemma2-softcap", (2, 256, 256, 32, 16, 128), dict(causal=True, **G2),
+     torch.bfloat16),
+    ("gemma2-softcap-window-100", (2, 300, 300, 32, 16, 128),
+     dict(causal=True, window=100, **G2), torch.bfloat16),
+    ("gemma3-d256", (2, 256, 256, 16, 8, 256), dict(causal=True),
+     torch.bfloat16),
+    ("chatglm3-g16", (2, 256, 256, 32, 2, 128), dict(causal=True),
+     torch.bfloat16),
+    ("cross-200x333", (2, 200, 333, 32, 8, 128), dict(causal=False),
+     torch.bfloat16),
+    ("whisper-encoder", (2, AUDIO_ROWS, AUDIO_ROWS, 6, 6, 64),
+     dict(causal=False), torch.bfloat16),
+    ("ragged-d24", (1, 77, 77, 4, 2, 24), dict(causal=True),
+     torch.bfloat16),
+    ("f32", (2, 130, 130, 8, 2, 64), dict(causal=True), torch.float32),
+    ("f32-softcap-window-40", (2, 130, 130, 8, 2, 128),
+     dict(causal=True, window=40, softcap=50.0), torch.float32),
+    ("f32-cross-d256", (1, 70, 90, 4, 4, 256), dict(causal=False),
+     torch.float32),
+)
+
+
+def _attn_grads(fn, q, k, v, do, **kw):
+    """(dq, dk, dv) of ``fn(q, k, v, **kw)`` for the output gradient do."""
+    q, k, v = (t.detach().requires_grad_(True) for t in (q, k, v))
+    with torch.enable_grad():
+        return torch.autograd.grad(fn(q, k, v, **kw), (q, k, v), do)
+
+
+def check_attention_bwd(gen):
+    """``flash_attention_bwd``, reached through autograd from
+    ``flash_attention``, against autograd through ``ref.attention_ref`` on
+    the same inputs (bf16 at 2e-2, f32 at ``F32_BWD_TOL``), and run twice
+    for the same bits.  Returns the worst error at the training shape."""
+    errs = {}
+    for name, (b, sq, skv, hq, hkv, d), kw, dtype in BWD_CASES:
+        q, do = (_rand((b, sq, hq, d), gen, dtype) for _ in range(2))
+        k, v = (_rand((b, skv, hkv, d), gen, dtype) for _ in range(2))
+        got = _attn_grads(fa.flash_attention, q, k, v, do, **kw)
+        want = _attn_grads(ref.attention_ref, q, k, v, do, **kw)
+        tol = F32_BWD_TOL if dtype == torch.float32 else BF16_TOL
+        errs[name] = max(_assert_close(f"flash_attention_bwd[{name}] {g}",
+                                       a, w, tol)
+                         for g, a, w in zip(("dq", "dk", "dv"), got, want))
+        again = _attn_grads(fa.flash_attention, q, k, v, do, **kw)
+        if not all(torch.equal(a, w) for a, w in zip(got, again)):
+            raise AssertionError(f"flash_attention_bwd[{name}]: two runs "
+                                 f"differ")
+        _phase(f"check flash_attention_bwd[{name}]: two runs, same bits ok")
+    return errs["train"]
+
+
+def embedding_ids(batch=TRAIN_B, seq=TRAIN_S):
+    """The train phase's first batch, flattened: the ids its embedding
+    gathers (Zipfian, so heavily repeated), as int32 on the card."""
+    toks = SyntheticTokens(configs.get(TRAIN_ARCH).vocab, seed=0).batch(
+        0, 0, batch, seq)
+    return torch.from_numpy(toks).reshape(-1).cuda().to(torch.int32)
+
+
+def check_gather_bwd(gen):
+    """``burst_gather_bwd``: bit for bit equal to a sequential f32
+    ``index_add_`` on the CPU rounded once to the dtype, within 2e-2 (bf16)
+    of autograd through ``ref.burst_gather_ref`` on f32-widened rows on the
+    card, and the same bits on two runs.  Cases: the training batch's ids
+    into granite-8b's (49152, 4096) embedding, one id taken by every row,
+    an odd bf16 width (element-by-element loads), f32, and rows no id
+    takes.  Returns the error of the embedding case."""
+    R = configs.get(TRAIN_ARCH).vocab_padded
+    emb = embedding_ids()
+    cases = [
+        ("embedding", R, 4096, emb, torch.bfloat16),
+        ("one-id-every-row", R, 4096, torch.full_like(emb, 7),
+         torch.bfloat16),
+        ("odd-width-1535", 3000, 1535, torch.randint(
+            0, 3000, (2051,), generator=gen, device="cuda"), torch.bfloat16),
+        ("f32", 5000, 256, emb % 5000, torch.float32),
+        ("few-rows-taken", 1000, 64, torch.randint(
+            0, 10, (333,), generator=gen, device="cuda"), torch.bfloat16),
+    ]
+    errs = {}
+    for name, rows, width, idx, dtype in cases:
+        idx = idx.to(torch.int32)
+        dout = _rand((idx.numel(), width), gen, dtype)
+        got = bg.burst_gather_bwd(dout, idx, rows)
+        again = bg.burst_gather_bwd(dout, idx, rows)
+        seq_sum = torch.zeros((rows, width), dtype=torch.float32).index_add_(
+            0, idx.cpu().long(), dout.cpu().float()).to(dtype)
+        exact = torch.equal(got.cpu(), seq_sum)
+        table = torch.zeros((rows, width), dtype=torch.float32,
+                            device="cuda", requires_grad=True)
+        with torch.enable_grad():
+            (plain,) = torch.autograd.grad(
+                ref.burst_gather_ref(table, idx), table, dout.float())
+        errs[name] = _assert_close(
+            f"burst_gather_bwd[{name}] vs plain (f32 rows)", got, plain,
+            F32_TOL if dtype == torch.float32 else BF16_TOL)
+        same = torch.equal(got, again)
+        _phase(f"check burst_gather_bwd[{name}]: N={idx.numel()} into "
+               f"({rows}, {width}) {str(dtype).split('.')[-1]}, "
+               f"{int(idx.unique().numel())} rows taken, equal to the "
+               f"sequential f32 sum: {exact}, two runs same bits: {same} "
+               f"{'ok' if exact and same else 'FAIL'}")
+        if not (exact and same):
+            raise AssertionError(f"burst_gather_bwd[{name}] is not the "
+                                 f"sequential f32 sum or not deterministic")
+    return errs["embedding"]
+
+
+def check_grad_refusals(gen):
+    """The CUDA wrappers with no backward kernel raise NotImplementedError
+    on an input that requires grad, instead of cutting the graph."""
+    q = _rand((2, 1, 8, 64), gen).requires_grad_(True)
+    k, v = _rand((2, 64, 2, 64), gen), _rand((2, 64, 2, 64), gen)
+    m2_in = mamba2_inputs(gen, 1, 16, 2, 16, 16)
+    r6_in = rwkv6_inputs(gen, 1, 16, 2, 16)
+    x, w, ids = moe_case(gen, (64, 2), 64, 64, 4, torch.bfloat16, "sorted")
+    cases = {
+        "decode_attention": lambda: fa.decode_attention(q, k, v, kv_len=64),
+        "mamba2_scan": lambda: m2.mamba2_scan(
+            m2_in[0].requires_grad_(True), *m2_in[1:]),
+        "rwkv6_scan": lambda: r6.rwkv6_scan(
+            r6_in[0].requires_grad_(True), *r6_in[1:]),
+        "moe_gmm": lambda: gmm.moe_gmm(x, w.requires_grad_(True), ids),
+    }
+    for name, fn in cases.items():
+        try:
+            with torch.enable_grad():
+                fn()
+        except NotImplementedError as e:
+            _phase(f"check {name} refuses a gradient on CUDA: {e} ok")
+            continue
+        raise AssertionError(f"{name}: ran on a CUDA input that requires "
+                             f"grad, with no backward kernel")
+
+
+#: the reduced models that train on the card (their layers reach only the
+#: attention and gather kernels, which have backward kernels), and those
+#: that must refuse (a scan or the grouped matmul on their path)
+TRAIN_REF_ARCHS = ("granite-8b", "gemma2-27b", "gemma3-12b", "chatglm3-6b",
+                   "llama-3.2-vision-11b", "whisper-tiny")
+TRAIN_REFUSED = {"zamba2-7b": "mamba2_scan", "rwkv6-1.6b": "rwkv6_scan",
+                 "granite-moe-3b-a800m": "moe_gmm"}
+#: a reduced model in f32, card against CPU: the loss within 1e-5 and each
+#: gradient within 1e-4 of the CPU's largest entry of that gradient plus
+#: 1e-7; the same f32 arithmetic in another order (cuBLAS against the
+#: CPU's matmuls, the kernels against the plain versions)
+TRAIN_REF_LOSS_TOL, TRAIN_REF_GRAD_REL, TRAIN_REF_GRAD_ABS = 1e-5, 1e-4, 1e-7
+#: ... except the gradients that reach a parameter through a cast to bf16,
+#: within two bf16 steps (2^-7) of their largest entry: the memory is
+#: rounded to bf16 after ``frontend_proj`` (``lm._frontend``, as the JAX
+#: package casts it), so the gradient into ``frontend_proj`` is rounded to
+#: bf16 too, from f32 values that differ a little between the devices
+#: (whisper-tiny-reduced: 2.0e-6 off, against 1e-4 x 1.02e-2 + 1e-7)
+TRAIN_REF_BF16_CAST = ("frontend_proj",)
+TRAIN_REF_GRAD_REL_BF16 = 2.0 ** -7
+
+
+def check_train_reference(arch):
+    """One step of ``arch``'s reduced config in f32 on the card (kernels)
+    and on the CPU (plain versions), same weights and batch (B 2, S 128;
+    the X layers' gates at ``XATTN_GATE`` and a seeded memory): the loss
+    and every parameter's gradient (the tied embedding's is the gather's
+    scatter-add plus the head's), then the params after clip and AdamW,
+    whose largest difference is printed."""
+    cfg = configs.get_reduced(arch)
+    cpu = lm.init_params(cfg, seed=0, device="cpu").to(torch.float32)
+    for layer in cpu.layers:
+        if hasattr(layer, "xattn_gate"):
+            layer.xattn_gate.fill_(XATTN_GATE)
+    gpu = lm.LM(cfg, "cuda").to(torch.float32)
+    gpu.load_state_dict(cpu.state_dict())
+    toks = torch.from_numpy(SyntheticTokens(cfg.vocab, seed=3).batch(
+        0, 0, 2, 128))
+    extra = seeded_extra(cfg, 2, torch.Generator().manual_seed(6))
+    out = {}
+    for name, params, dev in (("cpu", cpu, "cpu"), ("cuda", gpu, "cuda")):
+        batch = {"tokens": toks.to(dev)}
+        if extra:
+            batch["extra"] = {k: v.to(dev) for k, v in extra.items()}
+        params.requires_grad_(True)
+        loss = lm.loss_fn(params, cfg, batch)
+        loss.backward()
+        out[name] = (float(loss.detach()), {n: p.grad.cpu() for n, p in
+                                            params.named_parameters()})
+        params.zero_grad(set_to_none=True)
+        train.train_step(params, cfg, adamw_init(
+            dict(params.named_parameters())), toks.to(dev), 1e-3)
+    (l_cpu, g_cpu), (l_gpu, g_gpu) = out["cpu"], out["cuda"]
+    worst, worst_name, bad = 0.0, "", []
+    for n, want in g_cpu.items():
+        err = float((g_gpu[n] - want).abs().max())
+        rel = TRAIN_REF_GRAD_REL_BF16 if n in TRAIN_REF_BF16_CAST \
+            else TRAIN_REF_GRAD_REL
+        lim = rel * float(want.abs().max()) + TRAIN_REF_GRAD_ABS
+        if not err <= lim:
+            bad.append(f"{n} off by {err:.3e} > {lim:.3e}")
+        elif err / lim > worst:
+            worst, worst_name = err / lim, n
+    if bad:
+        raise AssertionError(f"train reference {cfg.name}: grads "
+                             f"{'; '.join(bad)}")
+    if not abs(l_gpu - l_cpu) <= TRAIN_REF_LOSS_TOL:
+        raise AssertionError(f"train reference {cfg.name}: loss {l_gpu} on "
+                             f"the card, {l_cpu} on the CPU")
+    p_err = max(float((a.detach().cpu() - b.detach()).abs().max())
+                for a, b in zip(gpu.parameters(), cpu.parameters()))
+    memory = f"; memory {tuple(next(iter(extra.values())).shape)}, gates " \
+        f"{XATTN_GATE}" if extra else ""
+    _phase(f"check train {cfg.name} f32 card vs cpu{memory}: loss "
+           f"{l_gpu:.7f} / {l_cpu:.7f} (|diff| {abs(l_gpu - l_cpu):.2e} <= "
+           f"{TRAIN_REF_LOSS_TOL}); {len(g_cpu)} grads each within "
+           f"{TRAIN_REF_GRAD_REL} x its largest entry + "
+           f"{TRAIN_REF_GRAD_ABS} ({TRAIN_REF_GRAD_REL_BF16:g} behind the "
+           f"bf16 cast: {', '.join(TRAIN_REF_BF16_CAST)}; worst "
+           f"{worst:.3f} of its bound, {worst_name}); params after one step "
+           f"max diff {p_err:.2e} ok")
+
+
+def check_train_refusals():
+    """A model whose path reaches a kernel with no backward kernel fails
+    loudly on the card: one train step of each reduced SSM and MoE model
+    raises NotImplementedError naming that kernel."""
+    for arch, kernel in TRAIN_REFUSED.items():
+        cfg = configs.get_reduced(arch)
+        params = lm.init_params(cfg, seed=0, device="cuda")
+        params.requires_grad_(True)
+        toks = torch.from_numpy(SyntheticTokens(cfg.vocab, seed=3).batch(
+            0, 0, 2, 64)).cuda()
+        try:
+            train.train_step(params, cfg, adamw_init(
+                dict(params.named_parameters())), toks, 1e-3)
+        except NotImplementedError as e:
+            if kernel not in str(e):
+                raise
+            _phase(f"check train {cfg.name} on the card refuses at "
+                   f"{kernel} ok")
+            continue
+        raise AssertionError(f"train {cfg.name}: trained on the card "
+                             f"through {kernel}, which has no backward "
+                             f"kernel")
+
+
+def check_train_restart(tmp):
+    """The fault-tolerant restart on the card: granite-8b-reduced for 5
+    steps unbroken (checkpoints every 2), and again failing at step 3
+    (exit 42) then resumed from the checkpoint of step 2 into fresh
+    tensors.  The resumed steps' losses and gradient norms and the final
+    checkpoint equal the unbroken run's bit for bit."""
+    cfg = configs.get_reduced(TRAIN_ARCH)
+    kw = dict(steps=5, batch=TRAIN_B, seq=256, device="cuda",
+              ckpt_every=2, log_every=100)
+    whole = train.train(cfg, ckpt_dir=str(tmp / "whole"), **kw)
+    try:
+        train.train(cfg, ckpt_dir=str(tmp / "broken"), fail_at=3, **kw)
+        raise AssertionError("train --fail-at 3 did not fail")
+    except SystemExit as e:
+        if e.code != 42:
+            raise
+    resumed = train.train(cfg, ckpt_dir=str(tmp / "broken"), **kw)
+    same = (resumed.start == 2 and resumed.losses == whole.losses[2:]
+            and resumed.grad_norms == whole.grad_norms[2:])
+    final = [restore_checkpoint(str(tmp / d), 5, {"params": dict(
+        whole.params.named_parameters())}) for d in ("whole", "broken")]
+    same_params = all(torch.equal(final[0]["params"][n], final[1]["params"]
+                                  [n]) for n in final[0]["params"])
+    _phase(f"check train restart on the card: {cfg.name}, failed at step 3,"
+           f" resumed from step {resumed.start}: losses {resumed.losses} "
+           f"vs unbroken {whole.losses[2:]}, same bits {same}; final "
+           f"checkpoints equal {same_params} "
+           f"{'ok' if same and same_params else 'FAIL'}")
+    if not (same and same_params):
+        raise AssertionError("train restart: the resumed run differs from "
+                             "the unbroken one")
+
+
+def train_phase():
+    """granite-8b at full width and ``TRAIN_DEPTH`` layers: ``TRAIN_STEPS``
+    steps of ``launch.train.train`` at B ``TRAIN_B``, S ``TRAIN_S`` from
+    ``SyntheticTokens(seed=0)``.  Checks the exact launches of the four
+    kernels on its path and finite losses and norms; prints each step's
+    loss, grad norm and seconds, tokens/s and the peak memory.  Returns
+    its launches."""
+    full = configs.get(TRAIN_ARCH)
+    cfg = dataclasses.replace(
+        full, name=f"{TRAIN_ARCH} at {TRAIN_DEPTH} of {full.n_layers} "
+        f"layers", n_layers=TRAIN_DEPTH)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in COUNTERS.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    run = train.train(cfg, steps=TRAIN_STEPS, batch=TRAIN_B, seq=TRAIN_S,
+                      device="cuda", log_every=1)
+    wall = time.perf_counter() - t0
+    launches = {n: fn.launches for n, fn in COUNTERS.items()}
+    n_attn = sum(k in "GLX" for k in cfg.layer_pattern) * \
+        (cfg.n_layers // len(cfg.layer_pattern))
+    want = dict.fromkeys(COUNTERS, 0)
+    want.update(flash_attention=n_attn * TRAIN_STEPS,
+                flash_attention_bwd=n_attn * TRAIN_STEPS,
+                burst_gather=TRAIN_STEPS, burst_gather_bwd=TRAIN_STEPS)
+    tokens = TRAIN_B * (TRAIN_S + 1)
+    steady = statistics.median(run.step_s[1:])
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    params = sum(p.numel() for p in run.params.parameters()) / 1e9
+    _phase(f"train {cfg.name} on {torch.cuda.get_device_name(0)}: "
+           f"{params:.3f} B params, d_model {cfg.d_model}, B {TRAIN_B} x S "
+           f"{TRAIN_S} ({tokens} tokens a step), {TRAIN_STEPS} steps in "
+           f"{wall:.1f}s: losses {[round(x, 4) for x in run.losses]}, grad "
+           f"norms {[round(x, 4) for x in run.grad_norms]}, step s "
+           f"{[round(x, 4) for x in run.step_s]} (first with the build and "
+           f"warm-up); steady {steady:.4f} s a step, {tokens / steady:.0f} "
+           f"tokens/s; max_memory_allocated {peak:.2f} GB; launches "
+           f"{launches}")
+    if launches != want:
+        raise AssertionError(f"train: launch counts {launches}, want {want}")
+    if not all(math.isfinite(x) for x in run.losses + run.grad_norms):
+        raise AssertionError("train: a loss or grad norm is not finite")
+    del run
+    torch.cuda.empty_cache()
+    return launches
+
+
+def train_rows(errs, flush, gen):
+    """The kernels line's rows of the two backward kernels at the train
+    phase's shapes.  flash_attention_bwd: B 4, S 1024, Hq 32, Hkv 8, D 128,
+    causal, bf16; plain: autograd through ``ref.attention_ref`` (its
+    forward included, which autograd needs); library: the backward of
+    ``scaled_dot_product_attention`` (cuDNN/flash, enable_gqa).  Bound: the
+    five products of the causal backward, 2 x 5 D flops a (query, key)
+    pair; bytes q, k, v, o, dO, lse read and dq, dk, dv written once.
+    burst_gather_bwd: the train batch's 4,100 ids into the (49152, 4096)
+    bf16 embedding gradient; plain: autograd through
+    ``ref.burst_gather_ref``; library: ``index_add_`` into a zero f32
+    table.  Bound: bytes, dout and ids read and the whole table written."""
+    b, s, hq, hkv, d = TRAIN_B, TRAIN_S, 32, 8, 128
+    q, do = (_rand((b, s, hq, d), gen) for _ in range(2))
+    k, v = (_rand((b, s, hkv, d), gen) for _ in range(2))
+    lse = torch.empty((b, hq, s), dtype=torch.float32, device="cuda")
+    o = fa._launch("flash_attention_fwd", q, k, v, causal=True, window=None,
+                   softcap=None, scale=None, q_offset=0, kv_len=None,
+                   lse=lse)
+    ms = time_ms(lambda: fa.flash_attention_bwd(q, k, v, o, lse, do,
+                                                causal=True), flush)
+    plain = time_ms(lambda: _attn_grads(ref.attention_ref, q, k, v, do,
+                                        causal=True), flush, reps=5)
+    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_(True)
+                  for t in (q, k, v))
+    with torch.enable_grad():
+        out = torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True)
+    dot = do.transpose(1, 2).contiguous()
+    lib = time_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), dot,
+                                              retain_graph=True), flush)
+    pairs = b * hq * s * (s + 1) // 2
+    flops = 2 * 5 * d * pairs
+    nbytes = 2 * (3 * q.numel() + 2 * do.numel() + 4 * k.numel()) + \
+        4 * lse.numel()
+    b_ms, b_by = bound(flops, nbytes)
+    _phase(f"time flash_attention_bwd[train] (B, S, Hq, Hkv, D) = "
+           f"{(b, s, hq, hkv, d)} causal bf16: {ms:.4f} ms, plain "
+           f"{plain:.4f} ms, SDPA backward {lib:.4f} ms, bound {b_ms:.4f} "
+           f"ms ({b_by}; {flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB), "
+           f"{flops / ms / 1e9:.1f} TFLOP/s; grids dK/dV "
+           f"{s // 64} x {hkv} x {b}, dQ {s // 64} x {hq} x {b}")
+    rows = [_row("flash_attention_bwd", "src/repro/kernels/"
+                 "flash_attention.py:90", errs[0], ms, plain, lib, b_ms,
+                 b_by)]
+    del q, k, v, o, do, qt, kt, vt, out, dot
+
+    R, D = configs.get(TRAIN_ARCH).vocab_padded, 4096
+    idx = embedding_ids()
+    dout = _rand((idx.numel(), D), gen)
+    ms = time_ms(lambda: bg.burst_gather_bwd(dout, idx, R), flush)
+    table = torch.zeros((R, D), dtype=torch.bfloat16, device="cuda",
+                        requires_grad=True)
+
+    def plain_fn():
+        with torch.enable_grad():
+            return torch.autograd.grad(ref.burst_gather_ref(table, idx),
+                                       table, dout)
+    plain = time_ms(plain_fn, flush)
+    idx64, doutf = idx.long(), dout.float()
+    lib = time_ms(lambda: torch.zeros((R, D), dtype=torch.float32,
+                                      device="cuda").index_add_(
+        0, idx64, doutf), flush)
+    nbytes = 2 * dout.numel() + 4 * idx.numel() + 2 * R * D
+    b_ms, b_by = bound(dout.numel(), nbytes)
+    _phase(f"time burst_gather_bwd[embedding] N={idx.numel()} "
+           f"({int(idx.unique().numel())} rows taken, the commonest "
+           f"{int(torch.bincount(idx).max())} times) into ({R}, {D}) bf16: "
+           f"{ms:.4f} ms, plain {plain:.4f} ms, index_add_ into f32 "
+           f"{lib:.4f} ms, bound {b_ms:.4f} ms ({b_by}; "
+           f"{nbytes / 1e6:.1f} MB)")
+    rows.append(_row("burst_gather_bwd", "src/repro/kernels/"
+                     "burst_gather.py:59", errs[1], ms, plain, lib, b_ms,
+                     b_by))
+    return rows
 
 
 def check_build_report():
@@ -2436,9 +2886,28 @@ def main() -> int:
     kernels += scan_rows(dict(zip(("mamba2_scan", "rwkv6_scan"), scan_errs)),
                          flush, tgen)
     kernels += moe_rows(moe_errs, flush, tgen)
-    # each kernel's launches, summed over the serve runs
+
+    # training: the backward kernels against their plain versions, the
+    # refusals, the f32 step against the CPU, the restart, then the path
+    trgen = torch.Generator(device="cuda").manual_seed(22)
+    train_errs = (check_attention_bwd(trgen), check_gather_bwd(trgen))
+    check_grad_refusals(trgen)
+    for arch in TRAIN_REF_ARCHS:
+        check_train_reference(arch)
+    check_train_refusals()
+    build_dir = ROOT / "build"
+    build_dir.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
+        check_train_restart(Path(tmp))
+    train_launches = train_phase()
+    kernels += train_rows(train_errs, flush, trgen)
+    # each kernel's launches, summed over the serve runs and the train run
     for row in kernels:
-        row["launches"] = launches[row["name"]]
+        kernel = row["name"]
+        row["launches"] = launches[kernel] + train_launches[kernel]
+        if launches[kernel] and train_launches[kernel]:
+            row["launches_by_path"] = {"serve": launches[kernel],
+                                       "train": train_launches[kernel]}
     # the sweep's, from its own main path, the co-optimization flow's, the
     # search's and the corpus's
     sim_row["launches_by_path"] = {"simulate_batch": sim_row["launches"],

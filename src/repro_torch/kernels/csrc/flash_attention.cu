@@ -240,7 +240,7 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap map_q,
               int kv_len_all, const int* __restrict__ q_off, int q_off_all,
               int Sq, int Skv, int Hq, int Hkv, int D, int causal,
               int has_window, int window, int has_softcap, float softcap,
-              float scale) {
+              float scale, float* __restrict__ lse) {
   using C = WgCfg<DP>;
   constexpr int NP = C::NP;
   constexpr int ST = C::ST;
@@ -385,6 +385,13 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap map_q,
     ls += __shfl_xor_sync(0xffffffffu, ls, 1);
     ls += __shfl_xor_sync(0xffffffffu, ls, 2);
     inv[r] = ls > 0.f ? 1.f / ls : 0.f;
+    // the row's log-sum-exp of the scaled (and capped) scores, for the
+    // backward; m is the same in the quad, kept unscaled without a softcap
+    const int qi = q0 + warp * 16 + gq + 8 * r;
+    if (lse && tq == 0 && qi < Sq)
+      lse[((long long)b * Hq + h) * Sq + qi] =
+          ls > 0.f ? m[r] * (has_softcap ? 1.f : scale) + logf(ls)
+                   : -INFINITY;
   }
 #pragma unroll
   for (int p = 0; p < NP; ++p)
@@ -463,7 +470,8 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
               const int* __restrict__ kv_len, int kv_len_all,
               const int* __restrict__ q_off, int q_off_all, int Sq, int Skv,
               int Hq, int Hkv, int D, int causal, int has_window, int window,
-              int has_softcap, float softcap, float scale) {
+              int has_softcap, float softcap, float scale,
+              float* __restrict__ lse) {
   constexpr int LD = DP + 4;
   constexpr int LDP = BK + 4;
   constexpr int CG = DP / 64;           // float4 output columns per thread
@@ -602,6 +610,10 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
     const int qi = q0 + ty + 16 * i;
     if (qi >= Sq) continue;
     const float inv = l[i] > 0.f ? 1.f / l[i] : 0.f;
+    // m and l are the same in the row's 16 threads; the scores are scaled
+    if (lse && tx == 0)
+      lse[((long long)b * Hq + h) * Sq + qi] =
+          l[i] > 0.f ? m[i] + logf(l[i]) : -INFINITY;
     float* orow = o + ((long long)b * Sq + qi) * qs + (long long)h * D;
 #pragma unroll
     for (int cg = 0; cg < CG; ++cg) {
@@ -861,6 +873,344 @@ decode_combine(const float* __restrict__ scratch, T* __restrict__ o,
   }
 }
 
+// ------------------------------------------- backward, f32 FMA pipes
+
+constexpr int BNT = 256;  // backward: threads per block (16 x 16)
+
+// Tiles of the backward: R query rows and R key rows (32 at DP = 256, so
+// that four R x DP f32 tiles and the two R x R score tiles fit in shared
+// memory); a thread holds RI x RI scores, rows ty + 16 i and columns
+// tx + 16 j, and of a tile's R x DP outputs the rows ty + 16 i and the
+// columns cg * 64 + tx * 4 + u (CG float4 groups).
+template <int DP>
+struct BwdCfg {
+  static constexpr int R = DP > 128 ? 32 : 64;
+  static constexpr int RI = R / 16;
+  static constexpr int LD = DP + 4;
+  static constexpr int LDP = R + 4;
+  static constexpr int CG = DP / 64;
+  static constexpr size_t smem =
+      sizeof(float) * (4 * (size_t)R * LD + 2 * (size_t)R * LDP + 2 * R);
+};
+
+// Stage `rows` rows from row0 on of one head of a (B, S, H, D) tensor into
+// shared memory as f32, row stride LD; rows at or past `nvalid` and columns
+// at or past D are zeros.  D is a multiple of 8, so a 16-byte chunk that
+// starts below D ends at or below it.
+template <typename T, int DP, int LD>
+__device__ inline void stage(float* s, const T* base, int rows, int row0,
+                             int nvalid, long long row_stride, int D) {
+  constexpr int V = 16 / sizeof(T);
+  constexpr int CH = DP / V;
+  for (int i = threadIdx.x; i < rows * CH; i += BNT) {
+    const int r = i / CH;
+    const int c = (i % CH) * V;
+    float x[V];
+    if (r < nvalid && c < D) {
+      load16(base + (long long)(row0 + r) * row_stride + c, x);
+    } else {
+#pragma unroll
+      for (int u = 0; u < V; ++u) x[u] = 0.f;
+    }
+#pragma unroll
+    for (int u = 0; u < V; u += 4)
+      *reinterpret_cast<float4*>(s + r * LD + c + u) =
+          make_float4(x[u], x[u + 1], x[u + 2], x[u + 3]);
+  }
+}
+
+// acc[i][j] = a row (ty + 16 i) . b row (tx + 16 j), over DP columns
+template <int DP, int LD, int RI>
+__device__ inline void dots(float (*acc)[RI], const float* a,
+                            const float* b, int ty, int tx) {
+#pragma unroll
+  for (int i = 0; i < RI; ++i)
+#pragma unroll
+    for (int j = 0; j < RI; ++j) acc[i][j] = 0.f;
+#pragma unroll 4
+  for (int d = 0; d < DP; d += 4) {
+    float4 av[RI], bv[RI];
+#pragma unroll
+    for (int i = 0; i < RI; ++i)
+      av[i] = *reinterpret_cast<const float4*>(a + (ty + 16 * i) * LD + d);
+#pragma unroll
+    for (int j = 0; j < RI; ++j)
+      bv[j] = *reinterpret_cast<const float4*>(b + (tx + 16 * j) * LD + d);
+#pragma unroll
+    for (int i = 0; i < RI; ++i)
+#pragma unroll
+      for (int j = 0; j < RI; ++j) acc[i][j] = dot4(av[i], bv[j], acc[i][j]);
+  }
+}
+
+// acc[i][cg * 4 + u] += sum over the tile's R rows kk of
+// w[(ty + 16 i) * LDP + kk] * m[kk * LD + cg * 64 + tx * 4 + u]
+template <int R, int LD, int LDP, int RI, int CG>
+__device__ inline void accumulate(float (*acc)[CG * 4], const float* w,
+                                  const float* m, int ty, int tx) {
+#pragma unroll 2
+  for (int kk = 0; kk < R; kk += 4) {
+    float4 wv[RI];
+#pragma unroll
+    for (int i = 0; i < RI; ++i)
+      wv[i] = *reinterpret_cast<const float4*>(w + (ty + 16 * i) * LDP + kk);
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+#pragma unroll
+      for (int cg = 0; cg < CG; ++cg) {
+        const float4 mv = *reinterpret_cast<const float4*>(
+            m + (kk + u) * LD + cg * 64 + tx * 4);
+#pragma unroll
+        for (int i = 0; i < RI; ++i) {
+          const float p = comp(wv[i], u);
+          acc[i][cg * 4 + 0] = fmaf(p, mv.x, acc[i][cg * 4 + 0]);
+          acc[i][cg * 4 + 1] = fmaf(p, mv.y, acc[i][cg * 4 + 1]);
+          acc[i][cg * 4 + 2] = fmaf(p, mv.z, acc[i][cg * 4 + 2]);
+          acc[i][cg * 4 + 3] = fmaf(p, mv.w, acc[i][cg * 4 + 3]);
+        }
+      }
+  }
+}
+
+// One score of the backward: from the raw dot s = q . k and dp = dO . v,
+// with the row's log-sum-exp and delta, the probability p and the score
+// gradient ds, already times d(capped scaled score) / ds, so that
+// dQ = ds K and dK = ds^T Q.  p = ds = 0 where the masks drop the pair.
+__device__ __forceinline__ void score_grad(float s, float dp, float lse,
+                                           float delta, bool ok,
+                                           int has_softcap, float softcap,
+                                           float scale, float* p, float* ds) {
+  float x = s * scale, dx = scale;
+  if (has_softcap) {
+    const float t = tanhf(x / softcap);
+    x = t * softcap;
+    dx = scale * (1.f - t * t);
+  }
+  *p = ok && lse != -INFINITY ? expf(x - lse) : 0.f;
+  *ds = *p * (dp - delta) * dx;
+}
+
+// delta[b, h, i] = sum_d dO[b, i, h, d] O[b, i, h, d] in f32: a warp a row
+// of the (B, Sq, Hq) rows of O.
+template <typename T>
+__global__ void __launch_bounds__(256)
+flash_bwd_delta(const T* __restrict__ o, const T* __restrict__ dout,
+                float* __restrict__ delta, long long rows, int Sq, int Hq,
+                int D) {
+  constexpr int V = 16 / sizeof(T);
+  const long long r = (long long)blockIdx.x * 8 + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (r >= rows) return;
+  float acc = 0.f;
+  for (int c = lane * V; c < D; c += 32 * V) {
+    float a[V], g[V];
+    load16(o + r * D + c, a);
+    load16(dout + r * D + c, g);
+#pragma unroll
+    for (int u = 0; u < V; ++u) acc = fmaf(a[u], g[u], acc);
+  }
+  acc = warp_sum(acc);
+  const long long b = r / ((long long)Sq * Hq);
+  const int qi = (int)((r / Hq) % Sq);
+  const int h = (int)(r % Hq);
+  if (lane == 0) delta[(b * Hq + h) * Sq + qi] = acc;
+}
+
+// dQ: block (q tile, query head, batch) over the KV tiles its rows see;
+// dQ += dS K.  The q tile is the slowest axis, longest causal rows first.
+template <typename T, int DP>
+__global__ void __launch_bounds__(BNT)
+flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
+             const T* __restrict__ v, const T* __restrict__ dout,
+             const float* __restrict__ lse, const float* __restrict__ delta,
+             T* __restrict__ dq, int Sq, int Skv, int Hq, int Hkv, int D,
+             int causal, int has_window, int window, int has_softcap,
+             float softcap, float scale) {
+  using C = BwdCfg<DP>;
+  constexpr int R = C::R, RI = C::RI, LD = C::LD, LDP = C::LDP, CG = C::CG;
+  extern __shared__ __align__(16) float bsm[];
+  float* sQ = bsm;           // R x LD
+  float* sO = sQ + R * LD;   // dO, R x LD
+  float* sK = sO + R * LD;   // R x LD
+  float* sV = sK + R * LD;   // R x LD
+  float* sS = sV + R * LD;   // dS, R x LDP
+
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * R;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int hk = h / (Hq / Hkv);
+  const int tx = threadIdx.x & 15;
+  const int ty = threadIdx.x >> 4;
+  const long long qs = (long long)Hq * D;
+  const long long ks = (long long)Hkv * D;
+  int kend = Skv;
+  if (causal) kend = min(kend, min(q0 + R, Sq));
+  const int kbeg = has_window ? max(0, q0 - window + 1) / R * R : 0;
+
+  stage<T, DP, LD>(sQ, q + (long long)b * Sq * qs + (long long)h * D, R, q0,
+                   Sq - q0, qs, D);
+  stage<T, DP, LD>(sO, dout + (long long)b * Sq * qs + (long long)h * D, R,
+                   q0, Sq - q0, qs, D);
+  float lq[RI], dl[RI];
+#pragma unroll
+  for (int i = 0; i < RI; ++i) {
+    const int qi = q0 + ty + 16 * i;
+    const long long at = ((long long)b * Hq + h) * Sq + qi;
+    lq[i] = qi < Sq ? lse[at] : -INFINITY;
+    dl[i] = qi < Sq ? delta[at] : 0.f;
+  }
+  float acc[RI][CG * 4];
+#pragma unroll
+  for (int i = 0; i < RI; ++i)
+#pragma unroll
+    for (int c = 0; c < CG * 4; ++c) acc[i][c] = 0.f;
+
+  const T* kb = k + (long long)b * Skv * ks + (long long)hk * D;
+  const T* vb = v + (long long)b * Skv * ks + (long long)hk * D;
+  for (int kt0 = kbeg; kt0 < kend; kt0 += R) {
+    __syncthreads();  // the last tile's sK and sS are read
+    stage<T, DP, LD>(sK, kb, R, kt0, kend - kt0, ks, D);
+    stage<T, DP, LD>(sV, vb, R, kt0, kend - kt0, ks, D);
+    __syncthreads();
+    float s[RI][RI], dp[RI][RI];
+    dots<DP, LD, RI>(s, sQ, sK, ty, tx);
+    dots<DP, LD, RI>(dp, sO, sV, ty, tx);
+#pragma unroll
+    for (int i = 0; i < RI; ++i)
+#pragma unroll
+      for (int j = 0; j < RI; ++j) {
+        const int qp = q0 + ty + 16 * i;
+        const int kp = kt0 + tx + 16 * j;
+        bool ok = kp < kend && qp < Sq;
+        if (causal) ok = ok && kp <= qp;
+        if (has_window) ok = ok && kp > qp - window;
+        float p, ds;
+        score_grad(s[i][j], dp[i][j], lq[i], dl[i], ok, has_softcap,
+                   softcap, scale, &p, &ds);
+        sS[(ty + 16 * i) * LDP + tx + 16 * j] = ds;
+      }
+    __syncthreads();
+    accumulate<R, LD, LDP, RI, CG>(acc, sS, sK, ty, tx);
+  }
+
+#pragma unroll
+  for (int i = 0; i < RI; ++i) {
+    const int qi = q0 + ty + 16 * i;
+    if (qi >= Sq) continue;
+    T* row = dq + ((long long)b * Sq + qi) * qs + (long long)h * D;
+#pragma unroll
+    for (int cg = 0; cg < CG; ++cg) {
+      const int c = cg * 64 + tx * 4;
+      if (c < D)
+#pragma unroll
+        for (int u = 0; u < 4; ++u) store1(row + c + u, acc[i][cg * 4 + u]);
+    }
+  }
+}
+
+// dK, dV: block (KV tile, KV head, batch) over the g query heads of its
+// KV head and the q tiles whose rows see its keys; dV += P^T dO and
+// dK += dS^T Q, summed over the group's heads in f32 and rounded once.
+// Scores are held transposed: rows are keys, columns queries.
+template <typename T, int DP>
+__global__ void __launch_bounds__(BNT)
+flash_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
+               const T* __restrict__ v, const T* __restrict__ dout,
+               const float* __restrict__ lse,
+               const float* __restrict__ delta, T* __restrict__ dk,
+               T* __restrict__ dv, int Sq, int Skv, int Hq, int Hkv, int D,
+               int causal, int has_window, int window, int has_softcap,
+               float softcap, float scale) {
+  using C = BwdCfg<DP>;
+  constexpr int R = C::R, RI = C::RI, LD = C::LD, LDP = C::LDP, CG = C::CG;
+  extern __shared__ __align__(16) float bsm[];
+  float* sK = bsm;           // this block's keys, R x LD
+  float* sV = sK + R * LD;   // R x LD
+  float* sQ = sV + R * LD;   // a q tile, R x LD
+  float* sO = sQ + R * LD;   // its dO, R x LD
+  float* sP = sO + R * LD;   // P^T, R x LDP
+  float* sS = sP + R * LDP;  // dS^T, R x LDP
+  float* sL = sS + R * LDP;  // the q tile's lse, R
+  float* sD = sL + R;        // its delta, R
+
+  const int k0 = blockIdx.x * R;  // the first KV tiles see the most rows
+  const int hk = blockIdx.y;
+  const int b = blockIdx.z;
+  const int g = Hq / Hkv;
+  const int tx = threadIdx.x & 15;
+  const int ty = threadIdx.x >> 4;
+  const long long qs = (long long)Hq * D;
+  const long long ks = (long long)Hkv * D;
+  const int qbeg = causal ? k0 / R * R : 0;
+  int qend = Sq;
+  if (has_window) qend = min(qend, k0 + R - 1 + window);
+
+  stage<T, DP, LD>(sK, k + (long long)b * Skv * ks + (long long)hk * D, R,
+                   k0, Skv - k0, ks, D);
+  stage<T, DP, LD>(sV, v + (long long)b * Skv * ks + (long long)hk * D, R,
+                   k0, Skv - k0, ks, D);
+  float dka[RI][CG * 4], dva[RI][CG * 4];
+#pragma unroll
+  for (int i = 0; i < RI; ++i)
+#pragma unroll
+    for (int c = 0; c < CG * 4; ++c) dka[i][c] = dva[i][c] = 0.f;
+
+  for (int h = hk * g; h < hk * g + g; ++h) {
+    const T* qb = q + (long long)b * Sq * qs + (long long)h * D;
+    const T* ob = dout + (long long)b * Sq * qs + (long long)h * D;
+    const long long row0 = ((long long)b * Hq + h) * Sq;
+    for (int qt0 = qbeg; qt0 < qend; qt0 += R) {
+      __syncthreads();  // the last tile's sQ, sO, sP, sS are read
+      stage<T, DP, LD>(sQ, qb, R, qt0, Sq - qt0, qs, D);
+      stage<T, DP, LD>(sO, ob, R, qt0, Sq - qt0, qs, D);
+      for (int t = threadIdx.x; t < R; t += BNT) {
+        const int qi = qt0 + t;
+        sL[t] = qi < Sq ? lse[row0 + qi] : -INFINITY;
+        sD[t] = qi < Sq ? delta[row0 + qi] : 0.f;
+      }
+      __syncthreads();
+      float s[RI][RI], dp[RI][RI];
+      dots<DP, LD, RI>(s, sK, sQ, ty, tx);
+      dots<DP, LD, RI>(dp, sV, sO, ty, tx);
+#pragma unroll
+      for (int i = 0; i < RI; ++i)
+#pragma unroll
+        for (int j = 0; j < RI; ++j) {
+          const int kp = k0 + ty + 16 * i;
+          const int qp = qt0 + tx + 16 * j;
+          bool ok = kp < Skv && qp < Sq;
+          if (causal) ok = ok && kp <= qp;
+          if (has_window) ok = ok && kp > qp - window;
+          float p, ds;
+          score_grad(s[i][j], dp[i][j], sL[tx + 16 * j], sD[tx + 16 * j],
+                     ok, has_softcap, softcap, scale, &p, &ds);
+          sP[(ty + 16 * i) * LDP + tx + 16 * j] = p;
+          sS[(ty + 16 * i) * LDP + tx + 16 * j] = ds;
+        }
+      __syncthreads();
+      accumulate<R, LD, LDP, RI, CG>(dva, sP, sO, ty, tx);
+      accumulate<R, LD, LDP, RI, CG>(dka, sS, sQ, ty, tx);
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < RI; ++i) {
+    const int ki = k0 + ty + 16 * i;
+    if (ki >= Skv) continue;
+    const long long at = ((long long)b * Skv + ki) * ks + (long long)hk * D;
+#pragma unroll
+    for (int cg = 0; cg < CG; ++cg) {
+      const int c = cg * 64 + tx * 4;
+      if (c < D)
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          store1(dk + at + c + u, dka[i][cg * 4 + u]);
+          store1(dv + at + c + u, dva[i][cg * 4 + u]);
+        }
+    }
+  }
+}
+
 // ----------------------------------------------------------- launchers
 
 // The map of a (B, S, H, D) bf16 tensor read as 64-column x `rows`-row
@@ -888,7 +1238,7 @@ int launch_flash_bf16(const void* q, const void* k, const void* v, void* o,
                       int q_off_all, int B, int Sq, int Skv, int Hq, int Hkv,
                       int D, int causal, int has_window, int window,
                       int has_softcap, float softcap, float scale,
-                      cudaStream_t stream) {
+                      float* lse, cudaStream_t stream) {
   constexpr size_t smem = WgCfg<DP>::smem;
   static bool configured = false;
   if (!configured) {
@@ -909,7 +1259,7 @@ int launch_flash_bf16(const void* q, const void* k, const void* v, void* o,
   flash_fwd_bf16<DP><<<grid, GNT + 32, smem, stream>>>(
       mq, mk, mv, static_cast<__nv_bfloat16*>(o), kv_len, kv_len_all, q_off,
       q_off_all, Sq, Skv, Hq, Hkv, D, causal, has_window, window,
-      has_softcap, softcap, scale);
+      has_softcap, softcap, scale, lse);
   return (int)cudaGetLastError();
 }
 
@@ -919,7 +1269,7 @@ int launch_flash_f32(const void* q, const void* k, const void* v, void* o,
                      int q_off_all, int B, int Sq, int Skv, int Hq, int Hkv,
                      int D, int causal, int has_window, int window,
                      int has_softcap, float softcap, float scale,
-                     cudaStream_t stream) {
+                     float* lse, cudaStream_t stream) {
   static bool configured = false;
   const size_t smem = flash_f32_smem_bytes<DP>();
   if (!configured) {
@@ -934,7 +1284,7 @@ int launch_flash_f32(const void* q, const void* k, const void* v, void* o,
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), kv_len,
       kv_len_all, q_off, q_off_all, Sq, Skv, Hq, Hkv, D, causal, has_window,
-      window, has_softcap, softcap, scale);
+      window, has_softcap, softcap, scale, lse);
   return (int)cudaGetLastError();
 }
 
@@ -982,23 +1332,70 @@ int launch_decode(const void* q, const void* k, const void* v, void* o,
                                  static_cast<T*>(o), n_split, Hq, Hkv, D);
 }
 
+
+template <typename T, int DP>
+int launch_bwd(const void* q, const void* k, const void* v, const void* o,
+               const void* dout, const float* lse, void* dq, void* dk,
+               void* dv, float* delta, int B, int Sq, int Skv, int Hq,
+               int Hkv, int D, int causal, int has_window, int window,
+               int has_softcap, float softcap, float scale,
+               cudaStream_t stream) {
+  using C = BwdCfg<DP>;
+  static bool configured = false;
+  if (!configured) {
+    cudaError_t e = cudaFuncSetAttribute(
+        flash_bwd_dq<T, DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)C::smem);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(flash_bwd_dkdv<T, DP>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)C::smem);
+    if (e != cudaSuccess) return (int)e;
+    configured = true;
+  }
+  const T* tq = static_cast<const T*>(q);
+  const T* tk = static_cast<const T*>(k);
+  const T* tv = static_cast<const T*>(v);
+  const T* tdo = static_cast<const T*>(dout);
+  const long long rows = (long long)B * Sq * Hq;
+  flash_bwd_delta<T><<<(unsigned)((rows + 7) / 8), 256, 0, stream>>>(
+      static_cast<const T*>(o), tdo, delta, rows, Sq, Hq, D);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  if (Skv > 0) {
+    flash_bwd_dkdv<T, DP><<<dim3((Skv + C::R - 1) / C::R, Hkv, B), BNT,
+                            C::smem, stream>>>(
+        tq, tk, tv, tdo, lse, delta, static_cast<T*>(dk),
+        static_cast<T*>(dv), Sq, Skv, Hq, Hkv, D, causal, has_window, window,
+        has_softcap, softcap, scale);
+    if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  }
+  flash_bwd_dq<T, DP><<<dim3((Sq + C::R - 1) / C::R, Hq, B), BNT, C::smem,
+                        stream>>>(
+      tq, tk, tv, tdo, lse, delta, static_cast<T*>(dq), Sq, Skv, Hq, Hkv, D,
+      causal, has_window, window, has_softcap, softcap, scale);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // dtype: 0 = bfloat16, 1 = float32.  kv_len / q_offset: a (B,) int32
-// device pointer, or null to use the scalar beside it.  Returns the CUDA
-// error of the launch (0 on success).
+// device pointer, or null to use the scalar beside it.  lse: null, or a
+// (B, Hq, Sq) f32 output for each row's log-sum-exp of its scaled (and
+// capped) scores, -inf for a row with no valid key; with Skv = 0 it is
+// not written.  Returns the CUDA error of the launch (0 on success).
 extern "C" int flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, const int* kv_len,
     int kv_len_all, const int* q_off, int q_off_all, int B, int Sq, int Skv,
     int Hq, int Hkv, int D, int dtype, int causal, int has_window, int window,
-    int has_softcap, float softcap, float scale, void* stream) {
+    int has_softcap, float softcap, float scale, float* lse, void* stream) {
   if (D % 8 != 0 || D > 256 || Hkv <= 0 || Hq % Hkv != 0)
     return (int)cudaErrorInvalidValue;
   if (Sq == 0 || B == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define FLASH_ARGS                                                       \
   q, k, v, o, kv_len, kv_len_all, q_off, q_off_all, B, Sq, Skv, Hq, Hkv, D, \
-      causal, has_window, window, has_softcap, softcap, scale, s
+      causal, has_window, window, has_softcap, softcap, scale, lse, s
   if (dtype == 0) {
     if (D <= 64) return launch_flash_bf16<64>(FLASH_ARGS);
     if (D <= 128) return launch_flash_bf16<128>(FLASH_ARGS);
@@ -1036,5 +1433,37 @@ extern "C" int decode_attention_fwd(
   if (dtype == 0) return launch_decode<__nv_bfloat16>(DECODE_ARGS);
   if (dtype == 1) return launch_decode<float>(DECODE_ARGS);
 #undef DECODE_ARGS
+  return (int)cudaErrorInvalidValue;
+}
+
+// The gradients of flash_attention_fwd with no kv_len and no q offset:
+// q, o, dout, dq (B, Sq, Hq, D); k, v, dk, dv (B, Skv, Hkv, D), all of
+// dtype (0 = bfloat16, 1 = float32); lse: the forward's (B, Hq, Sq) f32
+// log-sum-exp; delta: (B, Hq, Sq) f32 scratch.  Every output row is
+// written.  Returns the CUDA error of the launches (0 on success).
+extern "C" int flash_attention_bwd(
+    const void* q, const void* k, const void* v, const void* o,
+    const void* dout, const float* lse, void* dq, void* dk, void* dv,
+    float* delta, int B, int Sq, int Skv, int Hq, int Hkv, int D, int dtype,
+    int causal, int has_window, int window, int has_softcap, float softcap,
+    float scale, void* stream) {
+  if (D % 8 != 0 || D > 256 || Hkv <= 0 || Hq % Hkv != 0)
+    return (int)cudaErrorInvalidValue;
+  if (Sq == 0 || B == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define BWD_ARGS                                                           \
+  q, k, v, o, dout, lse, dq, dk, dv, delta, B, Sq, Skv, Hq, Hkv, D, causal, \
+      has_window, window, has_softcap, softcap, scale, s
+  if (dtype == 0) {
+    if (D <= 64) return launch_bwd<__nv_bfloat16, 64>(BWD_ARGS);
+    if (D <= 128) return launch_bwd<__nv_bfloat16, 128>(BWD_ARGS);
+    return launch_bwd<__nv_bfloat16, 256>(BWD_ARGS);
+  }
+  if (dtype == 1) {
+    if (D <= 64) return launch_bwd<float, 64>(BWD_ARGS);
+    if (D <= 128) return launch_bwd<float, 128>(BWD_ARGS);
+    return launch_bwd<float, 256>(BWD_ARGS);
+  }
+#undef BWD_ARGS
   return (int)cudaErrorInvalidValue;
 }

@@ -7,12 +7,17 @@ is no fallback.  ``schedule`` picks the kernel by dtype and S: the chunked
 dual form on the tensor cores for bf16 with at least ``CHUNK`` steps, the
 sequential f32 kernel otherwise (every f32 call, and bf16 decode).  Each
 call adds one to ``mamba2_scan.launches``.
+
+On CUDA it has no backward kernel yet: it raises when a gradient is
+wanted of an input (``_grad.refuse_grad``).  On the CPU the plain
+version differentiates.
 """
 from __future__ import annotations
 
 import torch
 
 from . import ref
+from ._grad import refuse_grad
 
 #: largest head size P and state size N the kernel takes
 MAX_DIM = 128
@@ -77,6 +82,7 @@ def mamba2_scan(x, dt, A, B_, C, state=None):
     from . import _build
 
     _check(x, dt, A, B_, C, state)
+    refuse_grad("mamba2_scan", x, dt, A, B_, C, state)
     Bsz, S, H, P = x.shape
     N = B_.shape[-1]
     x, B_, C = (_last_dense(t) for t in (x, B_, C))

@@ -15,6 +15,10 @@ rows by expert, stably (``Plan``); a caller with several products over
 the same ids, as the MoE layer's three, builds it once and passes it.
 ``schedule(T, K, N, E, dtype)`` then picks the kernel, its tiles and the
 grid from what the host knows, so nothing waits for the card.
+
+On CUDA it has no backward kernel yet: it raises when a gradient is
+wanted of an input (``_grad.refuse_grad``).  On the CPU the plain
+version differentiates.
 """
 from __future__ import annotations
 
@@ -23,6 +27,7 @@ from typing import NamedTuple
 import torch
 
 from . import ref
+from ._grad import refuse_grad
 
 #: largest number of experts the kernel takes
 MAX_EXPERTS = 1024
@@ -228,6 +233,7 @@ def moe_gmm(x: torch.Tensor, w: torch.Tensor, group_ids: torch.Tensor,
     from . import _build
 
     _check(x, w, group_ids)
+    refuse_grad("moe_gmm", x, w)
     T, K = x.shape
     E, _, N = w.shape
     x, w = x.contiguous(), w.contiguous()

@@ -6,12 +6,17 @@ tensors it launches a kernel of ``csrc/rwkv6_scan.cu`` or raises: there
 is no fallback.  ``schedule`` picks the kernel by S: the chunked WKV split
 over the value axis for at least ``CHUNK`` steps, the sequential kernel
 below (the decode step).  Each call adds one to ``rwkv6_scan.launches``.
+
+On CUDA it has no backward kernel yet: it raises when a gradient is
+wanted of an input (``_grad.refuse_grad``).  On the CPU the plain
+version differentiates.
 """
 from __future__ import annotations
 
 import torch
 
 from . import ref
+from ._grad import refuse_grad
 
 #: largest head size D the kernel takes
 MAX_DIM = 128
@@ -70,6 +75,7 @@ def rwkv6_scan(r, k, v, w, u, state=None):
     from . import _build
 
     _check(r, k, v, w, u, state)
+    refuse_grad("rwkv6_scan", r, k, v, w, u, state)
     B, S, H, D = r.shape
     r, k, v, w = (t.contiguous() for t in (r, k, v, w))
     u = u.float().contiguous()

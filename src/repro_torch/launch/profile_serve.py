@@ -38,14 +38,14 @@ def _device_us(evt) -> float:
     return 0.0
 
 
-def _report(name: str, prof, wall_s: float) -> None:
+def _report(name: str, prof, wall_s: float, top: int = TOP) -> None:
     rows = [(e.key, _device_us(e), e.count) for e in prof.key_averages()
             if _device_us(e) > 0 and e.device_type.name == "CUDA"]
     rows.sort(key=lambda r: -r[1])
     busy_ms = sum(r[1] for r in rows) / 1e3
     print(f"{name}: wall {wall_s * 1e3:.2f} ms, device busy {busy_ms:.2f} ms "
           f"({100 * busy_ms / (wall_s * 1e3):.1f} %)")
-    for key, us, count in rows[:TOP]:
+    for key, us, count in rows[:top]:
         print(f"  {us / 1e3:9.3f} ms  {100 * us / 1e3 / busy_ms:5.1f} %  "
               f"x{count:<5d} {key[:90]}")
 

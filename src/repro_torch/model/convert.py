@@ -25,7 +25,8 @@ def _flatten(tree, prefix: str = ""):
 
 
 @torch.no_grad()
-def from_jax_params(tree: dict, cfg: ArchConfig, device="cuda") -> LM:
+def from_jax_params(tree: dict, cfg: ArchConfig, device="cuda",
+                    dtype: torch.dtype | None = None) -> LM:
     """Build the port's parameters from the JAX package's tree.
 
     The stacked ``groups`` leaves (leading ``n_groups`` axis, one list entry
@@ -39,10 +40,14 @@ def from_jax_params(tree: dict, cfg: ArchConfig, device="cuda") -> LM:
     Weights keep their ``(d_in, d_out)`` layouts and their dtypes: bf16
     weights stay bf16 and f32 norm weights f32.  Leaves may be numpy arrays
     of any float dtype (bf16 leaves can come as float32: the widening and
-    the cast back are exact).  ``device`` defaults to the card; with no
-    GPU it raises unless the caller passes ``device="cpu"``.
+    the cast back are exact).  With ``dtype`` every leaf takes that dtype
+    instead (f32: a tree of f32 weights or gradients carried across
+    unrounded).  ``device`` defaults to the card; with no GPU it raises
+    unless the caller passes ``device="cpu"``.
     """
     params = LM(cfg, resolve_device(device))
+    if dtype is not None:
+        params.to(dtype)
     P = len(cfg.layer_pattern)
     state = dict(_flatten({k: v for k, v in tree.items() if k != "groups"}))
     for i, group in enumerate(tree["groups"]):

@@ -1,5 +1,5 @@
-"""Model assembly for serving: config -> params, caches, prefill/decode
-``step``.
+"""Model assembly: config -> params; the training forward (``forward``,
+``loss_fn``, ``chunked_ce``); caches and the prefill/decode ``step``.
 
 Counterpart of ``repro/model/lm.py``, for every layer kind:
 
@@ -15,6 +15,11 @@ frontend's embeddings projected to d (llama-vision) or the output of the
 encoder over them (whisper), built once by ``init_cache``.  The JAX
 package scans over stacked group params; here the layers are an
 ``nn.ModuleList`` walked by a Python loop, run eagerly.
+
+Parameters are made with ``requires_grad=False``, which serving keeps;
+a trainer turns them on (``params.requires_grad_(True)``).  The attention
+and gather kernels differentiate through their own backward kernels on
+the card; the scans and the grouped matmul refuse a gradient there.
 """
 from __future__ import annotations
 
@@ -22,6 +27,7 @@ import math
 
 import torch
 from torch import nn
+from torch.utils import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops
@@ -101,14 +107,16 @@ class Block(nn.Module):
             self.ln_mlp_post = RMSNorm(cfg.d_model, device)
 
     def ffn(self, h, cfg: ArchConfig):
-        """The JAX package's ``_ffn``.  Serving drops the MoE's aux loss,
-        as ``repro.model.lm.step`` does."""
+        """The JAX package's ``_ffn``: (y, aux), aux the MoE's
+        load-balance loss (f32) or 0.0 with no experts.  Serving drops
+        aux, as ``repro.model.lm.step`` does; training adds it to the
+        loss."""
         if not cfg.n_experts:
-            return self.mlp(h, cfg)
-        y, _ = self.moe(h, cfg)
+            return self.mlp(h, cfg), 0.0
+        y, aux = self.moe(h, cfg)
         if cfg.dense_residual:
             y = y + self.mlp(h, cfg)
-        return y
+        return y, aux
 
     def self_attention(self, x, cfg: ArchConfig, spec: AttnSpec, rope,
                        cache, pos: int):
@@ -119,13 +127,14 @@ class Block(nn.Module):
         return x + a
 
     def feed_forward(self, x, cfg: ArchConfig):
-        f = self.ffn(self.ln_mlp(x), cfg)
+        f, aux = self.ffn(self.ln_mlp(x), cfg)
         if cfg.post_norms:
             f = self.ln_mlp_post(f)
-        return x + f
+        return x + f, aux
 
     def forward(self, x, cfg: ArchConfig, spec: AttnSpec, rope, *,
                 cache=None, pos: int = 0):
+        """-> (x, aux), aux as ``ffn``'s."""
         return self.feed_forward(
             self.self_attention(x, cfg, spec, rope, cache, pos), cfg)
 
@@ -341,7 +350,7 @@ def _encode(params: LM, cfg: ArchConfig, frames):
     rope = rope_tables(torch.arange(x.shape[1], device=x.device),
                        rope_dim(cfg), spec.rope_theta)
     for block in params.encoder:
-        x = block(x, cfg, spec, rope)
+        x, _ = block(x, cfg, spec, rope)
     return params.ln_enc(x)
 
 
@@ -359,15 +368,138 @@ def _memory(params: LM, cfg: ArchConfig, extra):
 def lm_head(params: LM, cfg: ArchConfig, x):
     """Final norm, the tied or untied LM head, and the final softcap
     (``tanh(logits / c) * c`` op by op in the logits' dtype).  Returns
-    logits over the PADDED vocab with pad rows masked to -1e30."""
+    logits over the PADDED vocab with pad rows masked to -1e30.  The bf16
+    head is widened to f32 for f32 activations (``chunked_ce``), as JAX
+    promotes it."""
     x = params.ln_f(x)
-    logits = x @ (params.embed.T if cfg.tie_embeddings else params.lm_head)
+    w = params.embed.T if cfg.tie_embeddings else params.lm_head
+    logits = x @ w.to(x.dtype)
     if cfg.final_logit_softcap:
         c = _rounded(cfg.final_logit_softcap, logits.dtype)
         logits = torch.tanh(logits / c) * c
     if cfg.vocab_padded != cfg.vocab:
         logits[..., cfg.vocab:] = -1e30
     return logits
+
+
+class _Layers:
+    """Applies layer i of ``params`` by its kind, for ``forward`` and
+    ``step``: ``layers(i, x, cache=None, pos=0) -> (x, aux)``, aux the MoE's
+    load-balance loss or 0.0.  Rotary tables over ``positions`` are built
+    once per theta, and only for a model with attention layers."""
+
+    def __init__(self, params: LM, cfg: ArchConfig, positions, *, x0,
+                 memory=None):
+        self.params, self.cfg, self.positions = params, cfg, positions
+        self.x0, self.memory = x0, memory
+        self.specs = build_specs(cfg)
+        self.shared_idx = shared_indices(cfg)
+        self.ropes = {}
+
+    def rope(self, spec: AttnSpec):
+        if spec.rope_theta not in self.ropes:
+            self.ropes[spec.rope_theta] = rope_tables(
+                self.positions, rope_dim(self.cfg), spec.rope_theta)
+        return self.ropes[spec.rope_theta]
+
+    def __call__(self, i: int, x, *, cache=None, pos: int = 0):
+        cfg, params = self.cfg, self.params
+        j = i % len(cfg.layer_pattern)
+        kind, spec, layer = cfg.layer_pattern[j], self.specs[j], \
+            params.layers[i]
+        if kind in "GL":
+            return layer(x, cfg, spec, self.rope(spec), cache=cache, pos=pos)
+        if kind == "X":
+            return layer(x, cfg, spec, self.rope(spec), cache=cache, pos=pos,
+                         memory=self.memory)
+        if kind == "H":
+            return layer(x, cfg, spec, self.rope(spec),
+                         shared=params.shared[self.shared_idx[j]],
+                         x0=self.x0, cache=cache, pos=pos), 0.0
+        return layer(x, cfg, cache=cache), 0.0
+
+
+# ---------------------------------------------------------------------------
+# training forward and losses
+# ---------------------------------------------------------------------------
+
+def forward(params: LM, cfg: ArchConfig, tokens, *, extra=None,
+            remat: bool = False):
+    """The full-sequence forward of training: tokens (B, S) -> (logits
+    (B, S, vocab) over the real vocab, in the weights' dtype; aux, the
+    summed MoE load-balance loss, f32 0-d).
+
+    ``extra`` takes the stub frontend's inputs, as ``init_cache`` does.
+    With ``remat`` each layer group's activations are recomputed in the
+    backward (``torch.utils.checkpoint``, non-reentrant) where the JAX
+    package wraps its scanned group in ``jax.checkpoint``; the values and
+    gradients are the same, and on the card each group's attention
+    forwards launch twice.  aux is summed layer after layer, as the JAX
+    package's scan carries it.  Like ``step``, it runs every layer: a
+    config cut in depth to a count that is not a multiple of the pattern
+    ends on a shorter group."""
+    x0 = x = _embed(params, cfg, tokens)
+    layer = _Layers(params, cfg, torch.arange(tokens.shape[1],
+                                              device=x.device),
+                    x0=x0, memory=_memory(params, cfg, extra))
+    P = len(cfg.layer_pattern)
+
+    def group(first, x, aux):
+        for i in range(first, min(first + P, cfg.n_layers)):
+            x, a = layer(i, x)
+            aux = aux + a
+        return x, aux
+
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for first in range(0, cfg.n_layers, P):
+        if remat:
+            x, aux = checkpoint.checkpoint(group, first, x, aux,
+                                           use_reentrant=False)
+        else:
+            x, aux = group(first, x, aux)
+    return lm_head(params, cfg, x)[..., :cfg.vocab], aux
+
+
+def loss_fn(params: LM, cfg: ArchConfig, batch, *, remat: bool = False):
+    """Next-token cross entropy plus 0.01 x the MoE aux loss, f32 0-d.
+    batch: {"tokens": (B, S + 1) ids, optionally "extra"}; the logits of
+    positions 0..S-1 predict tokens 1..S, in f32."""
+    tokens = batch["tokens"]
+    logits, aux = forward(params, cfg, tokens, extra=batch.get("extra"),
+                          remat=remat)
+    lg = logits[:, :-1].float()
+    logz = torch.logsumexp(lg, dim=-1)
+    ll = torch.gather(lg, -1, tokens[:, 1:, None].long())[..., 0]
+    return (logz - ll).mean() + 0.01 * aux
+
+
+def chunked_ce(params: LM, cfg: ArchConfig, x, targets, mask=None, *,
+               n_chunks: int = 8):
+    """Memory-bounded cross entropy over hidden states x (B, S, d): the
+    (tokens, vocab) logits are made one chunk of tokens at a time, in f32
+    over the padded vocab (whose pad rows lm_head sets to -1e30).  Tokens
+    are padded to ``n_chunks`` equal chunks, with weight 0; ``mask``
+    weighs the tokens.  Returns sum((logz - ll) * mask) / max(sum(mask), 1)
+    as the JAX package's unrolled chunk loop computes it."""
+    B, S, d = x.shape
+    T = B * S
+    xf = x.reshape(T, d)
+    tf = targets.reshape(T).long()
+    mf = (mask.reshape(T).float() if mask is not None
+          else torch.ones(T, dtype=torch.float32, device=x.device))
+    chunk = max(-(-T // n_chunks), 1)
+    pad = chunk * n_chunks - T
+    xf = nn.functional.pad(xf, (0, 0, 0, pad))
+    tf = nn.functional.pad(tf, (0, pad))
+    mf = nn.functional.pad(mf, (0, pad))
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for c in range(n_chunks):
+        sl = slice(c * chunk, (c + 1) * chunk)
+        lg = lm_head(params, cfg, xf[sl][None].float())[0]
+        logz = torch.logsumexp(lg, dim=-1)
+        ll = torch.gather(lg, -1, tf[sl, None])[:, 0]
+        total = total + ((logz - ll) * mf[sl]).sum()
+    return total / torch.clamp(mf.sum(), min=1.0)
 
 
 # ---------------------------------------------------------------------------
@@ -422,38 +554,13 @@ def step(params: LM, cfg: ArchConfig, cache, tokens):
     into its tensors, the recurrent states replaced in its dicts) and its
     ``pos`` advanced by S; the same dict is returned.
     """
-    specs = build_specs(cfg)
-    shared_idx = shared_indices(cfg)
     S = tokens.shape[1]
     pos = cache["pos"]
-    memory = cache.get("memory")
     x0 = x = _embed(params, cfg, tokens)
-    positions = torch.arange(pos, pos + S, device=x.device)
-    ropes = {}
-
-    def rope(spec):
-        """Rotary tables, built once per theta and only for a model with
-        attention layers."""
-        if spec.rope_theta not in ropes:
-            ropes[spec.rope_theta] = rope_tables(positions, rope_dim(cfg),
-                                                 spec.rope_theta)
-        return ropes[spec.rope_theta]
-
-    pattern = cfg.layer_pattern
-    for i, layer in enumerate(params.layers):
-        j = i % len(pattern)
-        kind, spec, c = pattern[j], specs[j], cache["layers"][i]
-        if kind in "GL":
-            x = layer(x, cfg, spec, rope(spec), cache=c, pos=pos)
-        elif kind == "X":
-            x = layer(x, cfg, spec, rope(spec), cache=c, pos=pos,
-                      memory=memory)
-        elif kind == "H":
-            x = layer(x, cfg, spec, rope(spec),
-                      shared=params.shared[shared_idx[j]], x0=x0, cache=c,
-                      pos=pos)
-        else:
-            x = layer(x, cfg, cache=c)
+    layer = _Layers(params, cfg, torch.arange(pos, pos + S, device=x.device),
+                    x0=x0, memory=cache.get("memory"))
+    for i in range(cfg.n_layers):
+        x, _ = layer(i, x, cache=cache["layers"][i], pos=pos)
     logits = lm_head(params, cfg, x[:, -1:])[:, 0]
     cache["pos"] = pos + S
     return logits, cache

@@ -1,0 +1,297 @@
+"""The backward of the port's two training kernels in their plain
+versions (the CPU path of ``flash_attention_bwd`` and ``burst_gather_bwd``,
+autograd through ``ref.py``) against JAX's gradients of the JAX package's
+refs, on the CPU; plain-torch models of the CUDA kernels' schedules (the
+attention backward's tile loops, with the tile rows read from the CUDA
+source; the gather backward's counting sort and segmented sum); and the
+rule of the wrappers that have no backward kernel.  The CUDA kernels
+themselves are held to these plain versions on the card by
+``chip_smoke.py``.
+
+Tolerances: 2e-2 in bf16 and 2e-5 in f32, ``tests/test_kernels.py``'s
+(the same math; sums in other orders, and in bf16 the roundings of two
+frameworks); the gather's f32 scatter-add within 1e-6; the attention
+model within 1e-4 (its f32 sums taken tile by tile over up to 200 keys);
+the gather model exactly.
+"""
+import os
+import re
+
+import numpy as np
+import pytest
+
+pytest.importorskip("torch")
+pytest.importorskip("jax")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+import torch  # noqa: E402
+
+from repro.kernels import ref as jref  # noqa: E402
+from repro_torch.kernels import burst_gather as bg  # noqa: E402
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels._grad import refuse_grad  # noqa: E402
+
+
+def _np(x):
+    if isinstance(x, torch.Tensor):
+        return x.detach().float().numpy()
+    return np.asarray(jnp.asarray(x, jnp.float32))
+
+
+#: (B, Sq, Skv, Hq, Hkv, D), kwargs of each attention backward case
+ATTN_CASES = {
+    "causal-gqa": ((2, 19, 19, 4, 2, 16), dict(causal=True)),
+    "window": ((1, 33, 33, 4, 1, 24), dict(causal=True, window=8)),
+    "softcap-scale": ((2, 17, 17, 8, 4, 16),
+                      dict(causal=True, softcap=50.0, scale=1 / 12)),
+    "cross": ((2, 9, 21, 4, 4, 32), dict(causal=False)),
+    "group-16": ((1, 12, 12, 16, 1, 8), dict(causal=True)),
+}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", list(ATTN_CASES))
+def test_attention_plain_backward_matches_jax_grad(case, dtype):
+    """``flash_attention_bwd`` on the CPU (autograd through the plain
+    version), and autograd through the ``flash_attention`` wrapper, against
+    ``jax.vjp`` of ``repro.kernels.ref.attention_ref``."""
+    shape, kw = ATTN_CASES[case]
+    b, sq, skv, hq, hkv, d = shape
+    rng = np.random.default_rng(list(ATTN_CASES).index(case))
+    q, do = (rng.standard_normal((b, sq, hq, d)).astype(np.float32)
+             for _ in range(2))
+    k, v = (rng.standard_normal((b, skv, hkv, d)).astype(np.float32)
+            for _ in range(2))
+    jd, td = getattr(jnp, dtype), getattr(torch, dtype)
+    want = jax.jit(lambda q, k, v, do: jax.vjp(
+        lambda q, k, v: jref.attention_ref(q, k, v, **kw), q, k, v)[1](do))(
+        *(jnp.asarray(a, jd) for a in (q, k, v, do)))
+    tq, tk, tv, tdo = (torch.from_numpy(a).to(td) for a in (q, k, v, do))
+    got = fa.flash_attention_bwd(tq, tk, tv, None, None, tdo, **kw)
+    leaves = [t.clone().requires_grad_(True) for t in (tq, tk, tv)]
+    via = torch.autograd.grad(fa.flash_attention(*leaves, **kw), leaves,
+                              tdo)
+    tol = 2e-2 if dtype == "bfloat16" else 2e-5
+    for g, a, w in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == td and a.shape == w.shape, g
+        np.testing.assert_allclose(_np(a), _np(w), rtol=tol, atol=tol,
+                                   err_msg=g)
+    for a, w in zip(via, got):
+        assert torch.equal(a, w)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gather_plain_backward_matches_jax_grad(dtype):
+    """``burst_gather_bwd`` on the CPU against ``jax.vjp`` of
+    ``jnp.take``, with ids repeated (one of them by half the rows) and rows
+    no id takes; it adds in the table's dtype, as the reference's VJP."""
+    rng = np.random.default_rng(11)
+    R, N, D = 50, 64, 24
+    idx = rng.integers(0, R // 2, N).astype(np.int32)
+    idx[::2] = 3
+    dout = rng.standard_normal((N, D)).astype(np.float32)
+    jd, td = getattr(jnp, dtype), getattr(torch, dtype)
+    _, vjp = jax.vjp(lambda t: jref.burst_gather_ref(t, jnp.asarray(idx)),
+                     jnp.zeros((R, D), jd))
+    (want,) = vjp(jnp.asarray(dout, jd))
+    got = bg.burst_gather_bwd(torch.from_numpy(dout).to(td),
+                              torch.from_numpy(idx), R)
+    assert got.dtype == td and got.shape == (R, D)
+    tol = 2e-2 if dtype == "bfloat16" else 1e-6
+    np.testing.assert_allclose(_np(got), _np(want), rtol=tol, atol=tol)
+    assert not _np(got)[R // 2:].any()
+
+
+def test_refuse_grad_only_when_a_gradient_is_wanted():
+    """The rule of the CUDA wrappers with no backward kernel: it raises
+    for an input that requires grad in grad mode, and not under no_grad or
+    for inputs that do not."""
+    x = torch.ones(3, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="no backward kernel"):
+        refuse_grad("mamba2_scan", x, None)
+    with torch.no_grad():
+        refuse_grad("mamba2_scan", x)
+    refuse_grad("mamba2_scan", x.detach(), None)
+
+
+# ---------------------------------------------------------------------------
+# models of the CUDA backward kernels' schedules, in plain torch
+# ---------------------------------------------------------------------------
+
+_CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "src", "repro_torch", "kernels", "csrc")
+
+
+def _bwd_rows(dp):
+    """``BwdCfg<DP>::R`` of csrc/flash_attention.cu: the rows of a query
+    tile and of a key tile of the backward kernels."""
+    src = open(os.path.join(_CSRC, "flash_attention.cu")).read()
+    m = re.search(r"static constexpr int R = DP > (\d+) \? (\d+) : (\d+);",
+                  src)
+    limit, small, large = (int(g) for g in m.groups())
+    return small if dp > limit else large
+
+
+def _scores(q, k, qs, ks, causal, window, softcap, scale):
+    """x (capped, scaled scores), dx/ds and the mask of the pairs (qs, ks)
+    of one (batch, head): q (Sq', D), k (Sk', D) in f32."""
+    s = q @ k.T
+    x, dx = s * scale, torch.full_like(s, scale)
+    if softcap is not None:
+        t = torch.tanh(x / softcap)
+        x, dx = t * softcap, scale * (1 - t * t)
+    ok = torch.ones_like(s, dtype=torch.bool)
+    if causal:
+        ok &= ks[None, :] <= qs[:, None]
+    if window is not None:
+        ok &= ks[None, :] > qs[:, None] - window
+    return x, dx, ok
+
+
+def _flash_bwd_model(q, k, v, do, *, causal, window, softcap, scale, R):
+    """The kernels' two passes, tile by tile: delta = rowsum(dO o O), then
+    for each (KV tile, KV head) the group's heads and the query tiles its
+    keys can see (dK, dV), and for each (query tile, head) the KV tiles
+    its rows can see (dQ), with the same tile bounds as the kernels.
+    Returns (dq, dk, dv) and the number of (query, key) pairs each pass
+    let through, which must be every valid pair once."""
+    B, Sq, Hq, D = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    g = Hq // Hkv
+    qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
+    # the forward's o and log-sum-exp
+    lse = torch.empty((B, Hq, Sq))
+    o = torch.empty_like(qf)
+    qs_all, ks_all = torch.arange(Sq), torch.arange(Skv)
+    for b in range(B):
+        for h in range(Hq):
+            x, _, ok = _scores(qf[b, :, h], kf[b, :, h // g], qs_all, ks_all,
+                               causal, window, softcap, scale)
+            x = x.masked_fill(~ok, -torch.inf)
+            lse[b, h] = torch.logsumexp(x, -1)
+            o[b, :, h] = torch.softmax(x, -1).nan_to_num(0.0) @ vf[b, :, h // g]
+    delta = (dof * o).sum(-1).permute(0, 2, 1)           # (B, Hq, Sq)
+    dq, dk, dv = (torch.zeros_like(t) for t in (qf, kf, vf))
+    seen_kv = seen_q = 0
+    for b in range(B):
+        for hk in range(Hkv):
+            for k0 in range(0, Skv, R):
+                ks = torch.arange(k0, min(k0 + R, Skv))
+                qbeg = k0 // R * R if causal else 0
+                qend = Sq if window is None else min(Sq, k0 + R - 1 + window)
+                for h in range(hk * g, hk * g + g):
+                    for qt0 in range(qbeg, qend, R):
+                        qs = torch.arange(qt0, min(qt0 + R, Sq))
+                        x, dx, ok = _scores(qf[b, qs, h], kf[b, ks, hk], qs,
+                                            ks, causal, window, softcap,
+                                            scale)
+                        p = torch.where(ok, torch.exp(x - lse[b, h, qs, None]),
+                                        0.0)
+                        dp = dof[b, qs, h] @ vf[b, ks, hk].T
+                        ds = p * (dp - delta[b, h, qs, None]) * dx
+                        dv[b, ks, hk] += p.T @ dof[b, qs, h]
+                        dk[b, ks, hk] += ds.T @ qf[b, qs, h]
+                        seen_kv += int(ok.sum())
+        for h in range(Hq):
+            for q0 in range(0, Sq, R):
+                qs = torch.arange(q0, min(q0 + R, Sq))
+                kend = min(Skv, min(q0 + R, Sq)) if causal else Skv
+                kbeg = max(0, q0 - window + 1) // R * R if window else 0
+                for kt0 in range(kbeg, kend, R):
+                    ks = torch.arange(kt0, min(kt0 + R, kend))
+                    x, dx, ok = _scores(qf[b, qs, h], kf[b, ks, h // g], qs,
+                                        ks, causal, window, softcap, scale)
+                    p = torch.where(ok, torch.exp(x - lse[b, h, qs, None]),
+                                    0.0)
+                    dp = dof[b, qs, h] @ vf[b, ks, h // g].T
+                    dq[b, qs, h] += (p * (dp - delta[b, h, qs, None])
+                                     * dx) @ kf[b, ks, h // g]
+                    seen_q += int(ok.sum())
+    return (dq, dk, dv), seen_kv, seen_q
+
+
+#: (B, Sq, Skv, Hq, Hkv, D), kwargs: tiles of 64 (32 at D = 256) cut by
+#: the causal diagonal, by windows narrower and wider than a tile, ragged
+#: ends, Sq != Skv and a group of 4
+MODEL_CASES = {
+    "causal-ragged": ((1, 150, 150, 4, 2, 16), dict(causal=True)),
+    "window-8": ((1, 150, 150, 2, 1, 16), dict(causal=True, window=8)),
+    "window-100-softcap": ((1, 200, 200, 2, 2, 16),
+                           dict(causal=True, window=100, softcap=50.0,
+                                scale=1 / 12)),
+    "cross-70x130": ((2, 70, 130, 4, 1, 16), dict(causal=False)),
+    "d256-causal": ((1, 100, 100, 2, 1, 256), dict(causal=True)),
+}
+
+
+@pytest.mark.parametrize("case", list(MODEL_CASES))
+def test_flash_bwd_schedule_model_matches_the_plain_backward(case):
+    """A plain-torch model of ``flash_bwd_dkdv`` / ``flash_bwd_dq``'s tile
+    loops (tile rows read from the CUDA source) gives the plain
+    version's gradients, and each pass visits every valid (query, key)
+    pair exactly once."""
+    (b, sq, skv, hq, hkv, d), kw = MODEL_CASES[case]
+    rng = np.random.default_rng(list(MODEL_CASES).index(case) + 40)
+    q, do = (torch.from_numpy(rng.standard_normal((b, sq, hq, d)).astype(
+        np.float32)) for _ in range(2))
+    k, v = (torch.from_numpy(rng.standard_normal((b, skv, hkv, d)).astype(
+        np.float32)) for _ in range(2))
+    full = dict(causal=kw["causal"], window=kw.get("window"),
+                softcap=kw.get("softcap"), scale=kw.get("scale", d ** -0.5))
+    got, seen_kv, seen_q = _flash_bwd_model(q, k, v, do, R=_bwd_rows(d),
+                                            **full)
+    want = fa.flash_attention_bwd(q, k, v, None, None, do, **kw)
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        np.testing.assert_allclose(a.numpy(), w.numpy(), rtol=1e-4,
+                                   atol=1e-5, err_msg=name)
+    _, _, ok = _scores(q[0, :, 0], k[0, :, 0], torch.arange(sq),
+                       torch.arange(skv), full["causal"], full["window"],
+                       None, 1.0)
+    assert seen_kv == seen_q == int(ok.sum()) * b * hq
+
+
+def _gather_bwd_model(dout, idx, R):
+    """``burst_gather_bwd``'s counting sort and segmented sum: each id's
+    rank among the equal ids before it, the rows' counts and their
+    exclusive scan, the positions placed by offset + rank, then each taken
+    row summed in f32 over its positions in order and rounded once."""
+    N = idx.numel()
+    ids = idx.tolist()
+    rank = [sum(ids[j] == ids[i] for j in range(i)) for i in range(N)]
+    counts = [0] * R
+    for r in ids:
+        if 0 <= r < R:
+            counts[r] += 1
+    offsets = np.concatenate([[0], np.cumsum(counts)]).tolist()
+    rows = [r for r in range(R) if counts[r]]
+    perm = [0] * offsets[R]
+    for i, r in enumerate(ids):
+        if 0 <= r < R:
+            perm[offsets[r] + rank[i]] = i
+    out = torch.zeros((R, dout.shape[1]), dtype=dout.dtype)
+    for r in rows:
+        acc = torch.zeros(dout.shape[1], dtype=torch.float32)
+        for p in range(offsets[r], offsets[r + 1]):
+            acc = acc + dout[perm[p]].float()
+        out[r] = acc.to(dout.dtype)
+    return out
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gather_bwd_model_is_the_sequential_f32_sum(dtype):
+    """The model of the kernel equals a sequential f32 ``index_add_``
+    rounded once, bit for bit (what ``chip_smoke.py`` holds the kernel
+    to), with repeated ids, one id taken by a third of the rows, and ids
+    outside [0, R), which add to no row."""
+    rng = np.random.default_rng(17)
+    R, N, D = 40, 90, 12
+    idx = torch.from_numpy(rng.integers(-3, R + 3, N).astype(np.int32))
+    idx[::3] = 5
+    dout = torch.from_numpy(rng.standard_normal((N, D)).astype(
+        np.float32)).to(getattr(torch, dtype))
+    got = _gather_bwd_model(dout, idx, R)
+    keep = (idx >= 0) & (idx < R)
+    want = torch.zeros((R, D)).index_add_(
+        0, idx[keep].long(), dout[keep].float()).to(dout.dtype)
+    assert torch.equal(got, want)
