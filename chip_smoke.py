@@ -150,7 +150,8 @@ Phases, each printing its own lines:
    autograd through the plain version at the training shape and the
    families' modes (softcap 50 with scale 1/12 and a window, D = 256,
    g = 16, cross-attention with Sq != Skv, whisper's encoder, a ragged
-   head size, f32), and ``burst_gather_bwd`` with heavily repeated ids
+   head size, f32, and bf16 rows four times the training length), and
+   ``burst_gather_bwd`` with heavily repeated ids
    (one id taken by every row too) bit for bit equal to a sequential f32
    sum, both run twice for the same bits; the four wrappers with no
    backward kernel (decode attention, the two scans, the grouped matmul)
@@ -163,8 +164,10 @@ Phases, each printing its own lines:
    of its 36 layers for 5 steps of B 4 x S 1024 (exact launches of the
    four kernels on its path, finite losses; each step's loss, grad norm
    and seconds, tokens/s, peak memory); the two backward kernels' times
-   beside SDPA's backward and ``index_add_``, and their rows in the
-   kernels line (the forward rows' launches by path).
+   beside SDPA's backward and ``index_add_``, each with the device time of
+   every kernel it launched by name (``torch.profiler``: the attention's
+   delta and wgmma passes, the gather's sort and writer), and their rows
+   in the kernels line (the forward rows' launches by path).
 
 Exits non-zero, printing no result line, if any phase fails or there is no
 CUDA device.  Imports nothing of JAX.
@@ -217,6 +220,8 @@ from repro_torch.kernels import rwkv6_scan as r6  # noqa: E402
 from repro_torch.kernels import sim_sweep as ss  # noqa: E402
 from repro_torch.kernels.padded_batch import build_padded_batch  # noqa: E402
 from repro_torch.launch import serve, train  # noqa: E402
+from repro_torch.launch.profile_bwd import (  # noqa: E402
+    embedding_ids, kernel_split, time_ms)
 from repro_torch.model import lm, moe  # noqa: E402
 
 #: H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, f32
@@ -260,10 +265,6 @@ CACHE_BF16_REL_L2 = 5e-2
 #: ``check_cache``)
 CACHE_BF16_REL_L2_MOE = 0.2
 B, PROMPT, GEN = 4, 512, 32
-#: clock cycles the card idles before each timed call (~0.5 ms at 2 GHz):
-#: longer than the host takes to issue the slowest wrapper timed here, the
-#: split-KV decode with its scratch and two launches, on a slow host
-SPIN_CYCLES = 1_000_000
 
 
 def _phase(msg):
@@ -1021,30 +1022,6 @@ def check_cache(dtype, params, cfg, prompts, res, extra=None):
            f"{'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"{name}: relative L2 error {rel:.3e}")
-
-
-def time_ms(fn, flush, reps=25):
-    """Median device time of one call, with L2 flushed before each.
-
-    Before each call the card spins for ``SPIN_CYCLES`` (~0.5 ms), so the
-    host has enqueued the call, and its end event, before the card reaches
-    them: the events then time the call's kernels and not the host's
-    issuing of them, which for a wrapper around one short kernel is the
-    larger part.  A Python loop of launches, as the plain scans are, takes
-    longer to issue than the spin lasts, and its time stays its host's."""
-    fn()
-    times = []
-    for _ in range(reps):
-        flush.zero_()
-        torch.cuda._sleep(SPIN_CYCLES)
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        times.append((start, end))
-    torch.cuda.synchronize()
-    return statistics.median(s.elapsed_time(e) for s, e in times)
 
 
 def _sdpa(q, k, v, **kw):
@@ -2349,7 +2326,8 @@ F32_BWD_TOL = dict(rtol=1e-4, atol=1e-4)
 #: the training shape, the families' modes (gemma2's softcap 50 with scale
 #: 1/12, with and without a window that bites; gemma3's D = 256;
 #: chatglm3's g = 16; cross-attention with Sq != Skv; whisper's encoder),
-#: a ragged head size, and f32
+#: a ragged head size, f32, and rows four times the training length (the
+#: bf16-rounded P and dS of the wgmma kernels summed over 4096 rows)
 BWD_CASES = (
     ("train", (TRAIN_B, TRAIN_S, TRAIN_S, 32, 8, 128), dict(causal=True),
      torch.bfloat16),
@@ -2372,6 +2350,8 @@ BWD_CASES = (
      dict(causal=True, window=40, softcap=50.0), torch.float32),
     ("f32-cross-d256", (1, 70, 90, 4, 4, 256), dict(causal=False),
      torch.float32),
+    ("s4096", (1, 4096, 4096, 32, 8, 128), dict(causal=True),
+     torch.bfloat16),
 )
 
 
@@ -2403,14 +2383,6 @@ def check_attention_bwd(gen):
                                  f"differ")
         _phase(f"check flash_attention_bwd[{name}]: two runs, same bits ok")
     return errs["train"]
-
-
-def embedding_ids(batch=TRAIN_B, seq=TRAIN_S):
-    """The train phase's first batch, flattened: the ids its embedding
-    gathers (Zipfian, so heavily repeated), as int32 on the card."""
-    toks = SyntheticTokens(configs.get(TRAIN_ARCH).vocab, seed=0).batch(
-        0, 0, batch, seq)
-    return torch.from_numpy(toks).reshape(-1).cuda().to(torch.int32)
 
 
 def check_gather_bwd(gen):
@@ -2685,6 +2657,8 @@ def train_rows(errs, flush, gen):
     ``scaled_dot_product_attention`` (cuDNN/flash, enable_gqa).  Bound: the
     five products of the causal backward, 2 x 5 D flops a (query, key)
     pair; bytes q, k, v, o, dO, lse read and dq, dk, dv written once.
+    Each line also gives the device time of every kernel the call launched
+    (``kernel_split``), and the row keeps them as ``kernels_ms``.
     burst_gather_bwd: the train batch's 4,100 ids into the (49152, 4096)
     bf16 embedding gradient; plain: autograd through
     ``ref.burst_gather_ref``; library: ``index_add_`` into a zero f32
@@ -2696,8 +2670,10 @@ def train_rows(errs, flush, gen):
     o = fa._launch("flash_attention_fwd", q, k, v, causal=True, window=None,
                    softcap=None, scale=None, q_offset=0, kv_len=None,
                    lse=lse)
-    ms = time_ms(lambda: fa.flash_attention_bwd(q, k, v, o, lse, do,
-                                                causal=True), flush)
+    def bwd():
+        return fa.flash_attention_bwd(q, k, v, o, lse, do, causal=True)
+    ms = time_ms(bwd, flush)
+    split = kernel_split(bwd)
     plain = time_ms(lambda: _attn_grads(ref.attention_ref, q, k, v, do,
                                         causal=True), flush, reps=5)
     qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_(True)
@@ -2717,17 +2693,21 @@ def train_rows(errs, flush, gen):
            f"{(b, s, hq, hkv, d)} causal bf16: {ms:.4f} ms, plain "
            f"{plain:.4f} ms, SDPA backward {lib:.4f} ms, bound {b_ms:.4f} "
            f"ms ({b_by}; {flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB), "
-           f"{flops / ms / 1e9:.1f} TFLOP/s; grids dK/dV "
-           f"{s // 64} x {hkv} x {b}, dQ {s // 64} x {hq} x {b}")
+           f"{flops / ms / 1e9:.1f} TFLOP/s; by kernel (profiler, ms a "
+           f"call) {_split_text(split)}")
     rows = [_row("flash_attention_bwd", "src/repro/kernels/"
                  "flash_attention.py:90", errs[0], ms, plain, lib, b_ms,
                  b_by)]
+    rows[-1]["kernels_ms"] = split
     del q, k, v, o, do, qt, kt, vt, out, dot
 
     R, D = configs.get(TRAIN_ARCH).vocab_padded, 4096
     idx = embedding_ids()
     dout = _rand((idx.numel(), D), gen)
-    ms = time_ms(lambda: bg.burst_gather_bwd(dout, idx, R), flush)
+    def gather_bwd():
+        return bg.burst_gather_bwd(dout, idx, R)
+    ms = time_ms(gather_bwd, flush)
+    split = kernel_split(gather_bwd)
     table = torch.zeros((R, D), dtype=torch.bfloat16, device="cuda",
                         requires_grad=True)
 
@@ -2747,18 +2727,25 @@ def train_rows(errs, flush, gen):
            f"{int(torch.bincount(idx).max())} times) into ({R}, {D}) bf16: "
            f"{ms:.4f} ms, plain {plain:.4f} ms, index_add_ into f32 "
            f"{lib:.4f} ms, bound {b_ms:.4f} ms ({b_by}; "
-           f"{nbytes / 1e6:.1f} MB)")
+           f"{nbytes / 1e6:.1f} MB); by stage (profiler, ms a call) "
+           f"{_split_text(split)}")
     rows.append(_row("burst_gather_bwd", "src/repro/kernels/"
                      "burst_gather.py:59", errs[1], ms, plain, lib, b_ms,
                      b_by))
+    rows[-1]["kernels_ms"] = split
     return rows
+
+
+def _split_text(split):
+    return ", ".join(f"{k} {v:.4f}" for k, v in split.items())
 
 
 def check_build_report():
     """Registers and spills (``ptxas -v``) and tensor-core instructions
     (HMMA/HGMMA lines of ``cuobjdump -sass``) of every kernel.  The bf16
     prefill must run on the tensor cores at every head-size bucket, and
-    must not spill at DP <= 128, which covers the served head sizes."""
+    must not spill at DP <= 128, which covers the served head sizes; the
+    bf16 backward's three passes must run on them at DP 64 and 128."""
     for name in _build.SOURCES:
         for kernel, r in sorted(_build.kernel_report(name).items()):
             _phase(f"ptxas {name}.cu {kernel}: {r.get('registers')} "
@@ -2801,6 +2788,15 @@ def check_build_report():
             raise AssertionError(f"flash_fwd_bf16<{dp}> spills: {r}")
     _phase("check flash_fwd_bf16: HGMMA in the SASS of every instantiation, "
            "no spill at DP <= 128 ok")
+    # the bf16 backward at DP <= 128 runs its three passes (dV, dK, dQ) on
+    # the tensor cores
+    for dp in (64, 128):
+        for kernel in (f"flash_bwd_kv_wg<{dp}, 1>", f"flash_bwd_kv_wg<{dp}, 0>",
+                       f"flash_bwd_dq_wg<{dp}>"):
+            if not attn.get(kernel, {}).get("hgmma"):
+                raise AssertionError(f"{kernel}: no HGMMA in its SASS")
+    _phase("check flash_bwd_kv_wg (dV, dK) / flash_bwd_dq_wg: HGMMA in the "
+           "SASS at DP 64 and 128 ok")
 
 
 def check_no_sync(params, cfg, prompts, extra=None):

@@ -41,7 +41,7 @@ _SIGNATURES = {
     },
     "burst_gather": {
         "burst_gather_fwd": [_P, _P, _P, _LL, _LL, _LL, _P, _P],
-        "burst_gather_bwd": [_P, _P, _P, _I, _I, _I, _I, _P, _P],
+        "burst_gather_bwd": [_P, _P, _P, _I, _I, _I, _I, _P, _I, _P],
     },
     "mamba2_scan": {
         "mamba2_scan_fwd": [_P] * 8 + [_I] * 5 + [_LL] * 7 + [_I, _I, _P],

@@ -14,12 +14,16 @@ from __future__ import annotations
 import torch
 
 from . import ref
+from .flash_attention import _sm_count
 
 
 #: ids per tile of the burst detector (``IB`` in csrc/burst_gather.cu)
 TILE = 8
 #: table dtypes of the backward kernel, by its C code
 _BWD_DTYPES = {torch.bfloat16: 0, torch.float32: 1}
+#: ids the backward kernel takes: what its one sorting block holds in
+#: shared memory (``SORT_MAX`` in csrc/burst_gather.cu)
+BWD_MAX_IDS = 16384
 
 
 def _forward(table, idx, bursts):
@@ -109,7 +113,9 @@ def burst_gather_bwd(dout: torch.Tensor, idx: torch.Tensor,
     package does: in bf16 the two differ by the roundings of a row's
     repeated adds, so they are held to each other within a tolerance, not
     bit for bit.  On CUDA: bf16 or f32, ids in [0, rows) (others add to no
-    row); adds one to ``burst_gather_bwd.launches``.
+    row), at most ``BWD_MAX_IDS`` of them; two kernels, a one-block sort of
+    the ids and a writer that sums the taken rows while it zeroes the
+    rest; adds one to ``burst_gather_bwd.launches``.
     """
     if dout.device.type == "cpu":
         with torch.enable_grad():
@@ -130,18 +136,22 @@ def burst_gather_bwd(dout: torch.Tensor, idx: torch.Tensor,
         raise ValueError(f"burst_gather_bwd: dout and idx lie on "
                          f"{dout.device} and {idx.device}")
     N, D = dout.shape
+    if N > BWD_MAX_IDS:
+        raise ValueError(f"burst_gather_bwd: at most {BWD_MAX_IDS} ids on "
+                         f"CUDA (what one block sorts), got {N}")
     dout = dout.contiguous()
     idx32 = idx.to(torch.int32).contiguous()
     dtable = torch.empty((rows, D), dtype=dout.dtype, device=dout.device)
-    # counts (rows), offsets (rows + 1), ranks and positions (N each), the
-    # taken rows (at most min(N, rows)) and their number
-    scratch = torch.empty(2 * rows + 2 * N + min(N, rows) + 2,
+    # the taken rows' segments (4 ints each, at most min(N, rows)), the
+    # sorted positions (N), the bitmap of taken rows and the writer's state
+    scratch = torch.empty(4 * min(N, rows) + N + -(-rows // 32) + 5,
                           dtype=torch.int32, device=dout.device)
     lib = _build.load("burst_gather")
     with torch.cuda.device(dout.device):
         err = lib.burst_gather_bwd(
             dout.data_ptr(), idx32.data_ptr(), dtable.data_ptr(), rows, N, D,
             _BWD_DTYPES[dout.dtype], scratch.data_ptr(),
+            _sm_count(dout.device.index),
             torch.cuda.current_stream().cuda_stream)
     _build.check(err, "burst_gather_bwd")
     burst_gather_bwd.launches += 1

@@ -1,5 +1,6 @@
 // Attention for the serving path: prefill (flash_attention_fwd) and
-// single-token decode (decode_attention_fwd), CUDA C++ for sm_90a.
+// single-token decode (decode_attention_fwd), and the prefill's gradient
+// for training (flash_attention_bwd), CUDA C++ for sm_90a.
 //
 // Replaces: src/repro/kernels/flash_attention.py, `flash_attention` (:90,
 // the Pallas `_kernel`, pallas_call at :126) and `decode_attention` (:149,
@@ -58,6 +59,26 @@
 //    merges the splits in split order: the same bits on every run, no
 //    atomics.  It is launched as a programmatic dependent of the partials,
 //    so its launch overlaps them.
+//
+// The backward (flash_attention_bwd), for training: no kv_len, no q offset.
+// No TPU kernel: the reference trains through jax.vjp of its jnp ref; this
+// is the gradient of the forward above, in passes that each own the rows
+// they write (no float atomics), so every run gives the same bits.
+// flash_bwd_delta first writes delta = rowsum(dO o O) and lse log2(e).
+//  * bf16 at DP <= 128: three passes on the tensor cores, each one
+//    warpgroup of 64 own rows and a TMA producer warp, two blocks an SM:
+//    flash_bwd_kv_wg<DP, 1> (dV: S^T = K Q^T, P^T, dV += P^T dO),
+//    flash_bwd_kv_wg<DP, 0> (dK: S^T and dP^T = V dO^T, dS^T, dK += dS^T Q)
+//    and flash_bwd_dq_wg (S = Q K^T, dP = dO V^T, dS, dQ += dS K).  The
+//    score products are wgmma from shared memory; P and dS go into the
+//    second products as bf16 register fragments (dK and dV, summed over g
+//    x Sq rows, take them as a hi + lo pair).  The training shape (B 4, S
+//    1024, 32 / 8 heads, D 128, causal) does 120 GFLOP of products, 0.12
+//    ms at 989 TFLOP/s; the f32 scores between the products are most of
+//    the time, so they run branch-free (softcap and whole tiles chosen at
+//    compile time).
+//  * f32, and bf16 at D > 128: flash_bwd_dkdv and flash_bwd_dq on the FMA
+//    pipes in f32 (the f32 checks cannot take bf16 or TF32 products).
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -75,6 +96,13 @@ constexpr float kLog2e = 1.4426950408889634f;
 __device__ inline uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&h);
+}
+
+// What rounding (a, b) to the bf16 pair `hi` left out, rounded to bf16
+__device__ inline uint32_t pack_lo(float a, float b, uint32_t hi) {
+  const float2 h =
+      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&hi));
+  return pack_bf16(a - h.x, b - h.y);
 }
 
 // Load 16 bytes of T and widen to f32 in registers.
@@ -973,47 +1001,59 @@ __device__ inline void accumulate(float (*acc)[CG * 4], const float* w,
 }
 
 // One score of the backward: from the raw dot s = q . k and dp = dO . v,
-// with the row's log-sum-exp and delta, the probability p and the score
-// gradient ds, already times d(capped scaled score) / ds, so that
-// dQ = ds K and dK = ds^T Q.  p = ds = 0 where the masks drop the pair.
-__device__ __forceinline__ void score_grad(float s, float dp, float lse,
+// with the row's log-sum-exp in log2 units (lse2 = lse log2(e)) and delta,
+// the probability p and the score gradient ds, already times d(capped
+// scaled score) / ds, so that dQ = ds K and dK = ds^T Q.  p = ds = 0 where
+// the masks drop the pair.  Without a softcap the exponent is one FMA.
+__device__ __forceinline__ void score_grad(float s, float dp, float lse2,
                                            float delta, bool ok,
                                            int has_softcap, float softcap,
                                            float scale, float* p, float* ds) {
-  float x = s * scale, dx = scale;
+  float x2, dx = scale;  // the capped scaled score, in log2 units
   if (has_softcap) {
-    const float t = tanhf(x / softcap);
-    x = t * softcap;
+    const float t = tanhf(s * scale / softcap);
+    x2 = t * softcap * kLog2e;
     dx = scale * (1.f - t * t);
+  } else {
+    x2 = s * (scale * kLog2e);
   }
-  *p = ok && lse != -INFINITY ? expf(x - lse) : 0.f;
+  *p = ok && lse2 != -INFINITY ? exp2f(x2 - lse2) : 0.f;
   *ds = *p * (dp - delta) * dx;
 }
 
-// delta[b, h, i] = sum_d dO[b, i, h, d] O[b, i, h, d] in f32: a warp a row
-// of the (B, Sq, Hq) rows of O.
+// delta[(b Hq + h) SqP + i] = sum_d dO[b, i, h, d] O[b, i, h, d] in f32, a
+// warp a row; rows i in [Sq, SqP) get 0.  With lse_pad, the forward's
+// log-sum-exp lse[b, h, i] times log2(e) goes beside it in the same padded
+// layout (0 past Sq), so that the wgmma kernels load whole 64-row tiles of
+// both.
 template <typename T>
 __global__ void __launch_bounds__(256)
 flash_bwd_delta(const T* __restrict__ o, const T* __restrict__ dout,
-                float* __restrict__ delta, long long rows, int Sq, int Hq,
-                int D) {
+                const float* __restrict__ lse, float* __restrict__ delta,
+                float* __restrict__ lse_pad, long long rows, int Sq, int SqP,
+                int Hq, int D) {
   constexpr int V = 16 / sizeof(T);
   const long long r = (long long)blockIdx.x * 8 + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
   if (r >= rows) return;
+  const long long bh = r / SqP;
+  const int qi = (int)(r % SqP);
   float acc = 0.f;
-  for (int c = lane * V; c < D; c += 32 * V) {
-    float a[V], g[V];
-    load16(o + r * D + c, a);
-    load16(dout + r * D + c, g);
+  if (qi < Sq) {
+    const long long at = ((bh / Hq * Sq + qi) * Hq + bh % Hq) * D;
+    for (int c = lane * V; c < D; c += 32 * V) {
+      float a[V], g[V];
+      load16(o + at + c, a);
+      load16(dout + at + c, g);
 #pragma unroll
-    for (int u = 0; u < V; ++u) acc = fmaf(a[u], g[u], acc);
+      for (int u = 0; u < V; ++u) acc = fmaf(a[u], g[u], acc);
+    }
   }
   acc = warp_sum(acc);
-  const long long b = r / ((long long)Sq * Hq);
-  const int qi = (int)((r / Hq) % Sq);
-  const int h = (int)(r % Hq);
-  if (lane == 0) delta[(b * Hq + h) * Sq + qi] = acc;
+  if (lane == 0) {
+    delta[r] = acc;
+    if (lse_pad) lse_pad[r] = qi < Sq ? lse[bh * Sq + qi] * kLog2e : 0.f;
+  }
 }
 
 // dQ: block (q tile, query head, batch) over the KV tiles its rows see;
@@ -1056,7 +1096,7 @@ flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = 0; i < RI; ++i) {
     const int qi = q0 + ty + 16 * i;
     const long long at = ((long long)b * Hq + h) * Sq + qi;
-    lq[i] = qi < Sq ? lse[at] : -INFINITY;
+    lq[i] = qi < Sq ? lse[at] * kLog2e : -INFINITY;
     dl[i] = qi < Sq ? delta[at] : 0.f;
   }
   float acc[RI][CG * 4];
@@ -1165,7 +1205,7 @@ flash_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
       stage<T, DP, LD>(sO, ob, R, qt0, Sq - qt0, qs, D);
       for (int t = threadIdx.x; t < R; t += BNT) {
         const int qi = qt0 + t;
-        sL[t] = qi < Sq ? lse[row0 + qi] : -INFINITY;
+        sL[t] = qi < Sq ? lse[row0 + qi] * kLog2e : -INFINITY;
         sD[t] = qi < Sq ? delta[row0 + qi] : 0.f;
       }
       __syncthreads();
@@ -1209,6 +1249,444 @@ flash_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
         }
     }
   }
+}
+
+// ------------------------------ backward, bf16 at DP <= 128: wgmma + TMA
+
+// Tiles of the bf16 backward on the tensor cores: three passes, each a block
+// of one consumer warpgroup owning BM = 64 rows (keys for dV and dK,
+// queries for dQ) and a producer warp whose lane 0 streams the other side
+// through a ring of ST stages in tiles of BN = 64 rows, two blocks an SM.
+// Every tile is DP / 64 panels of 64 rows x 128 bytes in the 128-byte
+// swizzle, as in flash_fwd_bf16, loaded by TMA with D zero-padded to DP.
+// The passes hold one f32 accumulator each: dK and dV in one warpgroup
+// would need ~240 registers a thread, one block an SM, and the elementwise
+// work between the products then has no other warps to hide behind.
+template <int DP>
+struct BwdWgCfg {
+  static constexpr int BM = 64;
+  static constexpr int BN = 64;
+  static constexpr int ST = 2;
+  static constexpr int NP = DP / 64;
+  static constexpr int THREADS = GNT + 32;
+  static constexpr int TILE = 64 * DP * 2;  // bytes of a 64-row tile
+  static constexpr int ROWS = 2 * BN * 4;   // a stage's lse and delta
+  // dV: K stays; dK: K and V; dQ: Q and dO.  Q, dO, lse, delta or K, V
+  // stream.
+  static constexpr size_t smem_dv = 1024 + TILE + ST * (2 * TILE + ROWS);
+  static constexpr size_t smem_dk = 1024 + 2 * TILE + ST * (2 * TILE + ROWS);
+  static constexpr size_t smem_dq = 1024 + 2 * TILE + ST * 2 * TILE;
+};
+// rows of the padded lse / delta layout, a multiple of a block's rows
+constexpr int kLsePad = 128;
+
+// Round a warpgroup's 64 x DP f32 accumulator to bf16 into its 64-row tile
+// (the swizzled layout it was loaded in), then store the warp's 16 rows,
+// 16 bytes a thread, for tile rows below nrows and columns below D.
+template <int DP>
+__device__ inline void store_tile(unsigned char* tile, float (*acc)[32],
+                                  __nv_bfloat16* __restrict__ out, int nrows,
+                                  long long row_stride, int D, int warp,
+                                  int lane) {
+  const int gq = lane >> 2, tq = lane & 3;
+#pragma unroll
+  for (int p = 0; p < DP / 64; ++p)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = warp * 16 + gq + 8 * r;
+        *reinterpret_cast<uint32_t*>(tile + p * 64 * 128 + row * 128 +
+                                     ((j ^ (row & 7)) << 4) + tq * 4) =
+            pack_bf16(acc[p][4 * j + 2 * r], acc[p][4 * j + 2 * r + 1]);
+      }
+  __syncwarp();
+  constexpr int CH = DP / 8;
+  for (int i = lane; i < 16 * CH; i += 32) {
+    const int r = warp * 16 + i / CH;
+    const int c = i % CH;
+    if (r < nrows && c * 8 < D)
+      *reinterpret_cast<uint4*>(out + (long long)r * row_stride + c * 8) =
+          *reinterpret_cast<const uint4*>(tile + (c >> 3) * 64 * 128 +
+                                          r * 128 +
+                                          (((c & 7) ^ (r & 7)) << 4));
+  }
+}
+
+// One 64 x BN tile of scores of the warpgroup (NV = BN / 2 in this thread:
+// element i at tile row warp * 16 + gq + 8 ((i >> 1) & 1) and column
+// (i >> 2) * 8 + 2 tq + (i & 1)): from the raw products s and dp, P (WANT_P)
+// or dS in f32 by score_grad's math, rounded to bf16 straight into the A
+// fragments of the product that follows (fa), and with SPLIT what that
+// rounding left out, rounded again (fl), so that fa + fl carry ~16 bits.
+// KV_ROWS: the rows are keys (lse2 and delta by column) or queries (by
+// row).  The softcap (CAP) and a tile all of whose pairs are valid (WHOLE)
+// are compile-time cases, so that the 32 scores run without branches: the
+// registers left beside the accumulators hold little else.  A pair the
+// masks keep always has a finite lse2, so the -inf test of score_grad is
+// not needed here.
+template <int NV, bool KV_ROWS, bool WANT_P, bool SPLIT, bool CAP, bool WHOLE>
+__device__ __forceinline__ void grad_tile(
+    const float* s, const float* dp, uint32_t (*fa)[4], uint32_t (*fl)[4],
+    const float* lse2, const float* delta, int row0, int col0, int Sq,
+    int Skv, int tq, int causal, int has_window, int window, float softcap,
+    float scale) {
+  const float sl2 = scale * kLog2e;
+#pragma unroll
+  for (int i = 0; i < NV; i += 2) {
+    float x[2];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int c = (i >> 2) * 8 + 2 * tq + e;
+      const int at = KV_ROWS ? c : (i >> 1) & 1;
+      float x2, dx = scale;
+      if constexpr (CAP) {
+        const float t = tanhf(s[i + e] * scale / softcap);
+        x2 = t * softcap * kLog2e;
+        dx = scale * (1.f - t * t);
+      } else {
+        x2 = s[i + e] * sl2;
+      }
+      float p = exp2f(x2 - lse2[at]);
+      if constexpr (!WHOLE) {
+        const int row = row0 + ((i >> 1) & 1) * 8;
+        const int kp = KV_ROWS ? row : col0 + c;
+        const int qp = KV_ROWS ? col0 + c : row;
+        bool ok = kp < Skv && qp < Sq;
+        if (causal) ok = ok && kp <= qp;
+        if (has_window) ok = ok && kp > qp - window;
+        p = ok ? p : 0.f;
+      }
+      if constexpr (WANT_P)
+        x[e] = p;
+      else
+        x[e] = p * (dp[i + e] - delta[at]) * dx;
+    }
+    const int f = i >> 3, r = (i >> 1) & 3;
+    fa[f][r] = pack_bf16(x[0], x[1]);
+    if constexpr (SPLIT) fl[f][r] = pack_lo(x[0], x[1], fa[f][r]);
+  }
+}
+
+// grad_tile with the softcap and whole-tile cases chosen at run time
+template <int NV, bool KV_ROWS, bool WANT_P, bool SPLIT>
+__device__ __forceinline__ void grad_tile_any(
+    bool cap, bool whole, const float* s, const float* dp,
+    uint32_t (*fa)[4], uint32_t (*fl)[4], const float* lse2,
+    const float* delta, int row0, int col0, int Sq, int Skv, int tq,
+    int causal, int has_window, int window, float softcap, float scale) {
+#define GRAD_ARGS                                                          \
+  s, dp, fa, fl, lse2, delta, row0, col0, Sq, Skv, tq, causal, has_window, \
+      window, softcap, scale
+  if (cap) {
+    if (whole)
+      grad_tile<NV, KV_ROWS, WANT_P, SPLIT, true, true>(GRAD_ARGS);
+    else
+      grad_tile<NV, KV_ROWS, WANT_P, SPLIT, true, false>(GRAD_ARGS);
+  } else {
+    if (whole)
+      grad_tile<NV, KV_ROWS, WANT_P, SPLIT, false, true>(GRAD_ARGS);
+    else
+      grad_tile<NV, KV_ROWS, WANT_P, SPLIT, false, false>(GRAD_ARGS);
+  }
+#undef GRAD_ARGS
+}
+
+// d (64 x BN f32) = A (64 x DP, the warpgroup's tile) B^T (B: a BN x DP
+// tile), both K-major in shared memory: DP / 16 products of 16 columns.
+template <int DP, int BN>
+__device__ inline void issue_nt(float* d, const unsigned char* a,
+                                const unsigned char* b) {
+#pragma unroll
+  for (int kk = 0; kk < DP / 16; ++kk)
+    wgmma_ss<BN>(d, wg_desc(a + (kk >> 2) * 64 * 128 + (kk & 3) * 32, 16,
+                            1024),
+                 wg_desc(b + (kk >> 2) * BN * 128 + (kk & 3) * 32, 16, 1024),
+                 kk > 0);
+}
+
+// acc (64 x DP f32) += A (64 x BN, bf16 fragments in registers) B (a BN x
+// DP tile, read as the MN-major operand), one 64-column panel a product
+template <int DP, int BN>
+__device__ inline void issue_nn(float (*acc)[32], uint32_t (*a)[4],
+                                const unsigned char* b) {
+#pragma unroll
+  for (int kk = 0; kk < BN / 16; ++kk)
+#pragma unroll
+    for (int p = 0; p < DP / 64; ++p)
+      wgmma_rs(acc[p], a[kk],
+               wg_desc(b + p * BN * 128 + kk * 2048, BN * 128, 1024));
+}
+
+__device__ inline void init_ring(uint64_t* full, uint64_t* empty,
+                                 uint64_t* own, int stages) {
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], GNT);
+    }
+    mbar_init(own, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+}
+
+// dV (DV) or dK: block (KV head, batch, tile of 64 keys; the slowest axis,
+// so the first key tiles, which see the most query rows, go first).  K
+// (and V for dK) is loaded once; the q tiles of the group's g heads whose
+// rows see the keys stream through the ring with their lse2 (and delta).
+// Per tile: S^T = K Q^T (and dP^T = V dO^T; wgmma, both operands in shared
+// memory), P^T (dS^T) in registers, then dV += P^T dO (dK += dS^T Q; wgmma,
+// A from registers, dO / Q as the MN-major B).  P^T and dS^T go in as a
+// bf16 pair hi + lo, two products, so that the sums over g x Sq rows keep
+// ~16 bits of each.  The accumulator stays in f32 registers over all the
+// group's heads and is rounded once.
+template <int DP, bool DV>
+__global__ void __launch_bounds__(BwdWgCfg<DP>::THREADS, 2)
+flash_bwd_kv_wg(const __grid_constant__ CUtensorMap map_q,
+                const __grid_constant__ CUtensorMap map_k,
+                const __grid_constant__ CUtensorMap map_v,
+                const __grid_constant__ CUtensorMap map_do,
+                const float* __restrict__ lse_p,
+                const float* __restrict__ delta_p,
+                __nv_bfloat16* __restrict__ out, int Sq, int SqP, int Skv,
+                int Hq, int Hkv, int D, int causal, int has_window,
+                int window, int has_softcap, float softcap, float scale) {
+  using C = BwdWgCfg<DP>;
+  constexpr int NP = C::NP, ST = C::ST, BM = C::BM, BN = C::BN;
+  constexpr int NV = BN / 2;
+  constexpr int OWN = DV ? 1 : 2;  // resident tiles: K, or K and V
+  extern __shared__ __align__(16) unsigned char wsm[];
+  __shared__ uint64_t full[ST], empty[ST], kvbar;
+  unsigned char* base = wsm + ((1024 - (smem_u32(wsm) & 1023)) & 1023);
+  unsigned char* sK = base;                   // [TILE]
+  unsigned char* sV = sK + C::TILE;           // [TILE], dK only
+  unsigned char* sQ = sK + OWN * C::TILE;     // [ST][TILE]
+  unsigned char* sO = sQ + ST * C::TILE;      // dO, [ST][TILE]
+  float* sL = reinterpret_cast<float*>(sO + ST * C::TILE);  // [ST][2][BN]
+
+  const int hk = blockIdx.x;
+  const int b = blockIdx.y;
+  const int k0 = blockIdx.z * BM;
+  const int g = Hq / Hkv;
+  const int qbeg = causal ? k0 / BN * BN : 0;
+  int qend = Sq;
+  if (has_window) qend = min(qend, k0 + BM - 1 + window);
+  const int nq = qend > qbeg ? (qend - qbeg + BN - 1) / BN : 0;
+  const int nt = g * nq;  // (head, q tile) pairs, head-major
+  init_ring(full, empty, &kvbar, ST);
+
+  if (threadIdx.x >= GNT) {  // the producer warp
+    if (threadIdx.x == GNT && nt > 0) {
+      mbar_expect(&kvbar, OWN * C::TILE);
+      for (int p = 0; p < NP; ++p) {
+        tma_panel(sK + p * BM * 128, &map_k, &kvbar, 64 * p, hk, k0, b);
+        if (!DV)
+          tma_panel(sV + p * BM * 128, &map_v, &kvbar, 64 * p, hk, k0, b);
+      }
+      for (int t = 0; t < nt; ++t) {
+        const int s = t % ST;
+        const int h = hk * g + t / nq;
+        const int qt0 = qbeg + (t % nq) * BN;
+        if (t >= ST) mbar_wait(&empty[s], (t / ST - 1) & 1);
+        mbar_expect(&full[s], 2 * C::TILE + (DV ? 1 : 2) * BN * 4);
+        for (int p = 0; p < NP; ++p) {
+          tma_panel(sQ + s * C::TILE + p * BN * 128, &map_q, &full[s],
+                    64 * p, h, qt0, b);
+          tma_panel(sO + s * C::TILE + p * BN * 128, &map_do, &full[s],
+                    64 * p, h, qt0, b);
+        }
+        const long long at = ((long long)b * Hq + h) * SqP + qt0;
+        bulk_load(sL + s * 2 * BN, lse_p + at, BN * 4, &full[s]);
+        if (!DV)
+          bulk_load(sL + s * 2 * BN + BN, delta_p + at, BN * 4, &full[s]);
+      }
+    }
+    return;
+  }
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int tq = lane & 3;
+  const int krow = k0 + warp * 16 + (lane >> 2);
+
+  float acc[NP][32];
+#pragma unroll
+  for (int p = 0; p < NP; ++p)
+#pragma unroll
+    for (int e = 0; e < 32; ++e) acc[p][e] = 0.f;
+
+  for (int t = 0; t < nt; ++t) {
+    const int st = t % ST;
+    const int qt0 = qbeg + (t % nq) * BN;
+    if (t == 0) mbar_wait(&kvbar, 0);
+    mbar_wait(&full[st], (t / ST) & 1);
+    // a tile none of whose pairs is valid for the block's keys
+    const bool skip = (causal && k0 > qt0 + BN - 1) ||
+                      (has_window && k0 + BM - 1 <= qt0 - window);
+    if (!skip) {
+      const unsigned char* cQ = sQ + st * C::TILE;
+      const unsigned char* cO = sO + st * C::TILE;
+      const float* lq = sL + st * 2 * BN;
+      const bool whole = k0 + BM <= Skv && qt0 + BN <= Sq &&
+                         (!causal || k0 + BM - 1 <= qt0) &&
+                         (!has_window || k0 > qt0 + BN - 1 - window);
+      float s[NV], dp[DV ? 1 : NV];
+#pragma unroll
+      for (int i = 0; i < NV; ++i) s[i] = 0.f;
+      wg_fence();
+      issue_nt<DP, BN>(s, sK, cQ);
+      if constexpr (!DV) {
+#pragma unroll
+        for (int i = 0; i < NV; ++i) dp[i] = 0.f;
+        issue_nt<DP, BN>(dp, sV, cO);
+      }
+      wg_commit();
+      wg_wait0();
+      wg_touch<NV>(s);
+      if constexpr (!DV) wg_touch<NV>(dp);
+      uint32_t fa[BN / 16][4], fl[BN / 16][4];
+      grad_tile_any<NV, true, DV, true>(has_softcap, whole, s, dp, fa, fl, lq,
+                                        lq + BN, krow, qt0, Sq, Skv, tq,
+                                        causal, has_window, window, softcap,
+                                        scale);
+#pragma unroll
+      for (int p = 0; p < NP; ++p) wg_touch(acc[p]);
+      wg_fence();
+      // dV += P^T dO or dK += dS^T Q, the high halves then the low
+      const unsigned char* cB = DV ? cO : cQ;
+      issue_nn<DP, BN>(acc, fa, cB);
+      issue_nn<DP, BN>(acc, fl, cB);
+      wg_commit();
+      wg_wait0();
+#pragma unroll
+      for (int p = 0; p < NP; ++p) wg_touch(acc[p]);
+    }
+    mbar_arrive(&empty[st]);  // this thread is done with stage st
+  }
+  // the warpgroup's last products have read K (and V)
+  asm volatile("bar.sync 1, %0;\n" ::"n"(GNT) : "memory");
+  const long long ks = (long long)Hkv * D;
+  store_tile<DP>(sK, acc,
+                 out + ((long long)b * Skv + k0) * ks + (long long)hk * D,
+                 Skv - k0, ks, D, warp, lane);
+}
+
+// dQ: block (query head, batch, q tile of 64 rows; the slowest axis, taken
+// in reverse, so the longest causal rows go first).  Q and dO are loaded
+// once; the KV tiles its rows see stream through the ring.  Per tile: S =
+// Q K^T and dP = dO V^T (wgmma from shared memory), dS in registers, dQ +=
+// dS K (wgmma, dS from registers as bf16, K as the MN-major B).
+template <int DP>
+__global__ void __launch_bounds__(BwdWgCfg<DP>::THREADS, 2)
+flash_bwd_dq_wg(const __grid_constant__ CUtensorMap map_q,
+                const __grid_constant__ CUtensorMap map_k,
+                const __grid_constant__ CUtensorMap map_v,
+                const __grid_constant__ CUtensorMap map_do,
+                const float* __restrict__ lse_p,
+                const float* __restrict__ delta_p,
+                __nv_bfloat16* __restrict__ dq, int Sq, int SqP, int Skv,
+                int Hq, int Hkv, int D, int causal, int has_window,
+                int window, int has_softcap, float softcap, float scale) {
+  using C = BwdWgCfg<DP>;
+  constexpr int NP = C::NP, ST = C::ST, BM = C::BM, BN = C::BN;
+  constexpr int NV = BN / 2;
+  extern __shared__ __align__(16) unsigned char wsm[];
+  __shared__ uint64_t full[ST], empty[ST], qbar;
+  unsigned char* base = wsm + ((1024 - (smem_u32(wsm) & 1023)) & 1023);
+  unsigned char* sQ = base;                   // [TILE]
+  unsigned char* sO = sQ + C::TILE;           // dO, [TILE]
+  unsigned char* sK = sO + C::TILE;           // [ST][TILE]
+  unsigned char* sV = sK + ST * C::TILE;      // [ST][TILE]
+
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * BM;
+  const int hk = h / (Hq / Hkv);
+  int kend = Skv;
+  if (causal) kend = min(kend, min(q0 + BM, Sq));
+  const int kbeg = has_window ? max(0, q0 - window + 1) / BN * BN : 0;
+  const int nt = kend > kbeg ? (kend - kbeg + BN - 1) / BN : 0;
+  init_ring(full, empty, &qbar, ST);
+
+  if (threadIdx.x >= GNT) {  // the producer warp
+    if (threadIdx.x == GNT && nt > 0) {
+      mbar_expect(&qbar, 2 * C::TILE);
+      for (int p = 0; p < NP; ++p) {
+        tma_panel(sQ + p * BM * 128, &map_q, &qbar, 64 * p, h, q0, b);
+        tma_panel(sO + p * BM * 128, &map_do, &qbar, 64 * p, h, q0, b);
+      }
+      for (int t = 0; t < nt; ++t) {
+        const int s = t % ST;
+        if (t >= ST) mbar_wait(&empty[s], (t / ST - 1) & 1);
+        mbar_expect(&full[s], 2 * C::TILE);
+        for (int p = 0; p < NP; ++p) {
+          tma_panel(sK + s * C::TILE + p * BN * 128, &map_k, &full[s],
+                    64 * p, hk, kbeg + t * BN, b);
+          tma_panel(sV + s * C::TILE + p * BN * 128, &map_v, &full[s],
+                    64 * p, hk, kbeg + t * BN, b);
+        }
+      }
+    }
+    return;
+  }
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int tq = lane & 3;
+  const int qrow = q0 + warp * 16 + (lane >> 2);
+  // this thread's rows qrow and qrow + 8; the padded layout holds both
+  const long long at = ((long long)b * Hq + h) * SqP + qrow;
+  const float lq[2] = {lse_p[at], lse_p[at + 8]};
+  const float dl[2] = {delta_p[at], delta_p[at + 8]};
+
+  float dqa[NP][32];
+#pragma unroll
+  for (int p = 0; p < NP; ++p)
+#pragma unroll
+    for (int e = 0; e < 32; ++e) dqa[p][e] = 0.f;
+
+  for (int t = 0; t < nt; ++t) {
+    const int st = t % ST;
+    const int kt0 = kbeg + t * BN;
+    if (t == 0) mbar_wait(&qbar, 0);
+    mbar_wait(&full[st], (t / ST) & 1);
+    const unsigned char* cK = sK + st * C::TILE;
+    const unsigned char* cV = sV + st * C::TILE;
+    float s[NV], dp[NV];
+#pragma unroll
+    for (int i = 0; i < NV; ++i) s[i] = dp[i] = 0.f;
+    wg_fence();
+    issue_nt<DP, BN>(s, sQ, cK);
+    issue_nt<DP, BN>(dp, sO, cV);
+    wg_commit();
+    wg_wait0();
+    wg_touch<NV>(s);
+    wg_touch<NV>(dp);
+    const bool whole = q0 + BM <= Sq && kt0 + BN <= Skv &&
+                       (!causal || kt0 + BN - 1 <= q0) &&
+                       (!has_window || kt0 > q0 + BM - 1 - window);
+    uint32_t da[BN / 16][4];
+    grad_tile_any<NV, false, false, false>(has_softcap, whole, s, dp, da,
+                                           nullptr, lq, dl, qrow, kt0, Sq,
+                                           Skv, tq, causal, has_window,
+                                           window, softcap, scale);
+#pragma unroll
+    for (int p = 0; p < NP; ++p) wg_touch(dqa[p]);
+    wg_fence();
+    issue_nn<DP, BN>(dqa, da, cK);
+    wg_commit();
+    wg_wait0();
+#pragma unroll
+    for (int p = 0; p < NP; ++p) wg_touch(dqa[p]);
+    mbar_arrive(&empty[st]);  // this thread is done with stage st
+  }
+  // the warpgroup's last products have read Q and dO
+  asm volatile("bar.sync 1, %0;\n" ::"n"(GNT) : "memory");
+  const long long qs = (long long)Hq * D;
+  store_tile<DP>(sQ, dqa,
+                 dq + ((long long)b * Sq + q0) * qs + (long long)h * D,
+                 Sq - q0, qs, D, warp, lane);
 }
 
 // ----------------------------------------------------------- launchers
@@ -1359,7 +1837,8 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* o,
   const T* tdo = static_cast<const T*>(dout);
   const long long rows = (long long)B * Sq * Hq;
   flash_bwd_delta<T><<<(unsigned)((rows + 7) / 8), 256, 0, stream>>>(
-      static_cast<const T*>(o), tdo, delta, rows, Sq, Hq, D);
+      static_cast<const T*>(o), tdo, lse, delta, nullptr, rows, Sq, Sq, Hq,
+      D);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   if (Skv > 0) {
@@ -1374,6 +1853,69 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* o,
                         stream>>>(
       tq, tk, tv, tdo, lse, delta, static_cast<T*>(dq), Sq, Skv, Hq, Hkv, D,
       causal, has_window, window, has_softcap, softcap, scale);
+  return (int)cudaGetLastError();
+}
+
+template <typename K>
+static cudaError_t set_smem(K kernel, size_t bytes) {
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)bytes);
+}
+
+// The bf16 backward at DP <= 128: flash_bwd_delta (delta and lse2 in the
+// padded layout, SqP rows a head), then the dV, dK and dQ passes.
+template <int DP>
+int launch_bwd_wg(const void* q, const void* k, const void* v, const void* o,
+                  const void* dout, const float* lse, void* dq, void* dk,
+                  void* dv, float* scratch, int B, int Sq, int Skv, int Hq,
+                  int Hkv, int D, int causal, int has_window, int window,
+                  int has_softcap, float softcap, float scale,
+                  cudaStream_t stream) {
+  using C = BwdWgCfg<DP>;
+  static bool configured = false;
+  if (!configured) {
+    cudaError_t e = set_smem(flash_bwd_kv_wg<DP, true>, C::smem_dv);
+    if (e == cudaSuccess) e = set_smem(flash_bwd_kv_wg<DP, false>, C::smem_dk);
+    if (e == cudaSuccess) e = set_smem(flash_bwd_dq_wg<DP>, C::smem_dq);
+    if (e != cudaSuccess) return (int)e;
+    configured = true;
+  }
+  const int SqP = (Sq + kLsePad - 1) / kLsePad * kLsePad;
+  const long long rows = (long long)B * Hq * SqP;
+  float* delta = scratch;
+  float* lse_p = scratch + rows;
+  flash_bwd_delta<__nv_bfloat16>
+      <<<(unsigned)((rows + 7) / 8), 256, 0, stream>>>(
+          static_cast<const __nv_bfloat16*>(o),
+          static_cast<const __nv_bfloat16*>(dout), lse, delta, lse_p, rows,
+          Sq, SqP, Hq, D);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  if (Skv == 0)  // no key: dq is zero, dk and dv are empty
+    return (int)cudaMemsetAsync(dq, 0, (size_t)B * Sq * Hq * D * 2, stream);
+  CUtensorMap mq, mk, mv, mo;
+  if (!panel_map(&mq, q, B, Sq, Hq, D, 64) ||
+      !panel_map(&mk, k, B, Skv, Hkv, D, 64) ||
+      !panel_map(&mv, v, B, Skv, Hkv, D, 64) ||
+      !panel_map(&mo, dout, B, Sq, Hq, D, 64))
+    return (int)cudaErrorInvalidValue;
+  const dim3 kv_grid(Hkv, B, (Skv + C::BM - 1) / C::BM);
+  flash_bwd_kv_wg<DP, true><<<kv_grid, C::THREADS, C::smem_dv, stream>>>(
+      mq, mk, mv, mo, lse_p, delta, static_cast<__nv_bfloat16*>(dv), Sq, SqP,
+      Skv, Hq, Hkv, D, causal, has_window, window, has_softcap, softcap,
+      scale);
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  flash_bwd_kv_wg<DP, false><<<kv_grid, C::THREADS, C::smem_dk, stream>>>(
+      mq, mk, mv, mo, lse_p, delta, static_cast<__nv_bfloat16*>(dk), Sq, SqP,
+      Skv, Hq, Hkv, D, causal, has_window, window, has_softcap, softcap,
+      scale);
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  flash_bwd_dq_wg<DP><<<dim3(Hq, B, (Sq + C::BM - 1) / C::BM), C::THREADS,
+                        C::smem_dq, stream>>>(
+      mq, mk, mv, mo, lse_p, delta, static_cast<__nv_bfloat16*>(dq), Sq, SqP,
+      Skv, Hq, Hkv, D, causal, has_window, window, has_softcap, softcap,
+      scale);
   return (int)cudaGetLastError();
 }
 
@@ -1439,24 +1981,30 @@ extern "C" int decode_attention_fwd(
 // The gradients of flash_attention_fwd with no kv_len and no q offset:
 // q, o, dout, dq (B, Sq, Hq, D); k, v, dk, dv (B, Skv, Hkv, D), all of
 // dtype (0 = bfloat16, 1 = float32); lse: the forward's (B, Hq, Sq) f32
-// log-sum-exp; delta: (B, Hq, Sq) f32 scratch.  Every output row is
-// written.  Returns the CUDA error of the launches (0 on success).
+// log-sum-exp; scratch: 2 B Hq SqP f32, SqP = Sq rounded up to a multiple
+// of 128 (delta, and for the wgmma kernels a padded copy of lse).  Every
+// output row is written.  Returns the CUDA error of the launches (0 on
+// success).
 extern "C" int flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const float* lse, void* dq, void* dk, void* dv,
-    float* delta, int B, int Sq, int Skv, int Hq, int Hkv, int D, int dtype,
+    float* scratch, int B, int Sq, int Skv, int Hq, int Hkv, int D, int dtype,
     int causal, int has_window, int window, int has_softcap, float softcap,
     float scale, void* stream) {
   if (D % 8 != 0 || D > 256 || Hkv <= 0 || Hq % Hkv != 0)
     return (int)cudaErrorInvalidValue;
   if (Sq == 0 || B == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define BWD_ARGS                                                           \
-  q, k, v, o, dout, lse, dq, dk, dv, delta, B, Sq, Skv, Hq, Hkv, D, causal, \
+#define BWD_ARGS                                                             \
+  q, k, v, o, dout, lse, dq, dk, dv, scratch, B, Sq, Skv, Hq, Hkv, D, causal, \
       has_window, window, has_softcap, softcap, scale, s
   if (dtype == 0) {
-    if (D <= 64) return launch_bwd<__nv_bfloat16, 64>(BWD_ARGS);
-    if (D <= 128) return launch_bwd<__nv_bfloat16, 128>(BWD_ARGS);
+    if (D <= 64) return launch_bwd_wg<64>(BWD_ARGS);
+    if (D <= 128) return launch_bwd_wg<128>(BWD_ARGS);
+    // D > 128 stays on the FMA kernels: at DP = 256 a pass's accumulator
+    // alone is 128 f32 registers a thread, and with the scores and their
+    // fragments a warpgroup needs more than the 168 that two blocks an SM
+    // leave it (ROADMAP section 2)
     return launch_bwd<__nv_bfloat16, 256>(BWD_ARGS);
   }
   if (dtype == 1) {

@@ -194,6 +194,17 @@ __device__ inline void tma_load_3d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// `bytes` (a multiple of 16) of contiguous global memory into shared
+// memory by the bulk-copy engine, both 16-byte aligned; completes on `bar`.
+__device__ inline void bulk_load(void* dst, const void* src, int bytes,
+                                 uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
 // cuTensorMapEncodeTiled from the driver, found at run time: the library
 // links against the runtime only
 inline PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {

@@ -30,6 +30,9 @@ _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 DECODE_TILE = 32
 #: query heads per KV head the decode kernel takes: 4 warps of 4 heads
 DECODE_MAX_GROUP = 16
+#: rows a head of the backward's padded lse / delta scratch is rounded up
+#: to (``kLsePad`` in csrc/flash_attention.cu: a wgmma block's rows)
+BWD_ROW_PAD = 128
 
 
 def decode_splits(B: int, Hkv: int, Skv: int, n_sm: int) -> tuple[int, int]:
@@ -196,9 +199,13 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal=True, window=None,
     ``repeat_interleave`` transposes to a sum over the group's query heads:
     dk and dv sum them in f32 and round once.  On the CPU the plain version
     is autograd through ``ref.attention_ref`` (o and lse are not read).
-    On CUDA: the kernels of ``csrc/flash_attention.cu``, f32 throughout
-    (bf16 inputs are widened), two passes with no atomics, so the same
-    bits on every run; adds one to ``flash_attention_bwd.launches``.
+    On CUDA: the kernels of ``csrc/flash_attention.cu``, two passes (dK
+    and dV, then dQ) with no atomics, so the same bits on every run.  bf16
+    at head_dim <= 128 runs on the tensor cores (``flash_bwd_dkdv_wg``,
+    ``flash_bwd_dq_wg``: TMA tiles, ``wgmma``, f32 sums, P and dS rounded
+    to bf16 as the second products' operands); f32, and bf16 at head_dim
+    256, on the FMA pipes in f32.  Adds one to
+    ``flash_attention_bwd.launches``.
     """
     if q.device.type == "cpu":
         with torch.enable_grad():
@@ -223,13 +230,16 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal=True, window=None,
                          f"{tuple(lse.shape)} {lse.dtype}")
     scale = (D ** -0.5) if scale is None else scale
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
-    delta = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
+    # delta and the padded copy of lse, B * Hq rows of Sq rounded up each
+    sqp = -(-Sq // BWD_ROW_PAD) * BWD_ROW_PAD
+    scratch = torch.empty(2 * B * Hq * sqp, dtype=torch.float32,
+                          device=q.device)
     lib = _build.load("flash_attention")
     with torch.cuda.device(q.device):
         err = lib.flash_attention_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             do.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), delta.data_ptr(), B, Sq, Skv, Hq, Hkv, D,
+            dv.data_ptr(), scratch.data_ptr(), B, Sq, Skv, Hq, Hkv, D,
             _DTYPES[q.dtype], int(causal), int(window is not None),
             0 if window is None else int(window), int(softcap is not None),
             0.0 if softcap is None else float(softcap), float(scale),
