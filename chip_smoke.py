@@ -153,21 +153,33 @@ Phases, each printing its own lines:
    head size, f32, and bf16 rows four times the training length), and
    ``burst_gather_bwd`` with heavily repeated ids
    (one id taken by every row too) bit for bit equal to a sequential f32
-   sum, both run twice for the same bits; the four wrappers with no
-   backward kernel (decode attention, the two scans, the grouped matmul)
-   must raise on a CUDA input that requires grad; one f32 step of
-   granite-8b-reduced on the card against the CPU (loss and every
-   gradient); the restart on the card (checkpoint at step 2, a failure at
-   step 3, resumed into fresh tensors: the same losses, norms and final
-   checkpoint bit for bit); then the main path,
-   ``repro_torch.launch.train.train`` on granite-8b at full width and 8
-   of its 36 layers for 5 steps of B 4 x S 1024 (exact launches of the
-   four kernels on its path, finite losses; each step's loss, grad norm
-   and seconds, tokens/s, peak memory); the two backward kernels' times
-   beside SDPA's backward and ``index_add_``, each with the device time of
-   every kernel it launched by name (``torch.profiler``: the attention's
-   delta and wgmma passes, the gather's sort and writer), and their rows
-   in the kernels line (the forward rows' launches by path).
+   sum, both run twice for the same bits; ``mamba2_scan_bwd`` and
+   ``rwkv6_scan_bwd`` (through autograd from the scans' wrappers) against
+   autograd through the plain versions at zamba2-7b's and rwkv6-1.6b's
+   training shapes (bf16, x, B and C sliced from one projection, no state,
+   as the models call them) and in f32 (at ``F32_BWD_TOL``) with a state
+   going in and a final-state gradient, at S a multiple of neither
+   checkpoint length, S 1 and 0, ragged row slices, N or D 128, the
+   reduced models' shapes, rwkv6's strong decays and exact zeros of w,
+   each run twice for the same bits and one launch; the two wrappers with
+   no backward kernel (decode attention, the grouped matmul) must raise
+   on a CUDA input that requires grad; one f32 step of eight reduced
+   models (granite, zamba2, rwkv6 and the five attention families) on
+   the card against the CPU (loss and every gradient); granite-moe's
+   train step must raise at ``moe_gmm``; the restart on the card
+   (checkpoint at step 2, a failure at step 3, resumed into fresh
+   tensors: the same losses, norms and final checkpoint bit for bit);
+   then the main path, ``repro_torch.launch.train.train`` for 5 steps of
+   B 4 x S 1024 on granite-8b (8 of its 36 layers), zamba2-7b (27 of its
+   81: one layer_pattern) and rwkv6-1.6b (all 24), each at full width
+   (exact launches of every kernel on its path, forward and backward,
+   finite losses; each step's loss, grad norm and seconds, tokens/s, peak
+   memory); the four backward kernels' times beside SDPA's backward,
+   ``index_add_`` or none, each with the device time of every kernel it
+   launched by name (``torch.profiler``: the attention's delta and wgmma
+   passes, the gather's sort and writer, each scan's reverse walk and
+   sums), and their rows in the kernels line (the forward rows' launches
+   by path).
 
 Exits non-zero, printing no result line, if any phase fails or there is no
 CUDA device.  Imports nothing of JAX.
@@ -211,7 +223,7 @@ from repro_torch.fpga import benchmarks, grid_for  # noqa: E402
 from repro_torch.obs import trace  # noqa: E402
 from repro_torch.optim import adamw_init  # noqa: E402
 from repro_torch.search import pool_counts, reset_pool_counts  # noqa: E402
-from repro_torch.kernels import _build, ref  # noqa: E402
+from repro_torch.kernels import _build, _scan_bwd, ref  # noqa: E402
 from repro_torch.kernels import burst_gather as bg  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import mamba2_scan as m2  # noqa: E402
@@ -221,7 +233,8 @@ from repro_torch.kernels import sim_sweep as ss  # noqa: E402
 from repro_torch.kernels.padded_batch import build_padded_batch  # noqa: E402
 from repro_torch.launch import serve, train  # noqa: E402
 from repro_torch.launch.profile_bwd import (  # noqa: E402
-    embedding_ids, kernel_split, time_ms)
+    embedding_ids, kernel_split, mamba2_bwd_inputs, rwkv6_bwd_inputs,
+    time_ms)
 from repro_torch.model import lm, moe  # noqa: E402
 
 #: H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, f32
@@ -254,7 +267,9 @@ COUNTERS = {"flash_attention": fa.flash_attention,
             "burst_gather": bg.burst_gather,
             "burst_gather_bwd": bg.burst_gather_bwd,
             "mamba2_scan": m2.mamba2_scan,
+            "mamba2_scan_bwd": m2.mamba2_scan_bwd,
             "rwkv6_scan": r6.rwkv6_scan,
+            "rwkv6_scan_bwd": r6.rwkv6_scan_bwd,
             "moe_gmm": gmm.moe_gmm,
             "moe_plan": gmm.plan}
 CACHE_F32_TOL = dict(rtol=1e-3, atol=1e-3)
@@ -1054,6 +1069,8 @@ SOURCE = {"moe_plan": "moe_gmm.cu",
           "decode_attention": "flash_attention.cu",
           "burst_gather": "burst_gather.cu",
           "mamba2_scan": "mamba2_scan.cu", "rwkv6_scan": "rwkv6_scan.cu",
+          "mamba2_scan_bwd": "mamba2_scan.cu",
+          "rwkv6_scan_bwd": "rwkv6_scan.cu",
           "moe_gmm": "moe_gmm.cu", "sim_sweep": "sim_sweep.cu"}
 
 
@@ -2284,7 +2301,8 @@ def serve_phase(arch, gen):
             # one plan per MoE layer and step, shared by its products
             "moe_plan": n_moe * (1 + GEN),
             # serving takes no gradient
-            "flash_attention_bwd": 0, "burst_gather_bwd": 0}
+            "flash_attention_bwd": 0, "burst_gather_bwd": 0,
+            "mamba2_scan_bwd": 0, "rwkv6_scan_bwd": 0}
     memory = ""
     if extra:
         memory = (f"; memory {tuple(next(iter(extra.values())).shape)} -> "
@@ -2312,11 +2330,16 @@ def serve_phase(arch, gen):
 
 # ----------------------------------------------------------------- training
 
-#: the train phase's model: granite-8b at full width, 8 of its 36 layers.
-#: All 36 need 8.05 B params x 12 B (bf16 weights and grads, f32 AdamW
-#: moments), ~97 GB before any activation, over the card's 80 GB; 8 layers
-#: hold ~1.95 B params, ~23 GB
-TRAIN_ARCH, TRAIN_DEPTH = "granite-8b", 8
+#: the model of the attention and gather checks and of the restart
+TRAIN_ARCH = "granite-8b"
+#: the main path's train runs, (arch, depth), each at full width.  At 12 B
+#: a param (bf16 weights and grads, f32 AdamW moments): granite-8b's 36
+#: layers need 8.05 B params, ~97 GB before any activation, over the
+#: card's 80 GB, so 8 layers (1.95 B params, ~23 GB); zamba2-7b's 81 need
+#: 7.30 B (~88 GB), so one whole layer_pattern, 27 layers (23 M, 4 H and
+#: the two shared blocks: 2.79 B, ~33 GB, ~70 GB at its peak with the
+#: activations); rwkv6-1.6b all 24 (1.45 B, ~17 GB)
+TRAIN_RUNS = (("granite-8b", 8), ("zamba2-7b", 27), ("rwkv6-1.6b", 24))
 TRAIN_B, TRAIN_S, TRAIN_STEPS = 4, 1024, 5
 #: the backward kernels' f32 cases against autograd through the plain
 #: version: the same f32 arithmetic summed in another order, over up to 1024
@@ -2434,20 +2457,158 @@ def check_gather_bwd(gen):
     return errs["embedding"]
 
 
+#: (case, (B, S, H, P, N), dtype, state in, final-state gradient, x/B/C
+#: sliced from one projection) of mamba2_scan_bwd: zamba2-7b's training
+#: shape as its M layers call it (bf16, no state, no final-state
+#: gradient); f32 with a state and a final-state gradient at S a multiple
+#: of neither the 64-step checkpoints nor the 8-step sub-chunks; ragged
+#: slices of 32 rows; N 128 (8 registers a lane); S 1 and 0;
+#: zamba2-7b-reduced's heads
+MAMBA2_BWD_CASES = [
+    ("train", (TRAIN_B, TRAIN_S, 112, 64, 64), torch.bfloat16, False, False,
+     True),
+    ("f32-s200", (2, 200, 4, 64, 64), torch.float32, True, True, False),
+    ("f32-p40-n24-s70", (1, 70, 3, 40, 24), torch.float32, True, True,
+     False),
+    ("bf16-state-s65", (2, 65, 8, 64, 64), torch.bfloat16, True, True, True),
+    ("f32-p128-n128", (1, 37, 2, 128, 128), torch.float32, True, True,
+     False),
+    ("s1", (2, 1, 4, 64, 64), torch.bfloat16, True, True, False),
+    ("s0", (2, 0, 4, 64, 64), torch.float32, True, True, False),
+    ("zamba2-reduced", (2, 128, 8, 16, 16), torch.float32, False, False,
+     True),
+]
+#: (case, (B, S, H, D), dtype, state in, final-state gradient, decay of
+#: ``rwkv6_inputs``) of rwkv6_scan_bwd: rwkv6-1.6b's training shape, then
+#: as above, with the strong decays and the exact zeros of w
+RWKV6_BWD_CASES = [
+    ("train", (TRAIN_B, TRAIN_S, 32, 64), torch.bfloat16, False, False,
+     "normal"),
+    ("f32-s200", (2, 200, 4, 64), torch.float32, True, True, "normal"),
+    ("f32-d40-s70", (1, 70, 3, 40), torch.float32, True, True, "normal"),
+    ("bf16-state-s65", (2, 65, 8, 64), torch.bfloat16, True, True, "normal"),
+    ("f32-d128", (1, 37, 2, 128), torch.float32, True, True, "normal"),
+    ("s1", (2, 1, 4, 64), torch.bfloat16, True, True, "normal"),
+    ("s0", (2, 0, 4, 64), torch.float32, True, True, "normal"),
+    ("strong-decay", (2, 64, 3, 16), torch.bfloat16, True, True, "strong"),
+    ("strong-decay-f32", (2, 64, 3, 16), torch.float32, True, True,
+     "strong"),
+    ("w-zeros", (2, 50, 3, 64), torch.bfloat16, True, True, "zeros"),
+    ("w-zeros-f32", (2, 50, 3, 64), torch.float32, True, True, "zeros"),
+    ("rwkv6-reduced", (2, 128, 4, 16), torch.float32, False, False,
+     "normal"),
+]
+
+
+def _scan_grads(fn, leaves, build, cots):
+    """The gradient of each of ``leaves`` through ``fn(*build(leaves))``
+    for the outputs' gradients ``cots`` (None: that output unused, as the
+    final state is in training)."""
+    return _scan_bwd.plain_vjp(lambda *lv: fn(*build(lv)), leaves, cots)
+
+
+def _mamba2_leaves(args, strided):
+    """(leaves, build, names): the fused projection as one leaf where x, B
+    and C are its slices (its gradient holds dx, dB and dC)."""
+    x, dt, A, Bm, Cm, h0 = args
+    st = [] if h0 is None else [h0]
+    if strided:
+        fused = x._base
+        h, p, n = x.shape[2], x.shape[3], Bm.shape[-1]
+        assert fused is not None and fused.shape[-1] == h * p + 2 * n
+
+        def build(lv):
+            xs, bs, cs = torch.split(lv[0], [h * p, n, n], dim=-1)
+            return (xs.unflatten(2, (h, p)), lv[1], lv[2], bs, cs,
+                    lv[3] if st else None)
+        return [fused, dt, A] + st, build, ["d(x|B|C)", "ddt", "dA",
+                                            "dstate0"][:3 + len(st)]
+
+    def build(lv):
+        return lv[0], lv[3], lv[4], lv[1], lv[2], lv[5] if st else None
+    return [x, Bm, Cm, dt, A] + st, build, ["dx", "dB", "dC", "ddt", "dA",
+                                            "dstate0"][:5 + len(st)]
+
+
+def _rwkv6_leaves(args):
+    *rkvwu, s0 = args
+    st = [] if s0 is None else [s0]
+
+    def build(lv):
+        return (*lv[:5], lv[5] if st else None)
+    return list(rkvwu) + st, build, ["dr", "dk", "dv", "dw", "du",
+                                     "dstate0"][:5 + len(st)]
+
+
+def _check_scan_bwd_case(kernel, plain, name, leaves, build, names, cots,
+                         f32):
+    """The kernel's gradients (through autograd from its wrapper) against
+    autograd through the plain version: f32 at ``F32_BWD_TOL``; in bf16
+    the bf16 gradients at ``BF16_TOL``, the f32 ones (of dt, A, u and the
+    state) at ``STATE_BF16_TOL``, the scans' forward tolerances; then a
+    second run, which must give the same bits.  Each run must launch the
+    backward wrapper once."""
+    bwd = COUNTERS[f"{kernel.__name__}_bwd"]
+    before = bwd.launches
+    got = _scan_grads(kernel, leaves, build, cots)
+    want = _scan_grads(plain, leaves, build, cots)
+    err = 0.0
+    for g_name, a, w in zip(names, got, want):
+        tol = F32_BWD_TOL if f32 else (
+            STATE_BF16_TOL if a.dtype == torch.float32 else BF16_TOL)
+        err = max(err, _assert_close(f"{name} {g_name}", a, w, tol))
+    again = _scan_grads(kernel, leaves, build, cots)
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"{name}: two runs differ")
+    if bwd.launches - before != 2:
+        raise AssertionError(f"{name}: {bwd.launches - before} launches of "
+                             f"the backward in two runs, want 2")
+    _phase(f"check {name}: two runs, same bits, one launch each ok")
+    return err
+
+
+def check_scan_bwd(gen):
+    """``mamba2_scan_bwd`` and ``rwkv6_scan_bwd``, reached through autograd
+    from the scans' wrappers, against autograd through ``ref.*_scan_ref``
+    on the same inputs (``MAMBA2_BWD_CASES``, ``RWKV6_BWD_CASES``).
+    Returns the worst error of each at its training shape."""
+    errs = {}
+    for case, shape, dtype, state, dstate, strided in MAMBA2_BWD_CASES:
+        args = mamba2_inputs(gen, *shape, dtype=dtype, state=state,
+                             strided=strided)
+        b, s, h, p, n = shape
+        cots = (_rand((b, s, h, p), gen, dtype),
+                _rand((b, h, p, n), gen, torch.float32) if dstate else None)
+        leaves, build, names = _mamba2_leaves(args, strided)
+        errs[f"mamba2_scan_bwd[{case}]"] = _check_scan_bwd_case(
+            m2.mamba2_scan, ref.mamba2_scan_ref,
+            f"mamba2_scan_bwd[{case}]", leaves, build, names, cots,
+            dtype == torch.float32)
+    for case, shape, dtype, state, dstate, decay in RWKV6_BWD_CASES:
+        args = rwkv6_inputs(gen, *shape, dtype=dtype, state=state,
+                            decay=decay)
+        b, s, h, d = shape
+        if decay == "zeros":
+            _phase(f"rwkv6_scan_bwd[{case}]: {int((args[3] == 0).sum())} "
+                   f"exact zeros of w")
+        cots = (_rand((b, s, h, d), gen, dtype),
+                _rand((b, h, d, d), gen, torch.float32) if dstate else None)
+        leaves, build, names = _rwkv6_leaves(args)
+        errs[f"rwkv6_scan_bwd[{case}]"] = _check_scan_bwd_case(
+            r6.rwkv6_scan, ref.rwkv6_scan_ref, f"rwkv6_scan_bwd[{case}]",
+            leaves, build, names, cots, dtype == torch.float32)
+    return errs["mamba2_scan_bwd[train]"], errs["rwkv6_scan_bwd[train]"]
+
+
 def check_grad_refusals(gen):
-    """The CUDA wrappers with no backward kernel raise NotImplementedError
-    on an input that requires grad, instead of cutting the graph."""
+    """The CUDA wrappers with no backward kernel (decode attention, the
+    grouped matmul) raise NotImplementedError on an input that requires
+    grad, instead of cutting the graph."""
     q = _rand((2, 1, 8, 64), gen).requires_grad_(True)
     k, v = _rand((2, 64, 2, 64), gen), _rand((2, 64, 2, 64), gen)
-    m2_in = mamba2_inputs(gen, 1, 16, 2, 16, 16)
-    r6_in = rwkv6_inputs(gen, 1, 16, 2, 16)
     x, w, ids = moe_case(gen, (64, 2), 64, 64, 4, torch.bfloat16, "sorted")
     cases = {
         "decode_attention": lambda: fa.decode_attention(q, k, v, kv_len=64),
-        "mamba2_scan": lambda: m2.mamba2_scan(
-            m2_in[0].requires_grad_(True), *m2_in[1:]),
-        "rwkv6_scan": lambda: r6.rwkv6_scan(
-            r6_in[0].requires_grad_(True), *r6_in[1:]),
         "moe_gmm": lambda: gmm.moe_gmm(x, w.requires_grad_(True), ids),
     }
     for name, fn in cases.items():
@@ -2461,13 +2622,13 @@ def check_grad_refusals(gen):
                              f"grad, with no backward kernel")
 
 
-#: the reduced models that train on the card (their layers reach only the
-#: attention and gather kernels, which have backward kernels), and those
-#: that must refuse (a scan or the grouped matmul on their path)
-TRAIN_REF_ARCHS = ("granite-8b", "gemma2-27b", "gemma3-12b", "chatglm3-6b",
-                   "llama-3.2-vision-11b", "whisper-tiny")
-TRAIN_REFUSED = {"zamba2-7b": "mamba2_scan", "rwkv6-1.6b": "rwkv6_scan",
-                 "granite-moe-3b-a800m": "moe_gmm"}
+#: the reduced models that train on the card (their layers reach the
+#: attention, gather and scan kernels, which have backward kernels), and
+#: those that must refuse (the grouped matmul on their path)
+TRAIN_REF_ARCHS = ("granite-8b", "zamba2-7b", "rwkv6-1.6b", "gemma2-27b",
+                   "gemma3-12b", "chatglm3-6b", "llama-3.2-vision-11b",
+                   "whisper-tiny")
+TRAIN_REFUSED = {"granite-moe-3b-a800m": "moe_gmm"}
 #: a reduced model in f32, card against CPU: the loss within 1e-5 and each
 #: gradient within 1e-4 of the CPU's largest entry of that gradient plus
 #: 1e-7; the same f32 arithmetic in another order (cuBLAS against the
@@ -2508,8 +2669,11 @@ def check_train_reference(arch):
         params.requires_grad_(True)
         loss = lm.loss_fn(params, cfg, batch)
         loss.backward()
-        out[name] = (float(loss.detach()), {n: p.grad.cpu() for n, p in
-                                            params.named_parameters()})
+        # a parameter no layer reaches (zamba2-reduced's one H layer uses
+        # the first of its two shared blocks) has no gradient: zeros
+        out[name] = (float(loss.detach()), {
+            n: (torch.zeros_like(p) if p.grad is None else p.grad).cpu()
+            for n, p in params.named_parameters()})
         params.zero_grad(set_to_none=True)
         train.train_step(params, cfg, adamw_init(
             dict(params.named_parameters())), toks.to(dev), 1e-3)
@@ -2546,8 +2710,8 @@ def check_train_reference(arch):
 
 def check_train_refusals():
     """A model whose path reaches a kernel with no backward kernel fails
-    loudly on the card: one train step of each reduced SSM and MoE model
-    raises NotImplementedError naming that kernel."""
+    loudly on the card: one train step of the reduced MoE model raises
+    NotImplementedError naming that kernel."""
     for arch, kernel in TRAIN_REFUSED.items():
         cfg = configs.get_reduced(arch)
         params = lm.init_params(cfg, seed=0, device="cuda")
@@ -2601,17 +2765,19 @@ def check_train_restart(tmp):
                              "the unbroken one")
 
 
-def train_phase():
-    """granite-8b at full width and ``TRAIN_DEPTH`` layers: ``TRAIN_STEPS``
-    steps of ``launch.train.train`` at B ``TRAIN_B``, S ``TRAIN_S`` from
-    ``SyntheticTokens(seed=0)``.  Checks the exact launches of the four
-    kernels on its path and finite losses and norms; prints each step's
-    loss, grad norm and seconds, tokens/s and the peak memory.  Returns
-    its launches."""
-    full = configs.get(TRAIN_ARCH)
-    cfg = dataclasses.replace(
-        full, name=f"{TRAIN_ARCH} at {TRAIN_DEPTH} of {full.n_layers} "
-        f"layers", n_layers=TRAIN_DEPTH)
+def train_phase(arch, depth):
+    """``arch`` at full width and ``depth`` layers: ``TRAIN_STEPS`` steps of
+    ``launch.train.train`` at B ``TRAIN_B``, S ``TRAIN_S`` from
+    ``SyntheticTokens(seed=0)``.  Checks the exact launches of every kernel
+    on its path, forward and backward (a step: one attention a G, L or H
+    layer and two an X layer, one SSD scan an M or H layer, one WKV scan
+    an R layer, one gather, and the backward of each), and finite losses and norms; prints
+    each step's loss, grad norm and seconds, tokens/s and the peak memory.
+    Returns its launches."""
+    full = configs.get(arch)
+    cfg = full if depth == full.n_layers else dataclasses.replace(
+        full, name=f"{arch} at {depth} of {full.n_layers} layers",
+        n_layers=depth)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     for fn in COUNTERS.values():
@@ -2621,12 +2787,16 @@ def train_phase():
                       device="cuda", log_every=1)
     wall = time.perf_counter() - t0
     launches = {n: fn.launches for n, fn in COUNTERS.items()}
-    n_attn = sum(k in "GLX" for k in cfg.layer_pattern) * \
-        (cfg.n_layers // len(cfg.layer_pattern))
+    pattern = cfg.layer_pattern
+    kinds = [pattern[i % len(pattern)] for i in range(cfg.n_layers)]
+    # an X layer attends twice (itself, then the memory)
+    per_step = {"flash_attention": sum(k in "GLXH" for k in kinds)
+                + kinds.count("X"),
+                "mamba2_scan": sum(k in "MH" for k in kinds),
+                "rwkv6_scan": kinds.count("R"), "burst_gather": 1}
     want = dict.fromkeys(COUNTERS, 0)
-    want.update(flash_attention=n_attn * TRAIN_STEPS,
-                flash_attention_bwd=n_attn * TRAIN_STEPS,
-                burst_gather=TRAIN_STEPS, burst_gather_bwd=TRAIN_STEPS)
+    for name, n in per_step.items():
+        want[name] = want[f"{name}_bwd"] = n * TRAIN_STEPS
     tokens = TRAIN_B * (TRAIN_S + 1)
     steady = statistics.median(run.step_s[1:])
     peak = torch.cuda.max_memory_allocated() / 1e9
@@ -2641,9 +2811,11 @@ def train_phase():
            f"tokens/s; max_memory_allocated {peak:.2f} GB; launches "
            f"{launches}")
     if launches != want:
-        raise AssertionError(f"train: launch counts {launches}, want {want}")
+        raise AssertionError(f"train {cfg.name}: launch counts {launches}, "
+                             f"want {want}")
     if not all(math.isfinite(x) for x in run.losses + run.grad_norms):
-        raise AssertionError("train: a loss or grad norm is not finite")
+        raise AssertionError(f"train {cfg.name}: a loss or grad norm is not "
+                             f"finite")
     del run
     torch.cuda.empty_cache()
     return launches
@@ -2733,6 +2905,65 @@ def train_rows(errs, flush, gen):
                      "burst_gather.py:59", errs[1], ms, plain, lib, b_ms,
                      b_by))
     rows[-1]["kernels_ms"] = split
+    del idx, dout, table, idx64, doutf
+    return rows + scan_bwd_rows(errs[2:], flush, gen)
+
+
+#: the scans' backward FLOPs a state element and step: mamba2 12 (the
+#: state's step 3, the gradient g 2, its sums against B and h_{t-1} 4, its
+#: products into dB and dC 2, the carry 1), rwkv6 15 (the state's step 3,
+#: G's sums against v and S_{t-1} and dy's against S_{t-1} 6, the dv term
+#: 3, the carry 3)
+SCAN_BWD_FLOPS = {"mamba2_scan_bwd": 12, "rwkv6_scan_bwd": 15}
+
+
+def scan_bwd_rows(errs, flush, gen):
+    """The kernels line's rows of the scans' backward at the train runs'
+    shapes (``profile_bwd``'s inputs: zamba2-7b's M layers, B 4, S 1024,
+    112 heads, P 64, N 64, and rwkv6-1.6b's, 32 heads, D 64, bf16, no state
+    and no final-state gradient, as the models call them).  Plain: autograd
+    through ``ref.*_scan_ref``; library: none (PyTorch has no call for
+    either gradient).  Bound: bytes, each input (dy among them) read once
+    and each gradient written once, or the f32 FLOPs of
+    ``SCAN_BWD_FLOPS`` at the bf16 tensor-core peak; the line also gives
+    them at the f32 FMA peak.  Each row keeps the device time of each of
+    its two kernels (``kernels_ms``)."""
+    rows = []
+    cases = (("mamba2_scan_bwd", m2.mamba2_scan_bwd, ref.mamba2_scan_ref,
+              mamba2_bwd_inputs, lambda a: a[0].numel() * a[3].shape[-1],
+              "src/repro/kernels/mamba2_scan.py:71"),
+             ("rwkv6_scan_bwd", r6.rwkv6_scan_bwd, ref.rwkv6_scan_ref,
+              rwkv6_bwd_inputs, lambda a: a[0].numel() * a[0].shape[-1],
+              "src/repro/kernels/rwkv6_scan.py:76"))
+    for (name, fn, plain_fn, inputs, elems, replaces), err in zip(cases,
+                                                                   errs):
+        args = inputs(gen)
+        *fwd_args, dy = args
+
+        def kernel(fn=fn, args=args):
+            return fn(*args)
+
+        def plain(plain_fn=plain_fn, fwd_args=fwd_args, dy=dy):
+            # the inputs' gradients (no state goes in)
+            return _scan_bwd.plain_vjp(plain_fn, fwd_args[:5], (dy, None))
+        ms = time_ms(kernel, flush)
+        split = kernel_split(kernel)
+        plain_ms = time_ms(plain, flush, reps=2)
+        out = kernel()
+        nbytes = _nbytes(*args, *out)
+        flops = SCAN_BWD_FLOPS[name] * elems(args)
+        b_ms, b_by = bound(flops, nbytes)
+        shape = tuple(args[0].shape)
+        _phase(f"time {name}[train] {shape} bf16: {ms:.4f} ms, plain "
+               f"{plain_ms:.3f} ms, library none, bound {b_ms:.4f} ms "
+               f"({b_by}; {nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP), "
+               f"f32 FMA floor {flops / PEAK_F32_FLOPS * 1e3:.4f} ms; by "
+               f"kernel (profiler, ms a call) {_split_text(split)}")
+        rows.append(_row(name, replaces, err, ms, plain_ms, None, b_ms,
+                         b_by))
+        rows[-1]["kernels_ms"] = split
+        del args, fwd_args, dy, out
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -2886,7 +3117,8 @@ def main() -> int:
     # training: the backward kernels against their plain versions, the
     # refusals, the f32 step against the CPU, the restart, then the path
     trgen = torch.Generator(device="cuda").manual_seed(22)
-    train_errs = (check_attention_bwd(trgen), check_gather_bwd(trgen))
+    train_errs = (check_attention_bwd(trgen), check_gather_bwd(trgen),
+                  *check_scan_bwd(trgen))
     check_grad_refusals(trgen)
     for arch in TRAIN_REF_ARCHS:
         check_train_reference(arch)
@@ -2895,7 +3127,10 @@ def main() -> int:
     build_dir.mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
         check_train_restart(Path(tmp))
-    train_launches = train_phase()
+    train_launches = dict.fromkeys(COUNTERS, 0)
+    for arch, depth in TRAIN_RUNS:
+        run = train_phase(arch, depth)
+        train_launches = {n: train_launches[n] + run[n] for n in COUNTERS}
     kernels += train_rows(train_errs, flush, trgen)
     # each kernel's launches, summed over the serve runs and the train run
     for row in kernels:

@@ -18,7 +18,8 @@
 // bound, held back by the instructions its threads issue between the
 // products, not by the tensor cores or the bytes (PERF.md).
 //
-// Two kernels; the wrapper picks one by dtype and S (mamba2_scan.schedule):
+// Two forward kernels, and the backward's two at the end of the file; the
+// wrapper picks a forward kernel by dtype and S (mamba2_scan.schedule):
 //
 // - mamba2_chunked, bf16 with S >= CK_T: the chunked dual form on the
 //   tensor cores, wgmma m64n64k16 with bf16 operands and f32 sums.  One
@@ -66,6 +67,7 @@
 #include <stdint.h>
 
 #include "hopper.cuh"
+#include "scan_bwd.cuh"
 
 namespace {
 
@@ -677,6 +679,278 @@ int launch_chunked(const Args& a, int Bsz, int grid, int vec,
              : launch_chunked_np<2, false>(a, Bsz, grid, s);
 }
 
+// ------------------------------- backward: mamba2_bwd_scan, mamba2_bwd_sum
+// Replaces no TPU kernel: the reference trains through its jnp ref
+// (src/repro/kernels/ref.py::mamba2_scan_ref, a lax.scan) and has no
+// custom_vjp, so this is the gradient of the Pallas kernel above.  What
+// bounds it on an H100: bytes.  At zamba2-7b's training shape (B=4,
+// S=1024, H=112, P=N=64, bf16) x, dy and dx are 58.7 MB each and the
+// whole call moves ~189 MB, ~0.056 ms at 3.35 TB/s; its f32 FMAs need
+// ~0.34 ms on the FMA pipes.  These kernels are the simple sequential
+// form, latency-bound at one block an SM (PERF.md); the chunked dual form
+// on the tensor cores is later work.
+//
+// The layout and checkpoint schedule of scan_bwd.cuh; per (b, h), row p of
+// the state, with g_t the gradient of h_t (the final state's gradient
+// entering at t = S) and a_t = exp(dt_t A):
+//   g_t       = dy_t[p] C_t + a_{t+1} g_{t+1}
+//   dx_t[p]   = dt_t sum_n g_t[n] B_t[n]
+//   ddt_t    += sum_n g_t[n] (x_t[p] B_t[n] + A a_t h_{t-1}[n])
+//   dA       += dt_t a_t sum_n g_t[n] h_{t-1}[n]
+//   dB_t[n]  += g_t[n] dt_t x_t[p] ,  dC_t[n] += h_t[n] dy_t[p]
+//   dh_0      = a_1 g_1
+// dx is whole in its row; ddt sums the rows of a head, dB and dC the rows
+// of every head, dA also the batch and the steps.  mamba2_bwd_scan writes
+// dx, dh_0 and each block's partial sums of dB, dC, ddt (a step each) and
+// dA; mamba2_bwd_sum adds the partials in block order and rounds dB and dC
+// once to their dtype.  Every sum is f32.
+
+struct BwdArgs {
+  const void* x; const float* dt; const float* A; const void* B;
+  const void* C; const float* h0; const void* dy; const float* dhT;
+  void* dx; float* dh0;
+  float4* ckpt; float* dB_part; float* dC_part; float* ddt_part;
+  float* dA_part;
+  int S, H, P, N, nsl, nck;
+  long long xs_b, xs_s, xs_h, bs_b, bs_s, cs_b, cs_s;
+};
+
+template <int NV>
+struct M2BwdSmem {
+  float4 sub[BW_NSUB][NV][BW_NT];         // the state before each sub-chunk
+  float red[2][BW_WARPS][2 * MAXD + 1];   // a warp's dB, dC and ddt
+  float sb[BW_K2][MAXD], sc[BW_K2][MAXD]; // B_t, C_t of the sub-chunk
+  float sx[BW_K2][BW_ROWS], sdy[BW_K2][BW_ROWS];
+  float sdt[BW_K2];
+  float srow[BW_ROWS];
+};
+
+// Stage steps [ts, ts + n) of x, B, dt (and, in reverse, C and dy).
+template <typename T, int NV>
+__device__ __forceinline__ void m2_stage(const BwdArgs& a, M2BwdSmem<NV>& sm,
+                                         int b, int hh, int p0, int ts,
+                                         int n, bool rev) {
+  constexpr int NC = 64 * NV;
+  const T* x = static_cast<const T*>(a.x) + b * a.xs_b + hh * a.xs_h + p0;
+  const T* dy = static_cast<const T*>(a.dy) +
+                ((long long)b * a.S * a.H + hh) * a.P + p0;
+  const T* Bm = static_cast<const T*>(a.B) + b * a.bs_b;
+  const T* Cm = static_cast<const T*>(a.C) + b * a.cs_b;
+  const long long hp = (long long)a.H * a.P;
+  for (int e = threadIdx.x; e < n * BW_ROWS; e += BW_NT) {
+    const int tt = e / BW_ROWS, q = e % BW_ROWS;
+    const bool in = p0 + q < a.P;
+    sm.sx[tt][q] = in ? to_f(x[(ts + tt) * a.xs_s + q]) : 0.f;
+    if (rev) sm.sdy[tt][q] = in ? to_f(dy[(ts + tt) * hp + q]) : 0.f;
+  }
+  for (int e = threadIdx.x; e < n * NC; e += BW_NT) {
+    const int tt = e / NC, c = e % NC;
+    const bool in = c < a.N;
+    sm.sb[tt][c] = in ? to_f(Bm[(ts + tt) * a.bs_s + c]) : 0.f;
+    if (rev) sm.sc[tt][c] = in ? to_f(Cm[(ts + tt) * a.cs_s + c]) : 0.f;
+  }
+  if (threadIdx.x < n)
+    sm.sdt[threadIdx.x] =
+        a.dt[((long long)b * a.S + ts + threadIdx.x) * a.H + hh];
+}
+
+// h <- exp(dt A) h + dt x B^T at staged step k
+template <int NV>
+__device__ __forceinline__ void m2_step(float (&st)[4 * NV],
+                                        const M2BwdSmem<NV>& sm, int k,
+                                        float A, int g, int r) {
+  const float d = sm.sdt[k], decay = expf(d * A), dxv = d * sm.sx[k][r];
+#pragma unroll
+  for (int i = 0; i < 4 * NV; ++i)
+    st[i] = st[i] * decay + dxv * sm.sb[k][bw_col(g, i)];
+}
+
+template <typename T, int NV>
+__global__ void __launch_bounds__(BW_NT, 1) mamba2_bwd_scan(BwdArgs a) {
+  constexpr int E = 4 * NV;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  auto& sm = *reinterpret_cast<M2BwdSmem<NV>*>(smem_raw);
+  const int tid = threadIdx.x, g = tid % BW_G, r = tid / BW_G;
+  const int warp = tid / 32, lane = tid % 32;
+  const int H = a.H, P = a.P, N = a.N, S = a.S;
+  const int bh = blockIdx.x / a.nsl, sl = blockIdx.x % a.nsl;
+  const int b = bh / H, hh = bh % H, p0 = sl * BW_ROWS, p = p0 + r;
+  const bool row = p < P;
+  const float A = a.A[hh];
+  const long long hp = (long long)H * P;
+  T* dx = static_cast<T*>(a.dx) + ((long long)b * S * H + hh) * P + p0;
+  float4* ck = a.ckpt + (long long)blockIdx.x * a.nck * NV * BW_NT + tid;
+  const long long nbh = (long long)H * a.nsl, q = (long long)hh * a.nsl + sl;
+  const long long srow = ((long long)bh * P + p) * N;
+
+  // forward: the state before each chunk of BW_K1 steps
+  float st[E];
+  bw_load_row<E>(st, a.h0 ? a.h0 + srow : nullptr, g, N, row);
+  for (int c = 0; c < a.nck; ++c) {
+    bw_put<E>(ck + (long long)c * NV * BW_NT, st);
+    if (c == a.nck - 1) break;
+    for (int ts = c * BW_K1; ts < (c + 1) * BW_K1; ts += BW_K2) {
+      m2_stage<T, NV>(a, sm, b, hh, p0, ts, BW_K2, false);
+      __syncthreads();
+      for (int k = 0; k < BW_K2; ++k) m2_step<NV>(st, sm, k, A, g, r);
+      __syncthreads();
+    }
+  }
+
+  // reverse, chunk by chunk from the last
+  float carry[E];                   // a_{t+1} g_{t+1}
+  bw_load_row<E>(carry, a.dhT ? a.dhT + srow : nullptr, g, N, row);
+  float dA_acc = 0.f;
+  int buf = 0;
+  for (int c = a.nck - 1; c >= 0; --c) {
+    const int t0 = c * BW_K1, t1 = min(S, t0 + BW_K1);
+    const int nsub = (t1 - t0 + BW_K2 - 1) / BW_K2;
+    bw_get<E>(st, ck + (long long)c * NV * BW_NT);
+    for (int s = 0; s < nsub; ++s) {
+      bw_put<E>(&sm.sub[s][0][tid], st);
+      if (s == nsub - 1) break;
+      m2_stage<T, NV>(a, sm, b, hh, p0, t0 + s * BW_K2, BW_K2, false);
+      __syncthreads();
+      for (int k = 0; k < BW_K2; ++k) m2_step<NV>(st, sm, k, A, g, r);
+      __syncthreads();
+    }
+    for (int s = nsub - 1; s >= 0; --s) {
+      const int ts = t0 + s * BW_K2, n = min(BW_K2, t1 - ts);
+      m2_stage<T, NV>(a, sm, b, hh, p0, ts, n, true);
+      __syncthreads();
+      float h0s[E], hist[BW_K2][E];
+      bw_get<E>(h0s, &sm.sub[s][0][tid]);
+#pragma unroll
+      for (int i = 0; i < E; ++i) st[i] = h0s[i];
+#pragma unroll
+      for (int k = 0; k < BW_K2; ++k) {
+        if (k < n) m2_step<NV>(st, sm, k, A, g, r);
+#pragma unroll
+        for (int i = 0; i < E; ++i) hist[k][i] = st[i];
+      }
+#pragma unroll
+      for (int k = BW_K2 - 1; k >= 0; --k) {
+        if (k >= n) continue;
+        const float d = sm.sdt[k], decay = expf(d * A);
+        const float xp = sm.sx[k][r], dyp = sm.sdy[k][r];
+        float sgb = 0.f, sgh = 0.f, pb[E], pc[E];
+#pragma unroll
+        for (int i = 0; i < E; ++i) {
+          const int col = bw_col(g, i);
+          const float gv = dyp * sm.sc[k][col] + carry[i];
+          const float hprev = k ? hist[k - 1][i] : h0s[i];
+          sgb += gv * sm.sb[k][col];
+          sgh += gv * hprev;
+          pb[i] = gv * (d * xp);
+          pc[i] = hist[k][i] * dyp;
+          carry[i] = decay * gv;
+        }
+        sgb = bw_row_sum(sgb);
+        sgh = bw_row_sum(sgh);
+        const int t = ts + k;
+        if (g == 0 && row) dx[t * hp + r] = from_f<T>(d * sgb);
+        dA_acc += d * decay * sgh;
+        const float ddt_rows = bw_pair_sum(xp * sgb + A * decay * sgh);
+#pragma unroll
+        for (int i = 0; i < E; ++i) {
+          pb[i] = bw_pair_sum(pb[i]);
+          pc[i] = bw_pair_sum(pc[i]);
+        }
+        if (lane < BW_G) {
+#pragma unroll
+          for (int i = 0; i < E; ++i) {
+            const int col = bw_col(g, i);
+            sm.red[buf][warp][col] = pb[i];
+            sm.red[buf][warp][MAXD + col] = pc[i];
+          }
+        }
+        if (lane == 0) sm.red[buf][warp][2 * MAXD] = ddt_rows;
+        __syncthreads();
+        const long long bt = (long long)b * S + t;
+        if (tid < 2 * N) {
+          const bool isb = tid < N;
+          const int col = isb ? tid : tid - N;
+          float acc = 0.f;
+          for (int w = 0; w < BW_WARPS; ++w)
+            acc += sm.red[buf][w][isb ? col : MAXD + col];
+          (isb ? a.dB_part : a.dC_part)[(bt * nbh + q) * N + col] = acc;
+        } else if (tid == BW_NT - 1) {
+          float acc = 0.f;
+          for (int w = 0; w < BW_WARPS; ++w) acc += sm.red[buf][w][2 * MAXD];
+          a.ddt_part[bt * nbh + q] = acc;
+        }
+        buf ^= 1;
+      }
+    }
+  }
+
+  bw_store_row<E>(carry, a.dh0 + srow, g, N, row);
+  if (g == 0) sm.srow[r] = dA_acc;
+  __syncthreads();
+  if (tid == 0) {
+    float acc = 0.f;
+    for (int i = 0; i < BW_ROWS; ++i) acc += sm.srow[i];
+    a.dA_part[blockIdx.x] = acc;
+  }
+}
+
+// dB, dC (B,S,N) in T, ddt (B,S,H) and dA (H,) f32: the partials in block
+// order
+template <typename T>
+__global__ void mamba2_bwd_sum(BwdArgs a, int Bsz, void* dB, void* dC,
+                               float* ddt, float* dA) {
+  const long long nbh = (long long)a.H * a.nsl;
+  const long long nbsn = (long long)Bsz * a.S * a.N;
+  const long long nbsh = (long long)Bsz * a.S * a.H;
+  const long long total = 2 * nbsn + nbsh + a.H;
+  for (long long e = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+       e < total; e += (long long)gridDim.x * blockDim.x) {
+    float acc = 0.f;
+    if (e < 2 * nbsn) {
+      const bool isc = e >= nbsn;
+      const long long f = isc ? e - nbsn : e, bt = f / a.N;
+      const float* part = (isc ? a.dC_part : a.dB_part) + bt * nbh * a.N +
+                          f % a.N;
+      for (long long j = 0; j < nbh; ++j) acc += part[j * a.N];
+      static_cast<T*>(isc ? dC : dB)[f] = from_f<T>(acc);
+    } else if (e < 2 * nbsn + nbsh) {
+      const long long f = e - 2 * nbsn;
+      for (int j = 0; j < a.nsl; ++j) acc += a.ddt_part[f * a.nsl + j];
+      ddt[f] = acc;
+    } else {
+      const int h = (int)(e - 2 * nbsn - nbsh);
+      for (int b = 0; b < Bsz; ++b)
+        for (int j = 0; j < a.nsl; ++j)
+          acc += a.dA_part[((long long)b * a.H + h) * a.nsl + j];
+      dA[h] = acc;
+    }
+  }
+}
+
+template <typename T, int NV>
+int launch_bwd_nv(const BwdArgs& a, int grid, cudaStream_t s) {
+  const int smem = (int)sizeof(M2BwdSmem<NV>);
+  const cudaError_t err = cudaFuncSetAttribute(
+      mamba2_bwd_scan<T, NV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return (int)err;
+  mamba2_bwd_scan<T, NV><<<grid, BW_NT, smem, s>>>(a);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_bwd(const BwdArgs& a, int Bsz, int grid, void* dB, void* dC,
+               float* ddt, float* dA, cudaStream_t s) {
+  const int err = a.N <= 64 ? launch_bwd_nv<T, 1>(a, grid, s)
+                            : launch_bwd_nv<T, 2>(a, grid, s);
+  if (err) return err;
+  const long long total = 2LL * Bsz * a.S * a.N +
+                          (long long)Bsz * a.S * a.H + a.H;
+  const int blocks = (int)(total < 4096 * 256 ? (total + 255) / 256 : 4096);
+  mamba2_bwd_sum<T><<<blocks, 256, 0, s>>>(a, Bsz, dB, dC, ddt, dA);
+  return (int)cudaGetLastError();
+}
+
 bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
@@ -717,4 +991,45 @@ extern "C" int mamba2_scan_fwd(const void* x, const float* dt, const float* A,
   const int vec4 = N % 4 == 0 && (!h0 || aligned16(h0)) && aligned16(hout);
   return dtype == 0 ? launch_seq<bf16>(a, grid, vec4, s)
                     : launch_seq<float>(a, grid, vec4, s);
+}
+
+// The gradient of mamba2_scan_fwd, sequential in f32 for both dtypes:
+// x, dt, A, B, C, h0 and the strides as there; dy (B,S,H,P) contiguous in
+// x's dtype; dhT (B,H,P,N) f32, the final state's gradient, or null for
+// zeros.  Writes dx (B,S,H,P) and dB, dC (B,S,N), contiguous in x's dtype,
+// ddt (B,S,H) and dA (H,) in f32, and dh0 (B,H,P,N) f32.  scratch holds,
+// in f32 and in this order, with nsl = ceil(P / 32), NV = 1 for N <= 64
+// else 2, grid = B H nsl: the checkpoints (grid ceil(S / 64) NV 2048),
+// the partial dB and dC (B S H nsl N each), ddt (B S H nsl) and dA
+// (grid); every float of it is written before it is read.  Returns the
+// CUDA error of the launches (0 on success).
+extern "C" int mamba2_scan_bwd(const void* x, const float* dt, const float* A,
+                               const void* B, const void* C, const float* h0,
+                               const void* dy, const float* dhT, void* dx,
+                               float* ddt, float* dA, void* dB, void* dC,
+                               float* dh0, float* scratch, int Bsz, int S,
+                               int H, int P, int N, long long xs_b,
+                               long long xs_s, long long xs_h, long long bs_b,
+                               long long bs_s, long long cs_b, long long cs_s,
+                               int dtype, void* stream) {
+  const int nsl = (P + BW_ROWS - 1) / BW_ROWS, NV = N <= 64 ? 1 : 2;
+  if (P < 1 || N < 1 || P > MAXD || N > MAXD || S < 0 || Bsz < 1 || H < 1 ||
+      (long long)Bsz * H * nsl > 0x7fffffffLL || (dtype != 0 && dtype != 1) ||
+      !aligned16(scratch))
+    return (int)cudaErrorInvalidValue;
+  const long long grid = (long long)Bsz * H * nsl;
+  const long long bshn = (long long)Bsz * S * H * nsl;
+  float4* ckpt = reinterpret_cast<float4*>(scratch);
+  float* dB_part = scratch + bw_ckpt_floats(grid, S, NV);
+  float* dC_part = dB_part + bshn * N;
+  float* ddt_part = dC_part + bshn * N;
+  float* dA_part = ddt_part + bshn;
+  const BwdArgs a{x, dt, A, B, C, h0, dy, dhT, dx, dh0, ckpt, dB_part,
+                  dC_part, ddt_part, dA_part, S, H, P, N, nsl,
+                  (S + BW_K1 - 1) / BW_K1, xs_b, xs_s, xs_h, bs_b, bs_s,
+                  cs_b, cs_s};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return dtype == 0
+             ? launch_bwd<bf16>(a, Bsz, (int)grid, dB, dC, ddt, dA, s)
+             : launch_bwd<float>(a, Bsz, (int)grid, dB, dC, ddt, dA, s);
 }

@@ -22,7 +22,8 @@
 // the pair sums, recomputed for each value slice (PERF.md).  At decode
 // (S=1) the state read and written is almost all of the ~4.2 MB.
 //
-// Two kernels; the wrapper picks one by S (rwkv6_scan.schedule):
+// Two forward kernels, and the backward's two at the end of the file; the
+// wrapper picks a forward kernel by S (rwkv6_scan.schedule):
 //
 // - rwkv6_chunked, S >= RT, both dtypes: chunks of RT steps, f32 FMAs.  A
 //   block of 128 threads per (b, h, slice of JS value columns): column j
@@ -60,6 +61,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "scan_bwd.cuh"
 
 namespace {
 
@@ -545,6 +548,245 @@ int launch_chunked(const Args& a, int grid, int vec, cudaStream_t s) {
   return launch_chunked_db<T, 128>(a, grid, vec, s);
 }
 
+// -------------------------------- backward: rwkv6_bwd_scan, rwkv6_bwd_sum
+// Replaces no TPU kernel: the reference trains through its jnp ref
+// (src/repro/kernels/ref.py::rwkv6_scan_ref) and has no custom_vjp, so
+// this is the gradient of the Pallas kernel above.  What bounds it on an
+// H100: bytes.  At rwkv6-1.6b's training shape (B=4, S=1024, H=32, D=64,
+// bf16) r, k, v, w, dy and their four gradients are 16.8 MB each, ~153 MB
+// in all, ~0.046 ms at 3.35 TB/s; its f32 FMAs need ~0.12 ms.  These
+// kernels are the simple sequential form, latency-bound (PERF.md).
+//
+// The layout and checkpoint schedule of scan_bwd.cuh, a block per (b, h,
+// slice of 32 key rows i); per row, with G_t the gradient of the state
+// after step t (the final state's gradient at t = S) and S_{t-1} the state
+// before it:
+//   dr_t[i] = sum_j dy_t[j] S_{t-1}[i,j] + u_i k_t[i] (v_t . dy_t)
+//   dk_t[i] = sum_j G_t[i,j] v_t[j]     + u_i r_t[i] (v_t . dy_t)
+//   dw_t[i] = sum_j G_t[i,j] S_{t-1}[i,j]
+//   dv_t[j] += k_t[i] (G_t[i,j] + u_i r_t[i] dy_t[j])
+//   du[i]  += r_t[i] k_t[i] (v_t . dy_t)
+//   G_{t-1}[i,:] = r_t[i] dy_t + w_t[i] G_t[i,:] ,  dS_0 = G_0
+// dr, dk, dw and du are whole in their row; dv sums the rows of a head
+// (the one sum across rows a step), du the batch and the steps.
+// rwkv6_bwd_scan writes dr, dk, dw, dS_0 and each block's partial dv (a
+// step each) and du; rwkv6_bwd_sum adds the partials in block order and
+// rounds dv once to its dtype.  Nothing here takes an exponential or
+// divides by a decay, so strong decays and w = 0 need no care.
+
+struct BwdArgs {
+  const void* r; const void* k; const void* v; const void* w;
+  const float* u; const float* s0; const void* dy; const float* dsT;
+  void* dr; void* dk; void* dw; float* ds0;
+  float4* ckpt; float* dv_part; float* du_part;
+  int S, H, D, nsl, nck;
+};
+
+template <int NV>
+struct R6BwdSmem {
+  float4 sub[BW_NSUB][NV][BW_NT];         // the state before each sub-chunk
+  float red[2][BW_WARPS][MAXD];           // a warp's dv
+  float sv[BW_K2][MAXD], sdy[BW_K2][MAXD]; // v_t, dy_t of the sub-chunk
+  float sr[BW_K2][BW_ROWS], sk[BW_K2][BW_ROWS], sw[BW_K2][BW_ROWS];
+};
+
+// Stage steps [ts, ts + n) of the block's rows of k and w and of v (and, in
+// reverse, r and dy).
+template <typename T, int NV>
+__device__ __forceinline__ void r6_stage(const BwdArgs& a, R6BwdSmem<NV>& sm,
+                                         long long base, int i0, int ts,
+                                         int n, bool rev) {
+  constexpr int NC = 64 * NV;
+  const long long ts_stride = (long long)a.H * a.D;
+  for (int e = threadIdx.x; e < n * BW_ROWS; e += BW_NT) {
+    const int tt = e / BW_ROWS, q = e % BW_ROWS;
+    const bool in = i0 + q < a.D;
+    const long long off = base + (ts + tt) * ts_stride + i0 + q;
+    sm.sk[tt][q] = in ? to_f(static_cast<const T*>(a.k)[off]) : 0.f;
+    sm.sw[tt][q] = in ? to_f(static_cast<const T*>(a.w)[off]) : 0.f;
+    if (rev) sm.sr[tt][q] = in ? to_f(static_cast<const T*>(a.r)[off]) : 0.f;
+  }
+  for (int e = threadIdx.x; e < n * NC; e += BW_NT) {
+    const int tt = e / NC, c = e % NC;
+    const bool in = c < a.D;
+    const long long off = base + (ts + tt) * ts_stride + c;
+    sm.sv[tt][c] = in ? to_f(static_cast<const T*>(a.v)[off]) : 0.f;
+    if (rev)
+      sm.sdy[tt][c] = in ? to_f(static_cast<const T*>(a.dy)[off]) : 0.f;
+  }
+}
+
+// S[i,:] <- w_t[i] S[i,:] + k_t[i] v_t at staged step k
+template <int NV>
+__device__ __forceinline__ void r6_step(float (&st)[4 * NV],
+                                        const R6BwdSmem<NV>& sm, int k, int g,
+                                        int r) {
+  const float ki = sm.sk[k][r], wi = sm.sw[k][r];
+#pragma unroll
+  for (int i = 0; i < 4 * NV; ++i)
+    st[i] = wi * st[i] + ki * sm.sv[k][bw_col(g, i)];
+}
+
+template <typename T, int NV>
+__global__ void __launch_bounds__(BW_NT, 1) rwkv6_bwd_scan(BwdArgs a) {
+  constexpr int E = 4 * NV;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  auto& sm = *reinterpret_cast<R6BwdSmem<NV>*>(smem_raw);
+  const int tid = threadIdx.x, g = tid % BW_G, r = tid / BW_G;
+  const int warp = tid / 32, lane = tid % 32;
+  const int H = a.H, D = a.D, S = a.S;
+  const int bh = blockIdx.x / a.nsl, sl = blockIdx.x % a.nsl;
+  const int b = bh / H, hh = bh % H, i0 = sl * BW_ROWS, i = i0 + r;
+  const bool row = i < D;
+  const float ui = row ? a.u[hh * D + i] : 0.f;
+  // (b, t, hh, :) lies at base + t H D
+  const long long base = ((long long)b * S * H + hh) * D;
+  const long long ts_stride = (long long)H * D;
+  float4* ck = a.ckpt + (long long)blockIdx.x * a.nck * NV * BW_NT + tid;
+  const long long srow = ((long long)bh * D + i) * D;
+
+  // forward: the state before each chunk of BW_K1 steps
+  float st[E];
+  bw_load_row<E>(st, a.s0 ? a.s0 + srow : nullptr, g, D, row);
+  for (int c = 0; c < a.nck; ++c) {
+    bw_put<E>(ck + (long long)c * NV * BW_NT, st);
+    if (c == a.nck - 1) break;
+    for (int ts = c * BW_K1; ts < (c + 1) * BW_K1; ts += BW_K2) {
+      r6_stage<T, NV>(a, sm, base, i0, ts, BW_K2, false);
+      __syncthreads();
+      for (int k = 0; k < BW_K2; ++k) r6_step<NV>(st, sm, k, g, r);
+      __syncthreads();
+    }
+  }
+
+  // reverse, chunk by chunk from the last
+  float carry[E];                   // G_t
+  bw_load_row<E>(carry, a.dsT ? a.dsT + srow : nullptr, g, D, row);
+  float du_acc = 0.f;
+  int buf = 0;
+  for (int c = a.nck - 1; c >= 0; --c) {
+    const int t0 = c * BW_K1, t1 = min(S, t0 + BW_K1);
+    const int nsub = (t1 - t0 + BW_K2 - 1) / BW_K2;
+    bw_get<E>(st, ck + (long long)c * NV * BW_NT);
+    for (int s = 0; s < nsub; ++s) {
+      bw_put<E>(&sm.sub[s][0][tid], st);
+      if (s == nsub - 1) break;
+      r6_stage<T, NV>(a, sm, base, i0, t0 + s * BW_K2, BW_K2, false);
+      __syncthreads();
+      for (int k = 0; k < BW_K2; ++k) r6_step<NV>(st, sm, k, g, r);
+      __syncthreads();
+    }
+    for (int s = nsub - 1; s >= 0; --s) {
+      const int ts = t0 + s * BW_K2, n = min(BW_K2, t1 - ts);
+      r6_stage<T, NV>(a, sm, base, i0, ts, n, true);
+      __syncthreads();
+      float h0s[E], hist[BW_K2][E];
+      bw_get<E>(h0s, &sm.sub[s][0][tid]);
+#pragma unroll
+      for (int e = 0; e < E; ++e) st[e] = h0s[e];
+#pragma unroll
+      for (int k = 0; k < BW_K2; ++k) {
+        if (k < n) r6_step<NV>(st, sm, k, g, r);
+#pragma unroll
+        for (int e = 0; e < E; ++e) hist[k][e] = st[e];
+      }
+#pragma unroll
+      for (int k = BW_K2 - 1; k >= 0; --k) {
+        if (k >= n) continue;
+        const float ri = sm.sr[k][r], ki = sm.sk[k][r], wi = sm.sw[k][r];
+        float sdv = 0.f, sgv = 0.f, sdh = 0.f, sgh = 0.f, pv[E];
+#pragma unroll
+        for (int e = 0; e < E; ++e) {
+          const int col = bw_col(g, e);
+          const float G = carry[e], dyj = sm.sdy[k][col], vj = sm.sv[k][col];
+          const float hprev = k ? hist[k - 1][e] : h0s[e];
+          sdv += vj * dyj;
+          sgv += G * vj;
+          sdh += dyj * hprev;
+          sgh += G * hprev;
+          pv[e] = ki * (G + ui * ri * dyj);
+          carry[e] = ri * dyj + wi * G;
+        }
+        sdv = bw_row_sum(sdv);
+        sgv = bw_row_sum(sgv);
+        sdh = bw_row_sum(sdh);
+        sgh = bw_row_sum(sgh);
+        const long long off = base + (ts + k) * ts_stride + i;
+        if (g == 0 && row) {
+          static_cast<T*>(a.dr)[off] = from_f<T>(sdh + ui * ki * sdv);
+          static_cast<T*>(a.dk)[off] = from_f<T>(sgv + ui * ri * sdv);
+          static_cast<T*>(a.dw)[off] = from_f<T>(sgh);
+        }
+        du_acc += ri * ki * sdv;
+#pragma unroll
+        for (int e = 0; e < E; ++e) pv[e] = bw_pair_sum(pv[e]);
+        if (lane < BW_G) {
+#pragma unroll
+          for (int e = 0; e < E; ++e) sm.red[buf][warp][bw_col(g, e)] = pv[e];
+        }
+        __syncthreads();
+        if (tid < D) {
+          float acc = 0.f;
+          for (int w = 0; w < BW_WARPS; ++w) acc += sm.red[buf][w][tid];
+          a.dv_part[((((long long)b * S + ts + k) * H + hh) * a.nsl + sl) * D +
+                    tid] = acc;
+        }
+        buf ^= 1;
+      }
+    }
+  }
+
+  bw_store_row<E>(carry, a.ds0 + srow, g, D, row);
+  if (g == 0 && row) a.du_part[((long long)b * H + hh) * D + i] = du_acc;
+}
+
+// dv (B,S,H,D) in T and du (H,D) f32: the partials in block order
+template <typename T>
+__global__ void rwkv6_bwd_sum(BwdArgs a, int Bsz, void* dv, float* du) {
+  const long long nv = (long long)Bsz * a.S * a.H * a.D;
+  const long long total = nv + (long long)a.H * a.D;
+  for (long long e = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+       e < total; e += (long long)gridDim.x * blockDim.x) {
+    float acc = 0.f;
+    if (e < nv) {
+      const long long bth = e / a.D;
+      const int j = (int)(e % a.D);
+      for (int s = 0; s < a.nsl; ++s)
+        acc += a.dv_part[(bth * a.nsl + s) * a.D + j];
+      static_cast<T*>(dv)[e] = from_f<T>(acc);
+    } else {
+      const long long f = e - nv;   // hh D + i
+      for (int b = 0; b < Bsz; ++b)
+        acc += a.du_part[(long long)b * a.H * a.D + f];
+      du[f] = acc;
+    }
+  }
+}
+
+template <typename T, int NV>
+int launch_bwd_nv(const BwdArgs& a, int grid, cudaStream_t s) {
+  const int smem = (int)sizeof(R6BwdSmem<NV>);
+  const cudaError_t err = cudaFuncSetAttribute(
+      rwkv6_bwd_scan<T, NV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return (int)err;
+  rwkv6_bwd_scan<T, NV><<<grid, BW_NT, smem, s>>>(a);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_bwd(const BwdArgs& a, int Bsz, int grid, void* dv, float* du,
+               cudaStream_t s) {
+  const int err = a.D <= 64 ? launch_bwd_nv<T, 1>(a, grid, s)
+                            : launch_bwd_nv<T, 2>(a, grid, s);
+  if (err) return err;
+  const long long total = (long long)Bsz * a.S * a.H * a.D +
+                          (long long)a.H * a.D;
+  const int blocks = (int)(total < 4096 * 256 ? (total + 255) / 256 : 4096);
+  rwkv6_bwd_sum<T><<<blocks, 256, 0, s>>>(a, Bsz, dv, du);
+  return (int)cudaGetLastError();
+}
+
 bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
@@ -576,4 +818,35 @@ extern "C" int rwkv6_scan_fwd(const void* r, const void* k, const void* v,
   }
   return dtype == 0 ? launch_seq<bf16>(a, grid, s)
                     : launch_seq<float>(a, grid, s);
+}
+
+// The gradient of rwkv6_scan_fwd, sequential in f32 for both dtypes: r,
+// k, v, w, u, s0 as there; dy (B,S,H,D) contiguous in r's dtype; dsT
+// (B,H,D,D) f32, the final state's gradient, or null for zeros.  Writes
+// dr, dk, dv, dw (B,S,H,D) contiguous in r's dtype, du (H,D) and ds0
+// (B,H,D,D) f32.  scratch holds, in f32 and in this order, with nsl =
+// ceil(D / 32), NV = 1 for D <= 64 else 2, grid = B H nsl: the checkpoints
+// (grid ceil(S / 64) NV 2048), the partial dv (B S H nsl D) and du (B H
+// D); every float of it is written before it is read.  Returns the CUDA
+// error of the launches (0 on success).
+extern "C" int rwkv6_scan_bwd(const void* r, const void* k, const void* v,
+                              const void* w, const float* u, const float* s0,
+                              const void* dy, const float* dsT, void* dr,
+                              void* dk, void* dv, void* dw, float* du,
+                              float* ds0, float* scratch, int Bsz, int S,
+                              int H, int D, int dtype, void* stream) {
+  const int nsl = (D + BW_ROWS - 1) / BW_ROWS, NV = D <= 64 ? 1 : 2;
+  if (D < 1 || D > MAXD || S < 0 || Bsz < 1 || H < 1 ||
+      (long long)Bsz * H * nsl > 0x7fffffffLL || (dtype != 0 && dtype != 1) ||
+      !aligned16(scratch))
+    return (int)cudaErrorInvalidValue;
+  const long long grid = (long long)Bsz * H * nsl;
+  float4* ckpt = reinterpret_cast<float4*>(scratch);
+  float* dv_part = scratch + bw_ckpt_floats(grid, S, NV);
+  float* du_part = dv_part + (long long)Bsz * S * H * nsl * D;
+  const BwdArgs a{r, k, v, w, u, s0, dy, dsT, dr, dk, dw, ds0, ckpt,
+                  dv_part, du_part, S, H, D, nsl, (S + BW_K1 - 1) / BW_K1};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return dtype == 0 ? launch_bwd<bf16>(a, Bsz, (int)grid, dv, du, s)
+                    : launch_bwd<float>(a, Bsz, (int)grid, dv, du, s);
 }

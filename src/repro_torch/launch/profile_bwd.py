@@ -1,12 +1,15 @@
-"""Device time of the two training backward kernels at the train phase's
+"""Device time of the training backward kernels at the train phase's
 shapes, split by the kernels each call launches, on one GPU.
 
   PYTHONPATH=src python -m repro_torch.launch.profile_bwd [--reps N]
 
 ``flash_attention_bwd`` at granite-8b's training shape (B 4, S 1024, 32 /
-8 heads, D 128, causal, bf16) and ``burst_gather_bwd`` at its embedding
+8 heads, D 128, causal, bf16), ``burst_gather_bwd`` at its embedding
 (the first training batch's 4,100 Zipfian ids into the (49152, 4096) bf16
-table).  For each it prints the median device time of one call from CUDA
+table), ``mamba2_scan_bwd`` at zamba2-7b's M layers (B 4, S 1024, 112
+heads, P 64, N 64, bf16 x, B and C sliced from one projection) and
+``rwkv6_scan_bwd`` at rwkv6-1.6b's (B 4, S 1024, 32 heads, D 64, bf16).
+For each it prints the median device time of one call from CUDA
 events (the L2 flushed before each call) and the device time per call of
 each kernel the call launches, from ``torch.profiler``, after the card's
 name and power limit.  It calls only the wrappers' public entry points,
@@ -28,10 +31,15 @@ from repro_torch import configs
 from repro_torch.data import SyntheticTokens
 from repro_torch.kernels import burst_gather as bg
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import mamba2_scan as m2
+from repro_torch.kernels import rwkv6_scan as r6
 from repro_torch.launch.profile_serve import _device_us, _traced
 
 B, S, HQ, HKV, D = 4, 1024, 32, 8, 128
 ARCH = "granite-8b"
+#: the scans' heads at the train phase's B and S: zamba2-7b's (H, P, N),
+#: rwkv6-1.6b's (H, D)
+M2_HPN, R6_HD = (112, 64, 64), (32, 64)
 #: clock cycles the card idles before each timed call (~0.5 ms at 2 GHz):
 #: longer than the host takes to issue the slowest wrapper ``chip_smoke.py``
 #: times, the split-KV decode with its scratch and two launches
@@ -110,6 +118,32 @@ def attention_inputs(gen):
     return q, k, v, o, lse, do
 
 
+def mamba2_bwd_inputs(gen, b=B, s=S, hpn=M2_HPN, dtype=torch.bfloat16):
+    """x, dt, A, B, C, state (None), dy of ``mamba2_scan_bwd`` as the model
+    gives them: x, B and C sliced from one (b, s, H P + 2 N) projection, dt
+    after softplus, A < 0 in f32; dy contiguous in x's dtype."""
+    h, p, n = hpn
+    fused = torch.randn((b, s, h * p + 2 * n), generator=gen,
+                        device="cuda").to(dtype)
+    x, Bm, Cm = torch.split(fused, [h * p, n, n], dim=-1)
+    dt = torch.nn.functional.softplus(
+        torch.randn((b, s, h), generator=gen, device="cuda"))
+    A = -torch.exp(torch.randn((h,), generator=gen, device="cuda"))
+    dy = torch.randn((b, s, h, p), generator=gen, device="cuda").to(dtype)
+    return x.unflatten(2, (h, p)), dt, A, Bm, Cm, None, dy
+
+
+def rwkv6_bwd_inputs(gen, b=B, s=S, hd=R6_HD, dtype=torch.bfloat16):
+    """r, k, v, w (= exp(-exp(z))), u, state (None), dy of
+    ``rwkv6_scan_bwd``: r, k, v, w and dy in ``dtype``, u in f32."""
+    h, d = hd
+    r, k, v, z, dy = (torch.randn((b, s, h, d), generator=gen, device="cuda")
+                      for _ in range(5))
+    w = torch.exp(-torch.exp(z))
+    u = 0.3 * torch.randn((h, d), generator=gen, device="cuda")
+    return (*(t.to(dtype) for t in (r, k, v, w)), u, None, dy.to(dtype))
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--reps", type=int, default=25)
@@ -141,7 +175,17 @@ def main(argv=None):
         return bg.burst_gather_bwd(dout, idx, R)
     out["burst_gather_bwd"] = {"ms": time_ms(gather, flush, args.reps),
                                "kernels_ms": kernel_split(gather)}
-    for name in ("flash_attention_bwd", "burst_gather_bwd"):
+    del idx, dout
+
+    for name, fn, inputs in (
+            ("mamba2_scan_bwd", m2.mamba2_scan_bwd, mamba2_bwd_inputs(gen)),
+            ("rwkv6_scan_bwd", r6.rwkv6_scan_bwd, rwkv6_bwd_inputs(gen))):
+        def scan(fn=fn, inputs=inputs):
+            return fn(*inputs)
+        out[name] = {"ms": time_ms(scan, flush, args.reps),
+                     "kernels_ms": kernel_split(scan)}
+    for name in ("flash_attention_bwd", "burst_gather_bwd", "mamba2_scan_bwd",
+                 "rwkv6_scan_bwd"):
         row = out[name]
         parts = ", ".join(f"{k} {v:.4f}" for k, v in
                           row["kernels_ms"].items())

@@ -1,11 +1,13 @@
 """Where the training step's device time goes, by kernel, on one GPU.
 
   PYTHONPATH=src python -m repro_torch.launch.profile_train [--arch ARCH]
+      [--layers N]
 
-Builds ``--arch`` (default granite-8b) at full width and ``LAYERS``
-layers (8, the depth of ``chip_smoke.py``'s train phase: all 36 of
-granite-8b with AdamW need ~97 GB; a whole number of the pattern's
-groups), at B 4 x S 1024, then runs ``launch.train``'s step
+Builds ``--arch`` (default granite-8b) at full width and ``--layers``
+layers (default ``LAYERS``, 8, the depth of ``chip_smoke.py``'s granite
+train run: all 36 of granite-8b with AdamW need ~97 GB; rounded down to a
+whole number of the pattern's groups, at least one: zamba2-7b takes 27),
+at B 4 x S 1024, then runs ``launch.train``'s step
 (loss, backward, clip, AdamW) on ``SyntheticTokens(seed=0)`` batches: two
 untraced warm-up steps, then two steps under ``torch.profiler``.  It
 prints the wall time, the device-busy share and the device time summed by
@@ -32,11 +34,12 @@ WARMUP, STEPS, LAYERS, B, S = 2, 2, 8, 4, 1024
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="granite-8b", choices=configs.ARCHS)
+    ap.add_argument("--layers", type=int, default=LAYERS)
     args = ap.parse_args(argv)
     device = lm.resolve_device("cuda")
     full = configs.get(args.arch)
     P = len(full.layer_pattern)
-    layers = max(P, LAYERS // P * P)
+    layers = max(P, min(args.layers, full.n_layers) // P * P)
     cfg = dataclasses.replace(
         full, name=f"{args.arch} at {layers} of {full.n_layers} layers",
         n_layers=layers)

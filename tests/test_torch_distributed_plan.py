@@ -22,6 +22,9 @@ from repro.distributed import sharding as jsharding  # noqa: E402
 from repro.distributed import taskgraph as jtaskgraph  # noqa: E402
 from repro_torch import configs  # noqa: E402
 from repro_torch.distributed import sharding, taskgraph  # noqa: E402
+from _torch_sim import port_obs_isolation  # noqa: E402
+
+assert port_obs_isolation  # the autouse fixture, imported to apply here
 
 
 def _graph(g):

@@ -107,3 +107,50 @@ def test_sources_import_only_what_the_card_machine_has(path):
         assert root in THIRD_PARTY, f"{path.name} imports {root}"
         assert not (root == "triton" and at_top), \
             f"{path.name} imports triton at module level"
+
+
+#: the port's packages that count into its process-wide obs registry
+#: (``repro_torch.obs.metrics``): a test file that reaches them must reset
+#: that registry around each test, as ``conftest.py`` does the reference's
+OBS_PACKAGES = {"core", "search", "corpus", "analysis", "distributed"}
+
+
+def _port_packages(tree):
+    """The ``repro_torch`` subpackages a test file imports, lazily too."""
+    found = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 \
+                and node.module:
+            names = [node.module] + [f"{node.module}.{a.name}"
+                                     for a in node.names]
+        else:
+            continue
+        for name in names:
+            parts = name.split(".")
+            if parts[0] == "repro_torch" and len(parts) > 1:
+                found.add(parts[1])
+    return found
+
+
+def _imports_fixture(tree):
+    return any(isinstance(node, ast.ImportFrom) and node.module == "_torch_sim"
+               and any(a.name == "port_obs_isolation" for a in node.names)
+               for node in ast.walk(tree))
+
+
+@pytest.mark.parametrize("path", sorted((ROOT / "tests").glob(
+    "test_torch_*.py")), ids=lambda p: p.name)
+def test_files_that_reach_the_obs_registry_isolate_it(path):
+    """A port test file that imports ``core``, ``search``, ``corpus``,
+    ``analysis`` or ``distributed`` imports ``_torch_sim.port_obs_isolation``
+    (autouse): without it the counters it leaves in the port's registry
+    reach ``test_torch_sim_obs.py``'s comparison when ``--dist loadfile``
+    puts both files on one worker."""
+    tree = ast.parse(path.read_text(), str(path))
+    reached = _port_packages(tree) & OBS_PACKAGES
+    if reached:
+        assert _imports_fixture(tree), (
+            f"{path.name} imports repro_torch.{sorted(reached)} but not "
+            f"_torch_sim.port_obs_isolation")

@@ -39,6 +39,9 @@ from repro_torch.ckpt import (latest_step, restore_checkpoint,  # noqa: E402
 from repro_torch.data import (MemmapTokens, ShardedLoader,  # noqa: E402
                               SyntheticTokens)
 from repro_torch.distributed.elastic import ClusterState, replan  # noqa: E402
+from _torch_sim import port_obs_isolation  # noqa: E402
+
+assert port_obs_isolation  # the autouse fixture, imported to apply here
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -117,6 +117,32 @@ def test_refuse_grad_only_when_a_gradient_is_wanted():
     refuse_grad("mamba2_scan", x.detach(), None)
 
 
+def _calls(module, name):
+    """Whether ``module``'s source calls ``name`` (a plain call)."""
+    import ast
+    tree = ast.parse(open(module.__file__).read())
+    return any(isinstance(n, ast.Call) and isinstance(n.func, ast.Name)
+               and n.func.id == name for n in ast.walk(tree))
+
+
+@pytest.mark.parametrize("module,refuses", [
+    ("mamba2_scan", False), ("rwkv6_scan", False), ("moe_gmm", True),
+    ("flash_attention", True)])
+def test_which_wrappers_refuse_a_gradient(module, refuses):
+    """The scans have backward kernels (``_Mamba2``, ``_Rwkv6``) and no
+    longer call ``refuse_grad``; the grouped matmul (and the decode
+    attention in ``flash_attention``) still do; every wrapper with a
+    backward kernel has its ``*_bwd`` and a ``torch.autograd.Function``."""
+    import importlib
+    mod = importlib.import_module(f"repro_torch.kernels.{module}")
+    assert _calls(mod, "refuse_grad") == refuses
+    if module.endswith("_scan"):
+        assert callable(getattr(mod, f"{module}_bwd"))
+        assert any(isinstance(v, type)
+                   and issubclass(v, torch.autograd.Function)
+                   for v in vars(mod).values())
+
+
 # ---------------------------------------------------------------------------
 # models of the CUDA backward kernels' schedules, in plain torch
 # ---------------------------------------------------------------------------
