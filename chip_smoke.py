@@ -12,8 +12,10 @@ Phases, each printing its own lines:
    tensor-core instructions (cuobjdump -sass); the bf16 prefill attention
    must have HMMA/HGMMA instructions and no spill at head sizes <= 128,
    the bf16 prefill grouped matmul (gmm_wgmma<128, 256, 4>) HGMMA and no
-   spill, the bf16 chunked SSD scan (mamba2_chunked<1, 1>, zamba2-7b's
-   prefill) HMMA/HGMMA and no spill, and the gather's 16-byte copy
+   spill, the bf16 chunked SSD scan (mamba2_chunked<1, 1, 0>, zamba2-7b's
+   prefill) HMMA/HGMMA and no spill, its chunked backward
+   (mamba2_bwd_chunked<1, 1>, zamba2-7b's training) HGMMA and no spill,
+   and the gather's 16-byte copy
    (burst_vec<uint4>) the 64 registers that hold a lane's loads of a row
    in flight.
 3. the simulator (``repro_torch.core.simulate_batch``): the sweep kernel
@@ -161,7 +163,14 @@ Phases, each printing its own lines:
    going in and a final-state gradient, at S a multiple of neither
    checkpoint length, S 1 and 0, ragged row slices, N or D 128, the
    reduced models' shapes, rwkv6's strong decays and exact zeros of w,
-   each run twice for the same bits and one launch; the two wrappers with
+   each run twice for the same bits and one launch (mamba2's on the path
+   ``m2.bwd_schedule`` names: bf16 with S >= 64 chunked, on the tensor
+   cores, also at one chunk, two with a state, N 128, P 40 / N 24, P 36 /
+   N 20 loaded element by element, and dt A down to -100; the rest
+   sequential; each chunked case, and each rwkv6 case, loading its inputs
+   the way the library's counts by load say it must); the chunked mamba2
+   backward at every cluster size and rwkv6's, called 40 rounds round
+   robin, the same bits every time; the two wrappers with
    no backward kernel (decode attention, the grouped matmul) must raise
    on a CUDA input that requires grad; one f32 step of eight reduced
    models (granite, zamba2, rwkv6 and the five attention families) on
@@ -173,7 +182,8 @@ Phases, each printing its own lines:
    B 4 x S 1024 on granite-8b (8 of its 36 layers), zamba2-7b (27 of its
    81: one layer_pattern) and rwkv6-1.6b (all 24), each at full width
    (exact launches of every kernel on its path, forward and backward,
-   finite losses; each step's loss, grad norm and seconds, tokens/s, peak
+   zamba2's SSD backward all on the chunked path, finite losses; each
+   step's loss, grad norm and seconds, tokens/s, peak
    memory); the four backward kernels' times beside SDPA's backward,
    ``index_add_`` or none, each with the device time of every kernel it
    launched by name (``torch.profiler``: the attention's delta and wgmma
@@ -525,9 +535,11 @@ def check_gather(table, gen):
 
 
 def mamba2_inputs(gen, b, s, h, p, n, dtype=torch.bfloat16, state=True,
-                  strided=False):
+                  strided=False, decay="normal"):
     """x, dt, A, B, C, state of the SSD scan; ``strided`` cuts x, B and C
-    out of one fused tensor, as the model does."""
+    out of one fused tensor, as the model does; ``decay`` "strong" takes
+    dt uniform in [0, 1) and A in (-100, -1], so dt A reaches -100 a step
+    and the chunked kernels' exp(s) underflow to exact zeros."""
     if strided:
         fused = _rand((b, s, h * p + 2 * n), gen, dtype)
         x, Bm, Cm = torch.split(fused, [h * p, n, n], dim=-1)
@@ -537,6 +549,9 @@ def mamba2_inputs(gen, b, s, h, p, n, dtype=torch.bfloat16, state=True,
         Bm, Cm = _rand((b, s, n), gen, dtype), _rand((b, s, n), gen, dtype)
     dt = torch.nn.functional.softplus(_rand((b, s, h), gen, torch.float32))
     A = -torch.exp(_rand((h,), gen, torch.float32))
+    if decay == "strong":
+        dt = torch.rand((b, s, h), generator=gen, device="cuda")
+        A = -1.0 - 99.0 * torch.rand((h,), generator=gen, device="cuda")
     h0 = _rand((b, h, p, n), gen, torch.float32) if state else None
     return x, dt, A, Bm, Cm, h0
 
@@ -2458,29 +2473,52 @@ def check_gather_bwd(gen):
 
 
 #: (case, (B, S, H, P, N), dtype, state in, final-state gradient, x/B/C
-#: sliced from one projection) of mamba2_scan_bwd: zamba2-7b's training
-#: shape as its M layers call it (bf16, no state, no final-state
-#: gradient); f32 with a state and a final-state gradient at S a multiple
-#: of neither the 64-step checkpoints nor the 8-step sub-chunks; ragged
-#: slices of 32 rows; N 128 (8 registers a lane); S 1 and 0;
-#: zamba2-7b-reduced's heads
+#: sliced from one projection, decay of ``mamba2_inputs``) of
+#: mamba2_scan_bwd: zamba2-7b's training shape as its M layers call it
+#: (bf16, no state, no final-state gradient); f32 with a state and a
+#: final-state gradient at S a multiple of neither the 64-step checkpoints
+#: nor the 8-step sub-chunks; ragged slices of 32 rows; N 128 (8 registers
+#: a lane); S 1 and 0; zamba2-7b-reduced's heads.  bf16 with S >= 64 takes
+#: the chunked path (``m2.bwd_schedule``): one chunk exactly, two with a
+#: ragged last and a state, N 128 (two panels), P 40 and N 24 (TMA's tiles
+#: zero-filled past P and N), P 36 and N 20 sliced from one projection
+#: (not multiples of 8: loaded element by element, ``MAMBA2_BWD_ELEMENT``)
+#: and dt A down to -100 a step
 MAMBA2_BWD_CASES = [
     ("train", (TRAIN_B, TRAIN_S, 112, 64, 64), torch.bfloat16, False, False,
-     True),
-    ("f32-s200", (2, 200, 4, 64, 64), torch.float32, True, True, False),
+     True, "normal"),
+    ("f32-s200", (2, 200, 4, 64, 64), torch.float32, True, True, False,
+     "normal"),
     ("f32-p40-n24-s70", (1, 70, 3, 40, 24), torch.float32, True, True,
-     False),
-    ("bf16-state-s65", (2, 65, 8, 64, 64), torch.bfloat16, True, True, True),
+     False, "normal"),
+    ("bf16-state-s65", (2, 65, 8, 64, 64), torch.bfloat16, True, True, True,
+     "normal"),
     ("f32-p128-n128", (1, 37, 2, 128, 128), torch.float32, True, True,
-     False),
-    ("s1", (2, 1, 4, 64, 64), torch.bfloat16, True, True, False),
-    ("s0", (2, 0, 4, 64, 64), torch.float32, True, True, False),
+     False, "normal"),
+    ("s1", (2, 1, 4, 64, 64), torch.bfloat16, True, True, False, "normal"),
+    ("s0", (2, 0, 4, 64, 64), torch.float32, True, True, False, "normal"),
     ("zamba2-reduced", (2, 128, 8, 16, 16), torch.float32, False, False,
-     True),
+     True, "normal"),
+    ("bf16-s64", (2, 64, 8, 64, 64), torch.bfloat16, True, True, False,
+     "normal"),
+    ("bf16-state-s127", (2, 127, 8, 64, 64), torch.bfloat16, True, True,
+     True, "normal"),
+    ("bf16-n128", (1, 100, 4, 64, 128), torch.bfloat16, True, True, False,
+     "normal"),
+    ("bf16-p40-n24", (1, 70, 3, 40, 24), torch.bfloat16, True, True, False,
+     "normal"),
+    ("bf16-strong-decay", (2, 130, 4, 64, 64), torch.bfloat16, True, True,
+     False, "strong"),
+    ("bf16-p36-n20", (1, 130, 8, 36, 20), torch.bfloat16, True, True, True,
+     "normal"),
 ]
+#: the chunked mamba2 cases that load B, C, x and dY element by element
+#: (``m2.bwd_chunked_loads``); the other chunked cases load them by TMA
+MAMBA2_BWD_ELEMENT = ("bf16-p36-n20",)
 #: (case, (B, S, H, D), dtype, state in, final-state gradient, decay of
 #: ``rwkv6_inputs``) of rwkv6_scan_bwd: rwkv6-1.6b's training shape, then
-#: as above, with the strong decays and the exact zeros of w
+#: as above, with the strong decays, the exact zeros of w and D 36 in bf16
+#: (72 bytes a row: staged element by element, ``RWKV6_BWD_ELEMENT``)
 RWKV6_BWD_CASES = [
     ("train", (TRAIN_B, TRAIN_S, 32, 64), torch.bfloat16, False, False,
      "normal"),
@@ -2497,7 +2535,11 @@ RWKV6_BWD_CASES = [
     ("w-zeros-f32", (2, 50, 3, 64), torch.float32, True, True, "zeros"),
     ("rwkv6-reduced", (2, 128, 4, 16), torch.float32, False, False,
      "normal"),
+    ("bf16-d36", (1, 70, 3, 36), torch.bfloat16, True, True, "normal"),
 ]
+#: the rwkv6 cases staged element by element (``r6.bwd_loads``); the
+#: others by 16-byte copies
+RWKV6_BWD_ELEMENT = ("bf16-d36",)
 
 
 def _scan_grads(fn, leaves, build, cots):
@@ -2541,15 +2583,20 @@ def _rwkv6_leaves(args):
 
 
 def _check_scan_bwd_case(kernel, plain, name, leaves, build, names, cots,
-                         f32):
+                         f32, path=None, loads=None):
     """The kernel's gradients (through autograd from its wrapper) against
     autograd through the plain version: f32 at ``F32_BWD_TOL``; in bf16
     the bf16 gradients at ``BF16_TOL``, the f32 ones (of dt, A, u and the
     state) at ``STATE_BF16_TOL``, the scans' forward tolerances; then a
     second run, which must give the same bits.  Each run must launch the
-    backward wrapper once."""
+    backward wrapper once, on ``path`` where one is named (its counter
+    ``<path>_launches``), and where ``loads`` is (the library's counts by
+    how the kernel loads its inputs, the way this case must take), that
+    way and no other."""
     bwd = COUNTERS[f"{kernel.__name__}_bwd"]
     before = bwd.launches
+    on_path = getattr(bwd, f"{path}_launches") if path else 0
+    by_load = loads[0]() if loads else {}
     got = _scan_grads(kernel, leaves, build, cots)
     want = _scan_grads(plain, leaves, build, cots)
     err = 0.0
@@ -2563,7 +2610,18 @@ def _check_scan_bwd_case(kernel, plain, name, leaves, build, names, cots,
     if bwd.launches - before != 2:
         raise AssertionError(f"{name}: {bwd.launches - before} launches of "
                              f"the backward in two runs, want 2")
-    _phase(f"check {name}: two runs, same bits, one launch each ok")
+    if path and getattr(bwd, f"{path}_launches") - on_path != 2:
+        raise AssertionError(f"{name}: the backward did not take the "
+                             f"{path} path in both runs")
+    if loads:
+        now = loads[0]()
+        took = {k: now[k] - by_load[k] for k in now}
+        if took != {k: 2 * (k == loads[1]) for k in now}:
+            raise AssertionError(f"{name}: the kernel's loads in two runs "
+                                 f"were {took}, want both {loads[1]}")
+    _phase(f"check {name}: two runs, same bits, one launch each"
+           f"{f' on the {path} path' if path else ''}"
+           f"{f', loads {loads[1]}' if loads else ''} ok")
     return err
 
 
@@ -2573,17 +2631,21 @@ def check_scan_bwd(gen):
     on the same inputs (``MAMBA2_BWD_CASES``, ``RWKV6_BWD_CASES``).
     Returns the worst error of each at its training shape."""
     errs = {}
-    for case, shape, dtype, state, dstate, strided in MAMBA2_BWD_CASES:
+    for case, shape, dtype, state, dstate, strided, decay in \
+            MAMBA2_BWD_CASES:
         args = mamba2_inputs(gen, *shape, dtype=dtype, state=state,
-                             strided=strided)
+                             strided=strided, decay=decay)
         b, s, h, p, n = shape
         cots = (_rand((b, s, h, p), gen, dtype),
                 _rand((b, h, p, n), gen, torch.float32) if dstate else None)
         leaves, build, names = _mamba2_leaves(args, strided)
+        path = m2.bwd_schedule(dtype, s)
+        loads = (m2.bwd_chunked_loads, "element" if case in
+                 MAMBA2_BWD_ELEMENT else "tma") if path == "chunked" else None
         errs[f"mamba2_scan_bwd[{case}]"] = _check_scan_bwd_case(
             m2.mamba2_scan, ref.mamba2_scan_ref,
             f"mamba2_scan_bwd[{case}]", leaves, build, names, cots,
-            dtype == torch.float32)
+            dtype == torch.float32, path, loads)
     for case, shape, dtype, state, dstate, decay in RWKV6_BWD_CASES:
         args = rwkv6_inputs(gen, *shape, dtype=dtype, state=state,
                             decay=decay)
@@ -2596,8 +2658,87 @@ def check_scan_bwd(gen):
         leaves, build, names = _rwkv6_leaves(args)
         errs[f"rwkv6_scan_bwd[{case}]"] = _check_scan_bwd_case(
             r6.rwkv6_scan, ref.rwkv6_scan_ref, f"rwkv6_scan_bwd[{case}]",
-            leaves, build, names, cots, dtype == torch.float32)
+            leaves, build, names, cots, dtype == torch.float32,
+            loads=(r6.bwd_loads, "element" if case in RWKV6_BWD_ELEMENT
+                   else "vec"))
     return errs["mamba2_scan_bwd[train]"], errs["rwkv6_scan_bwd[train]"]
+
+
+#: rounds of ``check_scan_bwd_repeats``, and the cases it repeats: mamba2's
+#: at every cluster size the chunked kernel takes (the cluster a case can
+#: form is the largest of these that divides H ceil(P / 64))
+BWD_REPEATS = 40
+BWD_REPEAT_CASES = {"mamba2": ("train", "bf16-state-s127", "bf16-p36-n20"),
+                    "rwkv6": ("train", "bf16-d36")}
+BWD_CLUSTERS = (8, 4, 2, 1)
+
+
+def check_scan_bwd_repeats(gen):
+    """The chunked mamba2 backward's cluster barriers (the blocks of a
+    cluster sum dB and dC through each other's shared memory) and both
+    kernels' scratch, called again and again: the ``BWD_REPEAT_CASES``,
+    mamba2's at each of ``BWD_CLUSTERS`` (``m2.CLUSTER`` set for the
+    call), round robin for ``BWD_REPEATS`` rounds, so that each call finds
+    in its scratch what another case left there.  The first call of each
+    is held against the plain version at the bf16 tolerances; every later
+    call must give its bits again."""
+    runs = []
+    cases = {c[0]: c for c in MAMBA2_BWD_CASES}
+    for case in BWD_REPEAT_CASES["mamba2"]:
+        _, shape, dtype, state, dstate, strided, decay = cases[case]
+        b, s, h, p, n = shape
+        x, dt, A, Bm, Cm, h0 = mamba2_inputs(
+            gen, *shape, dtype=dtype, state=state, strided=strided,
+            decay=decay)
+        dy = _rand((b, s, h, p), gen, dtype)
+        dh = _rand((b, h, p, n), gen, torch.float32) if dstate else None
+        plain = _scan_bwd.plain_vjp(ref.mamba2_scan_ref, (
+            x, dt, A, Bm, Cm, torch.zeros((b, h, p, n), device="cuda")
+            if h0 is None else h0), (dy, dh))
+        for cl in BWD_CLUSTERS:
+            if cl > m2.bwd_cluster(h * -(-p // m2.CHUNK_ROWS)):
+                continue
+
+            def call(args=(x, dt, A, Bm, Cm, h0, dy, dh), cl=cl):
+                keep, m2.CLUSTER = m2.CLUSTER, cl
+                try:
+                    return m2.mamba2_scan_bwd(*args)
+                finally:
+                    m2.CLUSTER = keep
+            runs.append((f"mamba2_scan_bwd[{case}] cluster {cl}", call,
+                         plain))
+    cases = {c[0]: c for c in RWKV6_BWD_CASES}
+    for case in BWD_REPEAT_CASES["rwkv6"]:
+        _, shape, dtype, state, dstate, decay = cases[case]
+        b, s, h, d = shape
+        args = rwkv6_inputs(gen, *shape, dtype=dtype, state=state,
+                            decay=decay)
+        dy = _rand((b, s, h, d), gen, dtype)
+        ds = _rand((b, h, d, d), gen, torch.float32) if dstate else None
+        *rkvwu, s0 = args
+        plain = _scan_bwd.plain_vjp(ref.rwkv6_scan_ref, (
+            *rkvwu, torch.zeros((b, h, d, d), device="cuda")
+            if s0 is None else s0), (dy, ds))
+        runs.append((f"rwkv6_scan_bwd[{case}]",
+                     lambda args=(*args, dy, ds): r6.rwkv6_scan_bwd(*args),
+                     plain))
+    first = {}
+    for _ in range(BWD_REPEATS):
+        for name, call, plain in runs:
+            got = call()
+            if name not in first:
+                for i, (a, w) in enumerate(zip(got, plain)):
+                    _assert_close(f"{name} gradient {i}", a, w,
+                                  STATE_BF16_TOL if a.dtype == torch.float32
+                                  else BF16_TOL)
+                first[name] = got
+            elif not all(torch.equal(a, w)
+                         for a, w in zip(got, first[name])):
+                raise AssertionError(f"{name}: a repeated call differs")
+    torch.cuda.synchronize()
+    _phase(f"check scan backward repeats: {len(runs)} calls round robin "
+           f"({', '.join(name for name, _, _ in runs)}), {BWD_REPEATS} "
+           f"rounds, each call the same bits as its first ok")
 
 
 def check_grad_refusals(gen):
@@ -2782,11 +2923,13 @@ def train_phase(arch, depth):
     torch.cuda.reset_peak_memory_stats()
     for fn in COUNTERS.values():
         fn.launches = 0
+    m2.mamba2_scan_bwd.chunked_launches = 0
     t0 = time.perf_counter()
     run = train.train(cfg, steps=TRAIN_STEPS, batch=TRAIN_B, seq=TRAIN_S,
                       device="cuda", log_every=1)
     wall = time.perf_counter() - t0
     launches = {n: fn.launches for n, fn in COUNTERS.items()}
+    chunked = m2.mamba2_scan_bwd.chunked_launches
     pattern = cfg.layer_pattern
     kinds = [pattern[i % len(pattern)] for i in range(cfg.n_layers)]
     # an X layer attends twice (itself, then the memory)
@@ -2813,6 +2956,14 @@ def train_phase(arch, depth):
     if launches != want:
         raise AssertionError(f"train {cfg.name}: launch counts {launches}, "
                              f"want {want}")
+    # bf16 at S 1024: every SSD backward on the chunked path
+    if chunked != launches["mamba2_scan_bwd"]:
+        raise AssertionError(f"train {cfg.name}: {chunked} of "
+                             f"{launches['mamba2_scan_bwd']} mamba2_scan_bwd "
+                             f"launches on the chunked path")
+    if launches["mamba2_scan_bwd"]:
+        _phase(f"check train {cfg.name}: all {chunked} mamba2_scan_bwd "
+               f"launches on the chunked path ok")
     if not all(math.isfinite(x) for x in run.losses + run.grad_norms):
         raise AssertionError(f"train {cfg.name}: a loss or grad norm is not "
                              f"finite")
@@ -2926,8 +3077,11 @@ def scan_bwd_rows(errs, flush, gen):
     either gradient).  Bound: bytes, each input (dy among them) read once
     and each gradient written once, or the f32 FLOPs of
     ``SCAN_BWD_FLOPS`` at the bf16 tensor-core peak; the line also gives
-    them at the f32 FMA peak.  Each row keeps the device time of each of
-    its two kernels (``kernels_ms``)."""
+    them at the f32 FMA peak.  Each row keeps the device time of each
+    kernel it launched (``kernels_ms``: mamba2's chunked path the states
+    pass ``mamba2_chunked<.., true>``, ``mamba2_bwd_chunked`` and
+    ``mamba2_bwd_sum``; rwkv6's ``rwkv6_bwd_scan`` and ``rwkv6_bwd_sum``)
+    and the path (``bwd_schedule``)."""
     rows = []
     cases = (("mamba2_scan_bwd", m2.mamba2_scan_bwd, ref.mamba2_scan_ref,
               mamba2_bwd_inputs, lambda a: a[0].numel() * a[3].shape[-1],
@@ -2954,14 +3108,17 @@ def scan_bwd_rows(errs, flush, gen):
         flops = SCAN_BWD_FLOPS[name] * elems(args)
         b_ms, b_by = bound(flops, nbytes)
         shape = tuple(args[0].shape)
-        _phase(f"time {name}[train] {shape} bf16: {ms:.4f} ms, plain "
-               f"{plain_ms:.3f} ms, library none, bound {b_ms:.4f} ms "
+        path = m2.bwd_schedule(args[0].dtype, shape[1]) \
+            if name == "mamba2_scan_bwd" else "sequential"
+        _phase(f"time {name}[train] {shape} bf16 ({path}): {ms:.4f} ms, "
+               f"plain {plain_ms:.3f} ms, library none, bound {b_ms:.4f} ms "
                f"({b_by}; {nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP), "
                f"f32 FMA floor {flops / PEAK_F32_FLOPS * 1e3:.4f} ms; by "
                f"kernel (profiler, ms a call) {_split_text(split)}")
         rows.append(_row(name, replaces, err, ms, plain_ms, None, b_ms,
                          b_by))
         rows[-1]["kernels_ms"] = split
+        rows[-1]["path"] = path
         del args, fwd_args, dy, out
         torch.cuda.empty_cache()
     return rows
@@ -2992,14 +3149,24 @@ def check_build_report():
                              f"{gmm_r}")
     _phase("check gmm_wgmma<128, 256, 4>: HGMMA in its SASS, no spill ok")
     # zamba2-7b's bf16 prefill scan runs on the tensor cores
-    ssd = _build.kernel_report("mamba2_scan").get("mamba2_chunked<1, 1>",
-                                                  {})
+    ssd = _build.kernel_report("mamba2_scan").get(
+        "mamba2_chunked<1, 1, 0>", {})
     if not ssd.get("tensor_core") or ssd.get("spill_stores") or \
             ssd.get("spill_loads"):
-        raise AssertionError(f"mamba2_chunked<1, 1>, the bf16 chunked SSD "
-                             f"scan, needs HMMA/HGMMA and no spill: {ssd}")
-    _phase("check mamba2_chunked<1, 1>: HMMA/HGMMA in its SASS, no spill "
+        raise AssertionError(f"mamba2_chunked<1, 1, 0>, the bf16 chunked "
+                             f"SSD scan, needs HMMA/HGMMA and no spill: "
+                             f"{ssd}")
+    _phase("check mamba2_chunked<1, 1, 0>: HMMA/HGMMA in its SASS, no spill "
            "ok")
+    # and its backward, the chunked path at N <= 64 (zamba2-7b's training)
+    ssd_bwd = _build.kernel_report("mamba2_scan").get(
+        "mamba2_bwd_chunked<1, 1>", {})
+    if not ssd_bwd.get("hgmma") or ssd_bwd.get("spill_stores") or \
+            ssd_bwd.get("spill_loads"):
+        raise AssertionError(f"mamba2_bwd_chunked<1, 1>, the bf16 chunked "
+                             f"SSD backward, needs HGMMA and no spill: "
+                             f"{ssd_bwd}")
+    _phase("check mamba2_bwd_chunked<1, 1>: HGMMA in its SASS, no spill ok")
     # each lane holds its 16 loads of 16 bytes (64 registers) before it
     # stores any: fewer registers mean the compiler interleaved the stores
     gather = _build.kernel_report("burst_gather").get("burst_vec<uint4>", {})
@@ -3119,6 +3286,7 @@ def main() -> int:
     trgen = torch.Generator(device="cuda").manual_seed(22)
     train_errs = (check_attention_bwd(trgen), check_gather_bwd(trgen),
                   *check_scan_bwd(trgen))
+    check_scan_bwd_repeats(trgen)
     check_grad_refusals(trgen)
     for arch in TRAIN_REF_ARCHS:
         check_train_reference(arch)

@@ -45,11 +45,14 @@ _SIGNATURES = {
     },
     "mamba2_scan": {
         "mamba2_scan_fwd": [_P] * 8 + [_I] * 5 + [_LL] * 7 + [_I, _I, _P],
-        "mamba2_scan_bwd": [_P] * 15 + [_I] * 5 + [_LL] * 7 + [_I, _P],
+        "mamba2_scan_bwd": [_P] * 15 + [_I] * 5 + [_LL] * 7 + [_I] * 3 +
+        [_P],
+        "mamba2_bwd_chunked_launches": [_I],
     },
     "rwkv6_scan": {
         "rwkv6_scan_fwd": [_P] * 8 + [_I] * 6 + [_P],
         "rwkv6_scan_bwd": [_P] * 15 + [_I] * 5 + [_P],
+        "rwkv6_bwd_scan_launches": [_I],
     },
     "moe_gmm": {
         "moe_gmm_plan": [_P] * 5 + [_I] * 4 + [_P],

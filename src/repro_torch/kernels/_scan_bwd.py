@@ -6,8 +6,9 @@ from __future__ import annotations
 
 import torch
 
-#: threads a block (``BW_NT``), lanes a state row (``BW_G``), state rows a
-#: block (``BW_ROWS``)
+#: ``mamba2_bwd_scan`` (the sequential path): threads a block
+#: (``BW_NT``), lanes a state row (``BW_G``), state rows a block
+#: (``BW_ROWS``)
 THREADS = 512
 LANES = 16
 ROWS = THREADS // LANES
@@ -16,6 +17,15 @@ ROWS = THREADS // LANES
 CHECKPOINT = 64
 SUB = 8
 
+#: ``rwkv6_bwd_scan``: threads a block (``RB_NT``), lanes a state row
+#: (``RB_G``), steps between the checkpoints in device memory (``RB_K``),
+#: steps of the inputs loaded and converted at once (``RB_CH``); state
+#: rows a block are ``ROWS`` too
+R6_THREADS = 256
+R6_LANES = 8
+R6_CHECKPOINT = 8
+R6_CHUNK = 64
+
 
 def slices(rows: int) -> int:
     """Blocks a head's ``rows`` state rows take."""
@@ -23,10 +33,19 @@ def slices(rows: int) -> int:
 
 
 def checkpoint_floats(grid: int, S: int, cols: int) -> int:
-    """f32 of the device checkpoints of ``grid`` blocks over ``S`` steps for
-    rows of ``cols`` columns (4 registers a lane up to 64, else 8)."""
+    """f32 of ``mamba2_bwd_scan``'s device checkpoints of ``grid`` blocks
+    over ``S`` steps for rows of ``cols`` columns (4 registers a lane up to
+    64, else 8)."""
     nv = 1 if cols <= 64 else 2
     return grid * (-(-S // CHECKPOINT)) * nv * THREADS * 4
+
+
+def r6_checkpoint_floats(grid: int, S: int, cols: int) -> int:
+    """f32 of ``rwkv6_bwd_scan``'s device checkpoints, one every
+    ``R6_CHECKPOINT`` steps (8 registers a lane up to 64 columns, else
+    16)."""
+    nv = 2 if cols <= 64 else 4
+    return grid * (-(-S // R6_CHECKPOINT)) * nv * R6_THREADS * 4
 
 
 def plain_vjp(fn, inputs, cotangents):

@@ -62,6 +62,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
 #include "scan_bwd.cuh"
 
 namespace {
@@ -554,189 +555,303 @@ int launch_chunked(const Args& a, int grid, int vec, cudaStream_t s) {
 // this is the gradient of the Pallas kernel above.  What bounds it on an
 // H100: bytes.  At rwkv6-1.6b's training shape (B=4, S=1024, H=32, D=64,
 // bf16) r, k, v, w, dy and their four gradients are 16.8 MB each, ~153 MB
-// in all, ~0.046 ms at 3.35 TB/s; its f32 FMAs need ~0.12 ms.  These
-// kernels are the simple sequential form, latency-bound (PERF.md).
+// in all, ~0.046 ms at 3.35 TB/s; its f32 FMAs need ~0.12 ms.
 //
-// The layout and checkpoint schedule of scan_bwd.cuh, a block per (b, h,
-// slice of 32 key rows i); per row, with G_t the gradient of the state
-// after step t (the final state's gradient at t = S) and S_{t-1} the state
-// before it:
+// Why no chunked form: dw_t[i] = sum_j G_t[i,j] S_{t-1}[i,j] needs the
+// state before, and the gradient after, every step; a chunked form yields
+// d(log w), and dw from it divides by w, which is 0 or 1e-30 in places.
+// The per-step walk below takes no exponential and no logarithm and
+// divides by nothing, in both dtypes (so the f32 checks test this kernel).
+//
+// The layout and schedule of scan_bwd.cuh (RB_*): a block of RB_NT = 256
+// threads per (b, h, slice of 32 key rows i), 8 lanes a row, 4 or 8
+// columns of the row a lane, two blocks an SM at D <= 64 (256 blocks at
+// the training shape, one wave).  Per row, with G_t the gradient of the
+// state after step t (the final state's gradient at t = S) and S_{t-1}
+// the state before it:
 //   dr_t[i] = sum_j dy_t[j] S_{t-1}[i,j] + u_i k_t[i] (v_t . dy_t)
 //   dk_t[i] = sum_j G_t[i,j] v_t[j]     + u_i r_t[i] (v_t . dy_t)
 //   dw_t[i] = sum_j G_t[i,j] S_{t-1}[i,j]
 //   dv_t[j] += k_t[i] (G_t[i,j] + u_i r_t[i] dy_t[j])
 //   du[i]  += r_t[i] k_t[i] (v_t . dy_t)
 //   G_{t-1}[i,:] = r_t[i] dy_t + w_t[i] G_t[i,:] ,  dS_0 = G_0
-// dr, dk, dw and du are whole in their row; dv sums the rows of a head
-// (the one sum across rows a step), du the batch and the steps.
+// A forward walk writes the state before every piece of RB_K = 8 steps
+// (device memory: 268 MB at the training shape); the reverse walk, piece
+// by piece from the last, steps forward from the piece's checkpoint (its
+// load issued a piece ahead) keeping the 8 states in registers, then walks
+// them back: each step twice forward, once backward (the sequential
+// kernel before it: three times and once).  k, w, r, v and dy come 64
+// steps at a time by cp.async (16-byte copies, zeros past S and D; element
+// by element where D or an address does not allow them) into a landing
+// buffer in their dtype, which is converted once a chunk into f32 arrays
+// the walk reads (with v_t . dy_t for each step, the same for every row),
+// so the next chunk's loads are in flight during this one's walk.  dr, dk
+// and dw and each warp's dv (its four rows summed by shuffles) wait in
+// shared memory for the piece's end, where the block sums dv over the
+// warps in order and writes all four; two barriers a piece and two a
+// chunk, none a step.
 // rwkv6_bwd_scan writes dr, dk, dw, dS_0 and each block's partial dv (a
 // step each) and du; rwkv6_bwd_sum adds the partials in block order and
-// rounds dv once to its dtype.  Nothing here takes an exponential or
-// divides by a decay, so strong decays and w = 0 need no care.
+// rounds dv once to its dtype.
 
 struct BwdArgs {
   const void* r; const void* k; const void* v; const void* w;
   const float* u; const float* s0; const void* dy; const float* dsT;
   void* dr; void* dk; void* dw; float* ds0;
   float4* ckpt; float* dv_part; float* du_part;
-  int S, H, D, nsl, nck;
+  int S, H, D, nsl, npc;              // npc: pieces of RB_K steps
 };
 
-template <int NV>
+// NV: float4 of a row a lane (columns 32 NV).  The loads land in the
+// inputs' dtype (the l* arrays) while the block walks the chunk before,
+// which it reads in f32 from the others, converted once a chunk.
+template <typename T, int NV>
 struct R6BwdSmem {
-  float4 sub[BW_NSUB][NV][BW_NT];         // the state before each sub-chunk
-  float red[2][BW_WARPS][MAXD];           // a warp's dv
-  float sv[BW_K2][MAXD], sdy[BW_K2][MAXD]; // v_t, dy_t of the sub-chunk
-  float sr[BW_K2][BW_ROWS], sk[BW_K2][BW_ROWS], sw[BW_K2][BW_ROWS];
+  static constexpr int DP = 32 * NV;
+  T lk[RB_CH][RB_ROWS], lw[RB_CH][RB_ROWS], lr[RB_CH][RB_ROWS];
+  T lv[RB_CH][DP], ldy[RB_CH][DP];
+  float k[RB_CH][RB_ROWS], w[RB_CH][RB_ROWS], r[RB_CH][RB_ROWS];
+  float v[RB_CH][DP], dy[RB_CH][DP];
+  float vdy[RB_CH];                        // v_t . dy_t
+  float red[RB_K][RB_WARPS][DP];           // a warp's dv, a piece's steps
+  float out[3][RB_K][RB_ROWS];             // a piece's dr, dk, dw
 };
 
-// Stage steps [ts, ts + n) of the block's rows of k and w and of v (and, in
-// reverse, r and dy).
-template <typename T, int NV>
-__device__ __forceinline__ void r6_stage(const BwdArgs& a, R6BwdSmem<NV>& sm,
-                                         long long base, int i0, int ts,
-                                         int n, bool rev) {
-  constexpr int NC = 64 * NV;
-  const long long ts_stride = (long long)a.H * a.D;
-  for (int e = threadIdx.x; e < n * BW_ROWS; e += BW_NT) {
-    const int tt = e / BW_ROWS, q = e % BW_ROWS;
-    const bool in = i0 + q < a.D;
-    const long long off = base + (ts + tt) * ts_stride + i0 + q;
-    sm.sk[tt][q] = in ? to_f(static_cast<const T*>(a.k)[off]) : 0.f;
-    sm.sw[tt][q] = in ? to_f(static_cast<const T*>(a.w)[off]) : 0.f;
-    if (rev) sm.sr[tt][q] = in ? to_f(static_cast<const T*>(a.r)[off]) : 0.f;
-  }
-  for (int e = threadIdx.x; e < n * NC; e += BW_NT) {
-    const int tt = e / NC, c = e % NC;
-    const bool in = c < a.D;
-    const long long off = base + (ts + tt) * ts_stride + c;
-    sm.sv[tt][c] = in ? to_f(static_cast<const T*>(a.v)[off]) : 0.f;
-    if (rev)
-      sm.sdy[tt][c] = in ? to_f(static_cast<const T*>(a.dy)[off]) : 0.f;
-  }
+// four consecutive f32 of shared memory
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
 }
 
-// S[i,:] <- w_t[i] S[i,:] + k_t[i] v_t at staged step k
-template <int NV>
-__device__ __forceinline__ void r6_step(float (&st)[4 * NV],
-                                        const R6BwdSmem<NV>& sm, int k, int g,
-                                        int r) {
-  const float ki = sm.sk[k][r], wi = sm.sw[k][r];
+// Load steps [t0, t0 + RB_CH) of the block's rows of k and w and of v
+// (and, in reverse, r and dy) into the landing arrays, zeros past S and D,
+// as one cp.async group of this thread.  VEC: 16-byte copies (D a
+// multiple of 16 bytes, every tensor 16-byte aligned); else element by
+// element, done when this returns.
+template <typename T, int NV, bool VEC>
+__device__ __forceinline__ void r6_stage(const BwdArgs& a,
+                                         R6BwdSmem<T, NV>& sm,
+                                         long long base, int i0, int t0,
+                                         bool rev) {
+  constexpr int DP = 32 * NV, EC = VEC ? 16 / (int)sizeof(T) : 1;
+  constexpr int NR = RB_ROWS / EC, NC = DP / EC;
+  const long long tstride = (long long)a.H * a.D;
+  const T *k = static_cast<const T*>(a.k), *w = static_cast<const T*>(a.w);
+  const T *r = static_cast<const T*>(a.r), *v = static_cast<const T*>(a.v);
+  const T* dy = static_cast<const T*>(a.dy);
+  for (int e = threadIdx.x; e < RB_CH * NR; e += RB_NT) {
+    const int tt = e / NR, m = e % NR * EC, t = t0 + tt;
+    const bool ok = t < a.S && i0 + m < a.D;
+    const long long off = ok ? base + t * tstride + i0 + m : 0;
+    if constexpr (VEC) {
+      cp_async16(&sm.lk[tt][m], k + off, ok ? 16 : 0);
+      cp_async16(&sm.lw[tt][m], w + off, ok ? 16 : 0);
+      if (rev) cp_async16(&sm.lr[tt][m], r + off, ok ? 16 : 0);
+    } else {
+      sm.lk[tt][m] = ok ? k[off] : from_f<T>(0.f);
+      sm.lw[tt][m] = ok ? w[off] : from_f<T>(0.f);
+      if (rev) sm.lr[tt][m] = ok ? r[off] : from_f<T>(0.f);
+    }
+  }
+  for (int e = threadIdx.x; e < RB_CH * NC; e += RB_NT) {
+    const int tt = e / NC, j = e % NC * EC, t = t0 + tt;
+    const bool ok = t < a.S && j < a.D;
+    const long long off = ok ? base + t * tstride + j : 0;
+    if constexpr (VEC) {
+      cp_async16(&sm.lv[tt][j], v + off, ok ? 16 : 0);
+      if (rev) cp_async16(&sm.ldy[tt][j], dy + off, ok ? 16 : 0);
+    } else {
+      sm.lv[tt][j] = ok ? v[off] : from_f<T>(0.f);
+      if (rev) sm.ldy[tt][j] = ok ? dy[off] : from_f<T>(0.f);
+    }
+  }
+  cp_async_commit();
+}
+
+// The landed chunk into the f32 arrays (all threads; the caller waits for
+// its loads and syncs before, and syncs after); in reverse also v_t . dy_t
+// for each step t, by warp w for steps 8 w to 8 w + 7: lane l's products
+// j = l + 32 m (m < NV) in order, then the warp's butterfly
+template <typename T, int NV>
+__device__ __forceinline__ void r6_convert(R6BwdSmem<T, NV>& sm, bool rev) {
+  constexpr int DP = 32 * NV;
+  for (int e = threadIdx.x; e < RB_CH * RB_ROWS; e += RB_NT) {
+    const int t = e / RB_ROWS, i = e % RB_ROWS;
+    sm.k[t][i] = to_f(sm.lk[t][i]);
+    sm.w[t][i] = to_f(sm.lw[t][i]);
+    if (rev) sm.r[t][i] = to_f(sm.lr[t][i]);
+  }
+  for (int e = threadIdx.x; e < RB_CH * DP; e += RB_NT) {
+    const int t = e / DP, j = e % DP;
+    sm.v[t][j] = to_f(sm.lv[t][j]);
+    if (rev) sm.dy[t][j] = to_f(sm.ldy[t][j]);
+  }
+  if (!rev) return;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+#pragma unroll 1
+  for (int t = RB_CH / RB_WARPS * warp; t < RB_CH / RB_WARPS * (warp + 1);
+       ++t) {
+    float acc = 0.f;
 #pragma unroll
-  for (int i = 0; i < 4 * NV; ++i)
-    st[i] = wi * st[i] + ki * sm.sv[k][bw_col(g, i)];
+    for (int m = 0; m < NV; ++m)
+      acc += to_f(sm.lv[t][lane + 32 * m]) * to_f(sm.ldy[t][lane + 32 * m]);
+#pragma unroll
+    for (int o = 16; o >= 1; o >>= 1)
+      acc += __shfl_xor_sync(0xffffffffu, acc, o);
+    if (lane == 0) sm.vdy[t] = acc;
+  }
 }
 
+// S[i,:] <- w_t[i] S[i,:] + k_t[i] v_t at step t of the f32 chunk
 template <typename T, int NV>
-__global__ void __launch_bounds__(BW_NT, 1) rwkv6_bwd_scan(BwdArgs a) {
-  constexpr int E = 4 * NV;
+__device__ __forceinline__ void r6_step(float (&st)[4 * NV],
+                                        const R6BwdSmem<T, NV>& sm, int t,
+                                        int g, int r) {
+  const float ki = sm.k[t][r], wi = sm.w[t][r];
+#pragma unroll
+  for (int j = 0; j < NV; ++j) {
+    const float4 vq = ld4(&sm.v[t][4 * (g + RB_G * j)]);
+    st[4 * j] = wi * st[4 * j] + ki * vq.x;
+    st[4 * j + 1] = wi * st[4 * j + 1] + ki * vq.y;
+    st[4 * j + 2] = wi * st[4 * j + 2] + ki * vq.z;
+    st[4 * j + 3] = wi * st[4 * j + 3] + ki * vq.w;
+  }
+}
+
+template <typename T, int NV, bool VEC>
+__global__ void __launch_bounds__(RB_NT, NV <= 2 ? 2 : 1)
+rwkv6_bwd_scan(BwdArgs a) {
+  constexpr int E = 4 * NV, DP = 32 * NV, PIECES = RB_CH / RB_K;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  auto& sm = *reinterpret_cast<R6BwdSmem<NV>*>(smem_raw);
-  const int tid = threadIdx.x, g = tid % BW_G, r = tid / BW_G;
+  auto& sm = *reinterpret_cast<R6BwdSmem<T, NV>*>(smem_raw);
+  const int tid = threadIdx.x, g = tid % RB_G, r = tid / RB_G;
   const int warp = tid / 32, lane = tid % 32;
   const int H = a.H, D = a.D, S = a.S;
   const int bh = blockIdx.x / a.nsl, sl = blockIdx.x % a.nsl;
-  const int b = bh / H, hh = bh % H, i0 = sl * BW_ROWS, i = i0 + r;
+  const int b = bh / H, hh = bh % H, i0 = sl * RB_ROWS, i = i0 + r;
   const bool row = i < D;
   const float ui = row ? a.u[hh * D + i] : 0.f;
   // (b, t, hh, :) lies at base + t H D
   const long long base = ((long long)b * S * H + hh) * D;
-  const long long ts_stride = (long long)H * D;
-  float4* ck = a.ckpt + (long long)blockIdx.x * a.nck * NV * BW_NT + tid;
+  const long long tstride = (long long)H * D;
+  float4* ck = a.ckpt + (long long)blockIdx.x * a.npc * NV * RB_NT + tid;
   const long long srow = ((long long)bh * D + i) * D;
+  const int nck = (S + RB_CH - 1) / RB_CH;
 
-  // forward: the state before each chunk of BW_K1 steps
+  // forward: the state before each piece of RB_K steps
   float st[E];
-  bw_load_row<E>(st, a.s0 ? a.s0 + srow : nullptr, g, D, row);
-  for (int c = 0; c < a.nck; ++c) {
-    bw_put<E>(ck + (long long)c * NV * BW_NT, st);
-    if (c == a.nck - 1) break;
-    for (int ts = c * BW_K1; ts < (c + 1) * BW_K1; ts += BW_K2) {
-      r6_stage<T, NV>(a, sm, base, i0, ts, BW_K2, false);
-      __syncthreads();
-      for (int k = 0; k < BW_K2; ++k) r6_step<NV>(st, sm, k, g, r);
-      __syncthreads();
+  bw_load_row<E, RB_G>(st, a.s0 ? a.s0 + srow : nullptr, g, D, row);
+  if (nck) r6_stage<T, NV, VEC>(a, sm, base, i0, 0, false);
+  for (int c = 0; c < nck; ++c) {
+    cp_async_wait<0>();
+    __syncthreads();
+    r6_convert<T, NV>(sm, false);
+    __syncthreads();
+    if (c + 1 < nck)
+      r6_stage<T, NV, VEC>(a, sm, base, i0, (c + 1) * RB_CH, false);
+    const int np = (min(RB_CH, S - c * RB_CH) + RB_K - 1) / RB_K;
+    for (int s = 0; s < np; ++s) {
+      bw_put<E, RB_NT>(ck + (long long)(c * PIECES + s) * NV * RB_NT, st);
+      if (c == nck - 1 && s == np - 1) break;
+#pragma unroll
+      for (int k = 0; k < RB_K; ++k)
+        r6_step<T, NV>(st, sm, s * RB_K + k, g, r);
     }
   }
+  __syncthreads();
 
-  // reverse, chunk by chunk from the last
+  // reverse, piece by piece from the last
   float carry[E];                   // G_t
-  bw_load_row<E>(carry, a.dsT ? a.dsT + srow : nullptr, g, D, row);
+  bw_load_row<E, RB_G>(carry, a.dsT ? a.dsT + srow : nullptr, g, D, row);
   float du_acc = 0.f;
-  int buf = 0;
-  for (int c = a.nck - 1; c >= 0; --c) {
-    const int t0 = c * BW_K1, t1 = min(S, t0 + BW_K1);
-    const int nsub = (t1 - t0 + BW_K2 - 1) / BW_K2;
-    bw_get<E>(st, ck + (long long)c * NV * BW_NT);
-    for (int s = 0; s < nsub; ++s) {
-      bw_put<E>(&sm.sub[s][0][tid], st);
-      if (s == nsub - 1) break;
-      r6_stage<T, NV>(a, sm, base, i0, t0 + s * BW_K2, BW_K2, false);
-      __syncthreads();
-      for (int k = 0; k < BW_K2; ++k) r6_step<NV>(st, sm, k, g, r);
-      __syncthreads();
-    }
-    for (int s = nsub - 1; s >= 0; --s) {
-      const int ts = t0 + s * BW_K2, n = min(BW_K2, t1 - ts);
-      r6_stage<T, NV>(a, sm, base, i0, ts, n, true);
-      __syncthreads();
-      float h0s[E], hist[BW_K2][E];
-      bw_get<E>(h0s, &sm.sub[s][0][tid]);
+  float next[E];                    // the checkpoint of the piece to walk
+  if (a.npc) bw_get<E, RB_NT>(next, ck + (long long)(a.npc - 1) * NV * RB_NT);
+  if (nck) r6_stage<T, NV, VEC>(a, sm, base, i0, (nck - 1) * RB_CH, true);
+  for (int c = nck - 1; c >= 0; --c) {
+    cp_async_wait<0>();
+    __syncthreads();
+    r6_convert<T, NV>(sm, true);
+    __syncthreads();
+    if (c > 0) r6_stage<T, NV, VEC>(a, sm, base, i0, (c - 1) * RB_CH, true);
+    const int t0 = c * RB_CH;
+    const int np = (min(RB_CH, S - t0) + RB_K - 1) / RB_K;
+    for (int s = np - 1; s >= 0; --s) {
+      const int pc = c * PIECES + s, ts = t0 + s * RB_K;
+      const int n = min(RB_K, S - ts);
+      float h0s[E];
 #pragma unroll
-      for (int e = 0; e < E; ++e) st[e] = h0s[e];
+      for (int e = 0; e < E; ++e) st[e] = h0s[e] = next[e];
+      if (pc > 0)
+        bw_get<E, RB_NT>(next, ck + (long long)(pc - 1) * NV * RB_NT);
+      float hist[RB_K][E];
 #pragma unroll
-      for (int k = 0; k < BW_K2; ++k) {
-        if (k < n) r6_step<NV>(st, sm, k, g, r);
+      for (int k = 0; k < RB_K; ++k) {
+        if (k < n) r6_step<T, NV>(st, sm, s * RB_K + k, g, r);
 #pragma unroll
         for (int e = 0; e < E; ++e) hist[k][e] = st[e];
       }
 #pragma unroll
-      for (int k = BW_K2 - 1; k >= 0; --k) {
+      for (int k = RB_K - 1; k >= 0; --k) {
         if (k >= n) continue;
-        const float ri = sm.sr[k][r], ki = sm.sk[k][r], wi = sm.sw[k][r];
-        float sdv = 0.f, sgv = 0.f, sdh = 0.f, sgh = 0.f, pv[E];
+        const int tl = s * RB_K + k;
+        const float ri = sm.r[tl][r], ki = sm.k[tl][r], wi = sm.w[tl][r];
+        const float sdv = sm.vdy[tl];
+        float sgv = 0.f, sdh = 0.f, sgh = 0.f, pv[E];
 #pragma unroll
-        for (int e = 0; e < E; ++e) {
-          const int col = bw_col(g, e);
-          const float G = carry[e], dyj = sm.sdy[k][col], vj = sm.sv[k][col];
-          const float hprev = k ? hist[k - 1][e] : h0s[e];
-          sdv += vj * dyj;
-          sgv += G * vj;
-          sdh += dyj * hprev;
-          sgh += G * hprev;
-          pv[e] = ki * (G + ui * ri * dyj);
-          carry[e] = ri * dyj + wi * G;
+        for (int j = 0; j < NV; ++j) {
+          const float4 vq = ld4(&sm.v[tl][4 * (g + RB_G * j)]);
+          const float4 dq = ld4(&sm.dy[tl][4 * (g + RB_G * j)]);
+          const float vv[4] = {vq.x, vq.y, vq.z, vq.w};
+          const float dd[4] = {dq.x, dq.y, dq.z, dq.w};
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const int e = 4 * j + q;
+            const float G = carry[e];
+            const float hprev = k ? hist[k - 1][e] : h0s[e];
+            sgv += G * vv[q];
+            sdh += dd[q] * hprev;
+            sgh += G * hprev;
+            pv[e] = ki * (G + ui * ri * dd[q]);
+            carry[e] = ri * dd[q] + wi * G;
+          }
         }
-        sdv = bw_row_sum(sdv);
-        sgv = bw_row_sum(sgv);
-        sdh = bw_row_sum(sdh);
-        sgh = bw_row_sum(sgh);
-        const long long off = base + (ts + k) * ts_stride + i;
-        if (g == 0 && row) {
-          static_cast<T*>(a.dr)[off] = from_f<T>(sdh + ui * ki * sdv);
-          static_cast<T*>(a.dk)[off] = from_f<T>(sgv + ui * ri * sdv);
-          static_cast<T*>(a.dw)[off] = from_f<T>(sgh);
-        }
+        // the row's three sums: lanes g = 0, 2, 4 hold sgv, sdh, sgh
+        const float rs = rb_row_sums3(sgv, sdh, sgh, g);
+        if (g == 0) sm.out[1][k][r] = rs + ui * ri * sdv;
+        if (g == 2) sm.out[0][k][r] = rs + ui * ki * sdv;
+        if (g == 4) sm.out[2][k][r] = rs;
         du_acc += ri * ki * sdv;
+        // dv over the warp's four rows: this lane's E / 4 columns
+        float pw[E / 4];
+        rb_warp_rows_sums<E>(pv, pw, lane >> 3);
+        const int i0w = (lane >> 3 & 1) * (E / 2) + (lane >> 4 & 1) * (E / 4);
 #pragma unroll
-        for (int e = 0; e < E; ++e) pv[e] = bw_pair_sum(pv[e]);
-        if (lane < BW_G) {
-#pragma unroll
-          for (int e = 0; e < E; ++e) sm.red[buf][warp][bw_col(g, e)] = pv[e];
-        }
-        __syncthreads();
-        if (tid < D) {
-          float acc = 0.f;
-          for (int w = 0; w < BW_WARPS; ++w) acc += sm.red[buf][w][tid];
-          a.dv_part[((((long long)b * S + ts + k) * H + hh) * a.nsl + sl) * D +
-                    tid] = acc;
-        }
-        buf ^= 1;
+        for (int m = 0; m < E / 4; ++m)
+          sm.red[k][warp][bw_col<RB_G>(g, i0w + m)] = pw[m];
       }
+      __syncthreads();
+      // the piece's dv partial (the warps in order) and dr, dk, dw
+      for (int e = tid; e < n * DP; e += RB_NT) {
+        const int k = e / DP, j = e % DP;
+        if (j >= D) continue;
+        float acc = 0.f;
+#pragma unroll
+        for (int w = 0; w < RB_WARPS; ++w) acc += sm.red[k][w][j];
+        a.dv_part[((((long long)b * S + ts + k) * H + hh) * a.nsl + sl) * D +
+                  j] = acc;
+      }
+      for (int e = tid; e < 3 * n * RB_ROWS; e += RB_NT) {
+        const int o = e / (n * RB_ROWS), k = e / RB_ROWS % n;
+        const int rr = e % RB_ROWS;
+        if (i0 + rr >= D) continue;
+        T* dst = static_cast<T*>(o == 0 ? a.dr : o == 1 ? a.dk : a.dw);
+        dst[base + (ts + k) * tstride + i0 + rr] =
+            from_f<T>(sm.out[o][k][rr]);
+      }
+      __syncthreads();
     }
   }
 
-  bw_store_row<E>(carry, a.ds0 + srow, g, D, row);
+  bw_store_row<E, RB_G>(carry, a.ds0 + srow, g, D, row);
   if (g == 0 && row) a.du_part[((long long)b * H + hh) * D + i] = du_acc;
 }
 
@@ -763,22 +878,25 @@ __global__ void rwkv6_bwd_sum(BwdArgs a, int Bsz, void* dv, float* du) {
   }
 }
 
-template <typename T, int NV>
+template <typename T, int NV, bool VEC>
 int launch_bwd_nv(const BwdArgs& a, int grid, cudaStream_t s) {
-  const int smem = (int)sizeof(R6BwdSmem<NV>);
+  const int smem = (int)sizeof(R6BwdSmem<T, NV>);
   const cudaError_t err = cudaFuncSetAttribute(
-      rwkv6_bwd_scan<T, NV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      rwkv6_bwd_scan<T, NV, VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
   if (err != cudaSuccess) return (int)err;
-  rwkv6_bwd_scan<T, NV><<<grid, BW_NT, smem, s>>>(a);
+  rwkv6_bwd_scan<T, NV, VEC><<<grid, RB_NT, smem, s>>>(a);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int launch_bwd(const BwdArgs& a, int Bsz, int grid, void* dv, float* du,
-               cudaStream_t s) {
-  const int err = a.D <= 64 ? launch_bwd_nv<T, 1>(a, grid, s)
-                            : launch_bwd_nv<T, 2>(a, grid, s);
+int launch_bwd(const BwdArgs& a, int Bsz, int grid, int vec, void* dv,
+               float* du, cudaStream_t s) {
+  const int err =
+      a.D <= 64 ? (vec ? launch_bwd_nv<T, 2, true>(a, grid, s)
+                       : launch_bwd_nv<T, 2, false>(a, grid, s))
+                : (vec ? launch_bwd_nv<T, 4, true>(a, grid, s)
+                       : launch_bwd_nv<T, 4, false>(a, grid, s));
   if (err) return err;
   const long long total = (long long)Bsz * a.S * a.H * a.D +
                           (long long)a.H * a.D;
@@ -790,6 +908,10 @@ int launch_bwd(const BwdArgs& a, int Bsz, int grid, void* dv, float* du,
 bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
+
+// launches of rwkv6_bwd_scan by how it stages its inputs: [1] by 16-byte
+// cp.async, [0] element by element
+long long g_bwd_launches[2] = {0, 0};
 
 }  // namespace
 
@@ -820,33 +942,47 @@ extern "C" int rwkv6_scan_fwd(const void* r, const void* k, const void* v,
                     : launch_seq<float>(a, grid, s);
 }
 
-// The gradient of rwkv6_scan_fwd, sequential in f32 for both dtypes: r,
-// k, v, w, u, s0 as there; dy (B,S,H,D) contiguous in r's dtype; dsT
-// (B,H,D,D) f32, the final state's gradient, or null for zeros.  Writes
-// dr, dk, dv, dw (B,S,H,D) contiguous in r's dtype, du (H,D) and ds0
-// (B,H,D,D) f32.  scratch holds, in f32 and in this order, with nsl =
-// ceil(D / 32), NV = 1 for D <= 64 else 2, grid = B H nsl: the checkpoints
-// (grid ceil(S / 64) NV 2048), the partial dv (B S H nsl D) and du (B H
-// D); every float of it is written before it is read.  Returns the CUDA
-// error of the launches (0 on success).
+// The gradient of rwkv6_scan_fwd, the sequential walk in f32 for both
+// dtypes: r, k, v, w, u, s0 as there; dy (B,S,H,D) contiguous in r's
+// dtype; dsT (B,H,D,D) f32, the final state's gradient, or null for
+// zeros.  Writes dr, dk, dv, dw (B,S,H,D) contiguous in r's dtype, du
+// (H,D) and ds0 (B,H,D,D) f32.  scratch holds, in f32 and in this order,
+// with nsl = ceil(D / 32), NV = 2 for D <= 64 else 4, grid = B H nsl: the
+// checkpoints (grid ceil(S / 8) NV 1024), the partial dv (B S H nsl D) and
+// du (B H D); every float of it is written before it is read.  Returns
+// the CUDA error of the launches (0 on success).
 extern "C" int rwkv6_scan_bwd(const void* r, const void* k, const void* v,
                               const void* w, const float* u, const float* s0,
                               const void* dy, const float* dsT, void* dr,
                               void* dk, void* dv, void* dw, float* du,
                               float* ds0, float* scratch, int Bsz, int S,
                               int H, int D, int dtype, void* stream) {
-  const int nsl = (D + BW_ROWS - 1) / BW_ROWS, NV = D <= 64 ? 1 : 2;
+  const int nsl = (D + RB_ROWS - 1) / RB_ROWS, NV = D <= 64 ? 2 : 4;
   if (D < 1 || D > MAXD || S < 0 || Bsz < 1 || H < 1 ||
       (long long)Bsz * H * nsl > 0x7fffffffLL || (dtype != 0 && dtype != 1) ||
       !aligned16(scratch))
     return (int)cudaErrorInvalidValue;
   const long long grid = (long long)Bsz * H * nsl;
   float4* ckpt = reinterpret_cast<float4*>(scratch);
-  float* dv_part = scratch + bw_ckpt_floats(grid, S, NV);
+  float* dv_part = scratch + rb_ckpt_floats(grid, S, NV);
   float* du_part = dv_part + (long long)Bsz * S * H * nsl * D;
   const BwdArgs a{r, k, v, w, u, s0, dy, dsT, dr, dk, dw, ds0, ckpt,
-                  dv_part, du_part, S, H, D, nsl, (S + BW_K1 - 1) / BW_K1};
+                  dv_part, du_part, S, H, D, nsl, (S + RB_K - 1) / RB_K};
+  const int es = dtype == 0 ? 2 : 4;
+  const int vec = D * es % 16 == 0 && aligned16(r) && aligned16(k) &&
+                  aligned16(v) && aligned16(w) && aligned16(dy) ? 1 : 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return dtype == 0 ? launch_bwd<bf16>(a, Bsz, (int)grid, dv, du, s)
-                    : launch_bwd<float>(a, Bsz, (int)grid, dv, du, s);
+  const int err =
+      dtype == 0 ? launch_bwd<bf16>(a, Bsz, (int)grid, vec, dv, du, s)
+                 : launch_bwd<float>(a, Bsz, (int)grid, vec, dv, du, s);
+  if (!err) ++g_bwd_launches[vec];
+  return err;
+}
+
+// The launches of rwkv6_bwd_scan so far in this process that staged r, k,
+// v, w and dy by 16-byte copies (vec 1: D times the element's bytes a
+// multiple of 16, every pointer 16-byte aligned) or element by element
+// (vec 0).
+extern "C" int rwkv6_bwd_scan_launches(int vec) {
+  return (int)g_bwd_launches[vec ? 1 : 0];
 }

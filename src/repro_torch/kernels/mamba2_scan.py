@@ -9,9 +9,12 @@ sequential f32 kernel otherwise (every f32 call, and bf16 decode).  Each
 call adds one to ``mamba2_scan.launches``.
 
 Its gradient is ``mamba2_scan_bwd``: on the CPU autograd through the
-plain version, on CUDA the sequential f32 kernels ``mamba2_bwd_scan`` and
-``mamba2_bwd_sum`` of ``csrc/mamba2_scan.cu``.  A CUDA call whose inputs
-want a gradient (in grad mode) goes through ``_Mamba2``, whose backward is
+plain version; on CUDA, by ``bwd_schedule``, the chunked dual form on the
+tensor cores for bf16 with at least ``CHUNK`` steps (a states pass of
+``mamba2_chunked``, then ``mamba2_bwd_chunked`` and ``mamba2_bwd_sum``) or
+the sequential f32 kernels ``mamba2_bwd_scan`` and ``mamba2_bwd_sum``
+otherwise, all of ``csrc/mamba2_scan.cu``.  A CUDA call whose inputs want
+a gradient (in grad mode) goes through ``_Mamba2``, whose backward is
 ``mamba2_scan_bwd``.
 """
 from __future__ import annotations
@@ -22,8 +25,12 @@ from . import _scan_bwd, ref
 
 #: largest head size P and state size N the kernel takes
 MAX_DIM = 128
-#: steps per chunk of the chunked kernel (``CK_T`` in the source)
+#: steps per chunk of the chunked kernels (``CK_T`` in the source), rows
+#: of P a block of them takes (``CK_PS``), and the most blocks of a
+#: cluster of the chunked backward (``CK_CL``)
 CHUNK = 64
+CHUNK_ROWS = 64
+CLUSTER = 8
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 
 
@@ -33,6 +40,25 @@ def schedule(dtype, S):
     (``mamba2_seq``: f32 at every S, bf16 below one chunk)."""
     return "chunked" if dtype == torch.bfloat16 and S >= CHUNK else \
         "sequential"
+
+
+#: The backward follows the forward's split: "chunked" (the states pass,
+#: then ``mamba2_bwd_chunked`` on the tensor cores, bf16 with S >=
+#: ``CHUNK``) or "sequential" (``mamba2_bwd_scan``: f32 at every S, whose
+#: gradients are held to 1e-4, and bf16 below one chunk).
+bwd_schedule = schedule
+
+
+def bwd_cluster(blocks):
+    """Blocks a cluster of the chunked backward takes when ``blocks``
+    blocks share a b: the largest of ``CLUSTER``, 4, 2, 1 that divides
+    them; the cluster sums its blocks' dB and dC.  The one place the rule
+    lives: the wrapper passes it to the kernel and sizes the scratch by
+    it."""
+    cl = CLUSTER
+    while blocks % cl:
+        cl //= 2
+    return cl
 
 
 def _check(x, dt, A, B_, C, state):
@@ -141,13 +167,24 @@ def mamba2_scan(x, dt, A, B_, C, state=None):
 mamba2_scan.launches = 0
 
 
-def bwd_scratch_floats(Bsz, S, H, P, N):
-    """f32 of ``mamba2_scan_bwd``'s scratch (``csrc/mamba2_scan.cu``):
-    the checkpoints, then the blocks' partial dB, dC, ddt and dA."""
-    nsl = _scan_bwd.slices(P)
+def bwd_scratch_floats(Bsz, S, H, P, N, path="sequential"):
+    """f32 of ``mamba2_scan_bwd``'s scratch (``csrc/mamba2_scan.cu``) on
+    ``path`` (``bwd_schedule``'s): the sequential path's checkpoints or
+    the chunked path's chunk states (the hi and lo image of a (64, 64 NPN)
+    state a block and chunk: 4096 NPN floats), then the partial dB and dC
+    (one a block, or on the chunked path one a cluster), ddt and dA (one a
+    block)."""
+    if path == "chunked":
+        nsl = -(-P // CHUNK_ROWS)
+        nc = -(-S // CHUNK)
+        head = Bsz * H * nsl * nc * (1 if N <= 64 else 2) * 4096
+        cl = bwd_cluster(H * nsl)
+    else:
+        nsl = _scan_bwd.slices(P)
+        head = _scan_bwd.checkpoint_floats(Bsz * H * nsl, S, N)
+        cl = 1
     part = Bsz * S * H * nsl
-    return (_scan_bwd.checkpoint_floats(Bsz * H * nsl, S, N)
-            + part * (2 * N + 1) + Bsz * H * nsl)
+    return head + part // cl * 2 * N + part + Bsz * H * nsl
 
 
 def mamba2_scan_bwd(x, dt, A, B_, C, state, dy, dstate=None):
@@ -157,12 +194,16 @@ def mamba2_scan_bwd(x, dt, A, B_, C, state, dy, dstate=None):
     in its input's dtype; ``dstate0`` is f32, the gradient of the state
     going in (of zeros where ``state`` is None).
 
-    On the CPU: autograd through ``ref.mamba2_scan_ref``.  On CUDA:
-    ``mamba2_bwd_scan``, the sequential recurrence in f32 backwards with
-    the states recomputed from checkpoints (``csrc/scan_bwd.cuh``), then
-    ``mamba2_bwd_sum``, the sums of dB, dC, ddt and dA across blocks; no
-    atomics, so two runs give the same bits.  Adds one to
-    ``mamba2_scan_bwd.launches``.
+    On the CPU: autograd through ``ref.mamba2_scan_ref``.  On CUDA, by
+    ``bwd_schedule(x.dtype, S)``: "chunked", the states pass
+    (``mamba2_chunked`` writing the state entering each chunk), then
+    ``mamba2_bwd_chunked``, the chunked dual form backwards on the tensor
+    cores; or "sequential", ``mamba2_bwd_scan``, the recurrence in f32
+    backwards with the states recomputed from checkpoints
+    (``csrc/scan_bwd.cuh``); then ``mamba2_bwd_sum``, the sums of dB, dC,
+    ddt and dA across blocks.  No atomics, so two runs give the same bits.
+    Adds one to ``mamba2_scan_bwd.launches`` and to the path's
+    ``mamba2_scan_bwd.chunked_launches`` or ``.sequential_launches``.
     """
     Bsz, S, H, P = x.shape
     N = B_.shape[-1]
@@ -196,7 +237,9 @@ def mamba2_scan_bwd(x, dt, A, B_, C, state, dy, dstate=None):
     ddt = torch.empty((Bsz, S, H), dtype=torch.float32, device=dev)
     dA = torch.empty((H,), dtype=torch.float32, device=dev)
     ds0 = torch.empty((Bsz, H, P, N), dtype=torch.float32, device=dev)
-    scratch = torch.empty(bwd_scratch_floats(Bsz, S, H, P, N),
+    path = bwd_schedule(x.dtype, S)
+    cl = bwd_cluster(H * -(-P // CHUNK_ROWS)) if path == "chunked" else 1
+    scratch = torch.empty(bwd_scratch_floats(Bsz, S, H, P, N, path),
                           dtype=torch.float32, device=dev)
     lib = _build.load("mamba2_scan")
     with torch.cuda.device(dev):
@@ -208,10 +251,30 @@ def mamba2_scan_bwd(x, dt, A, B_, C, state, dy, dstate=None):
             dC.data_ptr(), ds0.data_ptr(), scratch.data_ptr(), Bsz, S, H, P,
             N, xk.stride(0), xk.stride(1), xk.stride(2), Bk.stride(0),
             Bk.stride(1), Ck.stride(0), Ck.stride(1), _DTYPES[x.dtype],
+            int(path == "chunked"), cl,
             torch.cuda.current_stream().cuda_stream)
     _build.check(err, "mamba2_scan_bwd")
     mamba2_scan_bwd.launches += 1
+    if path == "chunked":
+        mamba2_scan_bwd.chunked_launches += 1
+    else:
+        mamba2_scan_bwd.sequential_launches += 1
     return dx, ddt.to(dt.dtype), dA.to(A.dtype), dB, dC, ds0
 
 
 mamba2_scan_bwd.launches = 0
+mamba2_scan_bwd.chunked_launches = 0
+mamba2_scan_bwd.sequential_launches = 0
+
+
+def bwd_chunked_loads():
+    """The chunked backward's launches so far in this process by how they
+    loaded B, C, x and dY, as the library counts them: ``{"tma": n,
+    "element": n}`` (element by element where P or N is not a multiple of
+    8, or a stride or pointer is one TMA cannot take).  Needs the built
+    library: on the card only."""
+    from . import _build
+
+    lib = _build.load("mamba2_scan")
+    return {"tma": lib.mamba2_bwd_chunked_launches(1),
+            "element": lib.mamba2_bwd_chunked_launches(0)}

@@ -8,8 +8,9 @@ over the value axis for at least ``CHUNK`` steps, the sequential kernel
 below (the decode step).  Each call adds one to ``rwkv6_scan.launches``.
 
 Its gradient is ``rwkv6_scan_bwd``: on the CPU autograd through the
-plain version, on CUDA the sequential f32 kernels ``rwkv6_bwd_scan`` and
-``rwkv6_bwd_sum`` of ``csrc/rwkv6_scan.cu``.  A CUDA call whose inputs
+plain version, on CUDA the f32 per-step walk ``rwkv6_bwd_scan`` (inputs
+staged by cp.async, checkpoints every 8 steps) and ``rwkv6_bwd_sum`` of
+``csrc/rwkv6_scan.cu``, for both dtypes.  A CUDA call whose inputs
 want a gradient (in grad mode) goes through ``_Rwkv6``, whose backward is
 ``rwkv6_scan_bwd``.
 """
@@ -134,7 +135,7 @@ def bwd_scratch_floats(B, S, H, D):
     """f32 of ``rwkv6_scan_bwd``'s scratch (``csrc/rwkv6_scan.cu``): the
     checkpoints, then the blocks' partial dv and du."""
     nsl = _scan_bwd.slices(D)
-    return (_scan_bwd.checkpoint_floats(B * H * nsl, S, D)
+    return (_scan_bwd.r6_checkpoint_floats(B * H * nsl, S, D)
             + B * S * H * nsl * D + B * H * D)
 
 
@@ -147,9 +148,10 @@ def rwkv6_scan_bwd(r, k, v, w, u, state, dy, dstate=None):
 
     On the CPU: autograd through ``ref.rwkv6_scan_ref``.  On CUDA:
     ``rwkv6_bwd_scan``, the sequential recurrence in f32 backwards with the
-    states recomputed from checkpoints (``csrc/scan_bwd.cuh``), then
-    ``rwkv6_bwd_sum``, the sums of dv and du across blocks; no atomics, so
-    two runs give the same bits.  Adds one to ``rwkv6_scan_bwd.launches``.
+    states recomputed from checkpoints every 8 steps
+    (``csrc/scan_bwd.cuh``), then ``rwkv6_bwd_sum``, the sums of dv and du
+    across blocks; no atomics, so two runs give the same bits.  Adds one
+    to ``rwkv6_scan_bwd.launches``.
     """
     B, S, H, D = r.shape
     if r.device.type == "cpu":
@@ -196,3 +198,16 @@ def rwkv6_scan_bwd(r, k, v, w, u, state, dy, dstate=None):
 
 
 rwkv6_scan_bwd.launches = 0
+
+
+def bwd_loads():
+    """``rwkv6_bwd_scan``'s launches so far in this process by how they
+    staged their inputs, as the library counts them: ``{"vec": n,
+    "element": n}`` (element by element where D times the element's bytes
+    is not a multiple of 16, or a pointer is not 16-byte aligned).  Needs
+    the built library: on the card only."""
+    from . import _build
+
+    lib = _build.load("rwkv6_scan")
+    return {"vec": lib.rwkv6_bwd_scan_launches(1),
+            "element": lib.rwkv6_bwd_scan_launches(0)}

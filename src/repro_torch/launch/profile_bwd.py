@@ -7,8 +7,11 @@ shapes, split by the kernels each call launches, on one GPU.
 8 heads, D 128, causal, bf16), ``burst_gather_bwd`` at its embedding
 (the first training batch's 4,100 Zipfian ids into the (49152, 4096) bf16
 table), ``mamba2_scan_bwd`` at zamba2-7b's M layers (B 4, S 1024, 112
-heads, P 64, N 64, bf16 x, B and C sliced from one projection) and
-``rwkv6_scan_bwd`` at rwkv6-1.6b's (B 4, S 1024, 32 heads, D 64, bf16).
+heads, P 64, N 64, bf16 x, B and C sliced from one projection: the
+chunked path, a states pass ``mamba2_chunked<1, true, true>``, then
+``mamba2_bwd_chunked`` and ``mamba2_bwd_sum``) and ``rwkv6_scan_bwd`` at
+rwkv6-1.6b's (B 4, S 1024, 32 heads, D 64, bf16: ``rwkv6_bwd_scan`` and
+``rwkv6_bwd_sum``).
 For each it prints the median device time of one call from CUDA
 events (the L2 flushed before each call) and the device time per call of
 each kernel the call launches, from ``torch.profiler``, after the card's

@@ -2,11 +2,12 @@
 ``rwkv6_scan_bwd`` (their plain versions, autograd through ``ref.py``, and
 autograd through the wrappers) against ``jax.vjp`` of the JAX package's
 ``repro.kernels.ref`` on the same numpy-seeded inputs; and a plain-torch
-model of each CUDA kernel's schedule (``csrc/scan_bwd.cuh``: device
-checkpoints every ``BW_K1`` steps, shared ones every ``BW_K2``, the
-registers' reverse walk, the lanes' butterfly and the fixed-order sums
-across rows, warps and blocks, each partial at its offset of the
-wrapper's scratch) against the plain backward.  The kernels themselves
+model of each sequential CUDA kernel's schedule (``csrc/scan_bwd.cuh``:
+for ``mamba2_bwd_scan`` device checkpoints every ``BW_K1`` steps, shared
+ones every ``BW_K2``; for ``rwkv6_bwd_scan`` device checkpoints every
+``RB_K``; the registers' reverse walk, the lanes' butterfly and the
+fixed-order sums across rows, warps and blocks, each partial at its offset
+of the wrapper's scratch) against the plain backward.  The kernels themselves
 run only on the card, where ``chip_smoke.py`` holds them to the plain
 versions.
 
@@ -219,27 +220,44 @@ def test_schedule_constants_are_the_kernels():
     assert _cuh("BW_K1") == _scan_bwd.CHECKPOINT
     assert _cuh("BW_K2") == _scan_bwd.SUB
     assert _scan_bwd.CHECKPOINT % _scan_bwd.SUB == 0
+    # rwkv6_bwd_scan's: 8 lanes a row of the same 32 rows a block, a
+    # checkpoint every RB_K steps, RB_CH steps a stage of the ring
+    assert _cuh("RB_NT") == _scan_bwd.R6_THREADS
+    assert _cuh("RB_G") == _scan_bwd.R6_LANES
+    assert _scan_bwd.R6_THREADS // _scan_bwd.R6_LANES == _scan_bwd.ROWS
+    assert _cuh("RB_K") == _scan_bwd.R6_CHECKPOINT
+    assert _cuh("RB_CH") == _scan_bwd.R6_CHUNK
+    assert _scan_bwd.R6_CHUNK % _scan_bwd.R6_CHECKPOINT == 0
     for src in ("mamba2_scan.cu", "rwkv6_scan.cu"):
         assert '#include "scan_bwd.cuh"' in (CSRC / src).read_text()
 
 
 class _Layout:
-    """A block's (ROWS, 64 NV) state as the kernel holds it: lane g of row
-    r (thread 16 r + g) owns register i at column 4 (g + 16 (i // 4)) + i %
-    4; the device checkpoints and the scratch as flat f32 with the kernel's
-    offsets, each float marked when written."""
+    """A block's (ROWS, 4 L NV) state as a kernel holds it, L lanes a row:
+    lane g of row r (thread L r + g) owns register i at column 4 (g + L (i
+    // 4)) + i % 4; the device checkpoints and the scratch as flat f32 with
+    the kernel's offsets, each float marked when written.  By default
+    ``mamba2_bwd_scan``'s (16 lanes, 512 threads, NV 1 up to 64 columns);
+    ``r6=True`` ``rwkv6_bwd_scan``'s (8 lanes, 256 threads, NV 2 up to 64
+    columns, else 4)."""
 
-    def __init__(self, cols, floats):
-        self.nv = 1 if cols <= 64 else 2
-        self.E, self.NC = 4 * self.nv, 64 * self.nv
-        L, T = _scan_bwd.LANES, _scan_bwd.THREADS
+    def __init__(self, cols, floats, r6=False):
+        if r6:
+            L, T = _scan_bwd.R6_LANES, _scan_bwd.R6_THREADS
+            self.nv = 2 if cols <= 64 else 4
+        else:
+            L, T = _scan_bwd.LANES, _scan_bwd.THREADS
+            self.nv = 1 if cols <= 64 else 2
+        assert T // L == _scan_bwd.ROWS
+        self.lanes = L
+        self.E, self.NC = 4 * self.nv, 4 * L * self.nv
         self.cols = torch.tensor([[4 * (g + L * (i // 4)) + i % 4
                                    for i in range(self.E)] for g in range(L)])
-        # offset in a checkpoint slot ([NV][THREADS] float4) of (row, col)
+        # offset in a checkpoint slot ([NV][T] float4) of (row, col)
         slot = torch.empty((_scan_bwd.ROWS, self.NC), dtype=torch.long)
         for r in range(_scan_bwd.ROWS):
             for c in range(self.NC):
-                g, j, e = (c // 4) % L, c // 64, c % 4
+                g, j, e = (c // 4) % L, c // (4 * L), c % 4
                 slot[r, c] = (j * T + L * r + g) * 4 + e
         self.slot = slot
         self.scratch = torch.full((floats,), float("nan"))
@@ -257,14 +275,17 @@ class _Layout:
 
     def row_sum(self, prod):
         """(..., NC) -> (...): each lane's registers in order, then the
-        butterfly over the 16 lanes (xor 8, 4, 2, 1); lane 0's value."""
-        L = _scan_bwd.LANES
+        butterfly over the L lanes (xor L / 2, ..., 2, 1); lane 0's
+        value."""
+        L = self.lanes
         acc = torch.zeros(prod.shape[:-1] + (L,))
         for i in range(self.E):
             acc = acc + prod[..., self.cols[:, i]]
         lanes = torch.arange(L)
-        for m in (8, 4, 2, 1):
+        m = L // 2
+        while m:
             acc = acc + acc[..., lanes ^ m]
+            m //= 2
         return acc[..., 0]
 
 
@@ -309,6 +330,41 @@ def _chunks(S, fwd, ckpt_put, ckpt_get, reverse_step):
                 hist.append(st)
             for k in reversed(range(n)):
                 reverse_step(ts + k, hist[k - 1] if k else sub[s], hist[k])
+
+
+def _block_sum4(v, dim):
+    """Rows of a block summed as ``rwkv6_bwd_scan`` does: the four rows of
+    a warp by shuffles, ((v[4w] + v[4w + 1]) + (v[4w + 2] + v[4w + 3])),
+    then the warps in order."""
+    v = v.movedim(dim, 0)
+    acc = torch.zeros_like(v[0])
+    for w in range(v.shape[0] // 4):
+        acc = acc + ((v[4 * w] + v[4 * w + 1]) + (v[4 * w + 2] + v[4 * w + 3]))
+    return acc
+
+
+def _pieces(S, fwd, ckpt_put, ckpt_get, reverse_step):
+    """The walk of ``rwkv6_bwd_scan``: the forward pass writing the state
+    before each piece of K steps to device memory; then, piece by piece
+    from the last, the piece's states stepped again from its checkpoint and
+    kept as its reverse walk needs them.  ``reverse_step(t, h_prev)``."""
+    K = _scan_bwd.R6_CHECKPOINT
+    npc = -(-S // K)
+    st = fwd(None, None)
+    for pc in range(npc):
+        ckpt_put(pc, st)
+        if pc < npc - 1:
+            for t in range(pc * K, (pc + 1) * K):
+                st = fwd(st, t)
+    for pc in reversed(range(npc)):
+        ts, n = pc * K, min(K, S - pc * K)
+        h0 = ckpt_get(pc)
+        hist, st = [], h0
+        for k in range(n):
+            st = fwd(st, ts + k)
+            hist.append(st)
+        for k in reversed(range(n)):
+            reverse_step(ts + k, hist[k - 1] if k else h0)
 
 
 def _pad(a, dim, size):
@@ -415,11 +471,17 @@ def mamba2_bwd_model(x, dt, A, B_, C, state, dy, dstate):
 
 def rwkv6_bwd_model(r, k, v, w, u, state, dy, dstate):
     """``rwkv6_bwd_scan`` then ``rwkv6_bwd_sum`` in plain torch, every block
-    at once: (dr, dk, dv, dw, du, dstate0) in the kernel's dtypes."""
+    at once: (dr, dk, dv, dw, du, dstate0) in the kernel's dtypes.  The
+    walk is ``_pieces`` (a checkpoint every ``R6_CHECKPOINT`` steps); v_t
+    . dy_t is summed once a step (``vdy``); a step's dv sums each warp's
+    four rows, then the warps in order (``_block_sum4``), then
+    ``rwkv6_bwd_sum`` the slices of a head in order.  (The kernel's staging
+    of 64 steps at a time and its writes of a piece's dv, dr, dk and dw at
+    the piece's end move the same numbers.)"""
     B, S, H, D = r.shape
     R = _scan_bwd.ROWS
     nsl = _scan_bwd.slices(D)
-    lay = _Layout(D, r6.bwd_scratch_floats(B, S, H, D))
+    lay = _Layout(D, r6.bwd_scratch_floats(B, S, H, D), r6=True)
     NC = lay.NC
     rows = lambda a: _pad(a.float(), -1, nsl * R).unflatten(-1, (nsl, R))  # noqa: E731
     rs, ks, ws = rows(r), rows(k), rows(w)            # (B, S, H, nsl, R)
@@ -433,14 +495,14 @@ def rwkv6_bwd_model(r, k, v, w, u, state, dy, dstate):
         return s.unflatten(-2, (nsl, R))
 
     grid = B * H * nsl
-    nck = -(-S // _scan_bwd.CHECKPOINT)
+    npc = -(-S // _scan_bwd.R6_CHECKPOINT)
     blk = torch.arange(grid).reshape(B, H, nsl)
-    slot_floats = lay.nv * _scan_bwd.THREADS * 4
+    slot_floats = lay.nv * _scan_bwd.R6_THREADS * 4
 
-    def ck_off(c):
-        return (blk * nck + c)[..., None, None] * slot_floats + lay.slot
+    def ck_off(pc):
+        return (blk * npc + pc)[..., None, None] * slot_floats + lay.slot
 
-    dv_off = _scan_bwd.checkpoint_floats(grid, S, D)
+    dv_off = _scan_bwd.r6_checkpoint_floats(grid, S, D)
     du_off = dv_off + B * S * H * nsl * D
 
     def col(a, t):                                    # (B, H, 1, 1, NC)
@@ -451,15 +513,28 @@ def rwkv6_bwd_model(r, k, v, w, u, state, dy, dstate):
             return state_blocks(state)
         return ws[:, t][..., None] * st + ks[:, t][..., None] * col(vs, t)
 
+    def vdy(t):
+        """v_t . dy_t, (B, H), as the kernel sums it once a step: lane l's
+        products at columns l + 32 m in order, then a butterfly over the
+        warp's 32 lanes; lane 0's value."""
+        prod = (vs[:, t] * dys[:, t]).unflatten(-1, (lay.nv, 32))
+        acc = torch.zeros(prod.shape[:-2] + (32,))
+        for m in range(lay.nv):
+            acc = acc + prod[..., m, :]
+        lanes = torch.arange(32)
+        for o in (16, 8, 4, 2, 1):
+            acc = acc + acc[..., lanes ^ o]
+        return acc[..., 0]
+
     carry = state_blocks(dstate)
     du_acc = torch.zeros((B, H, nsl, R))
     dr, dk, dw = (torch.zeros((B, S, H, nsl, R)) for _ in range(3))
 
-    def reverse_step(t, hprev, _hcur):
+    def reverse_step(t, hprev):
         nonlocal carry, du_acc
         ri, ki, wi = rs[:, t], ks[:, t], ws[:, t]
         G = carry
-        sdv = lay.row_sum(col(vs, t) * col(dys, t) + torch.zeros_like(G))
+        sdv = vdy(t)[:, :, None, None]
         sgv = lay.row_sum(G * col(vs, t))
         sdh = lay.row_sum(col(dys, t) * hprev)
         sgh = lay.row_sum(G * hprev)
@@ -472,10 +547,10 @@ def rwkv6_bwd_model(r, k, v, w, u, state, dy, dstate):
         base = (((torch.arange(B)[:, None, None] * S + t) * H
                  + torch.arange(H)[:, None]) * nsl + torch.arange(nsl))
         lay.put(dv_off + base[..., None] * D + torch.arange(D),
-                _block_sum(pv, 3)[..., :D])
+                _block_sum4(pv, 3)[..., :D])
 
-    _chunks(S, fwd, lambda c, st: lay.put(ck_off(c), st),
-            lambda c: lay.get(ck_off(c)), reverse_step)
+    _pieces(S, fwd, lambda pc, st: lay.put(ck_off(pc), st),
+            lambda pc: lay.get(ck_off(pc)), reverse_step)
     lay.put(du_off + torch.arange(B * H * D).reshape(B, H, D),
             du_acc.flatten(-2)[..., :D])
     p = lay.get(dv_off + torch.arange(B * S * H * nsl * D)).reshape(

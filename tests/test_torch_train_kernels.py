@@ -3,8 +3,11 @@ versions (the CPU path of ``flash_attention_bwd`` and ``burst_gather_bwd``,
 autograd through ``ref.py``) against JAX's gradients of the JAX package's
 refs, on the CPU; plain-torch models of the CUDA kernels' schedules (the
 attention backward's tile loops, with the tile rows read from the CUDA
-source; the gather backward's counting sort and segmented sum); and the
-rule of the wrappers that have no backward kernel.  The CUDA kernels
+source; the gather backward's counting sort and segmented sum); the rule
+of the wrappers that have no backward kernel; which backward path
+``mamba2_scan_bwd`` launches (``bwd_schedule``, through a faked library
+on meta tensors); and, from the CUDA sources, that the scans' backward
+calls no atomic and rwkv6's no logarithm.  The CUDA kernels
 themselves are held to these plain versions on the card by
 ``chip_smoke.py``.
 
@@ -508,3 +511,161 @@ def test_flash_bwd_row_pad_is_the_kernels():
     a whole number of the passes' 64-row blocks."""
     bm, bn, pad = _wg_tiles()
     assert fa.BWD_ROW_PAD == pad and pad % bm == 0 and pad % bn == 0
+
+
+# ---- the scans' backward: which path, and what the sources call ----------
+
+def _scan_bwd_inputs(dtype, S, P=64, N=64, H=2):
+    """Meta tensors of ``mamba2_scan_bwd``'s inputs: shapes and dtypes, no
+    data, so the CUDA branch runs up to its (faked) launch on the CPU."""
+    meta = dict(device="meta")
+    x = torch.empty((1, S, H, P), dtype=dtype, **meta)
+    dt = torch.empty((1, S, H), dtype=torch.float32, **meta)
+    A = torch.empty((H,), dtype=torch.float32, **meta)
+    B_ = torch.empty((1, S, N), dtype=dtype, **meta)
+    C = torch.empty((1, S, N), dtype=dtype, **meta)
+    dy = torch.empty((1, S, H, P), dtype=dtype, **meta)
+    return x, dt, A, B_, C, dy
+
+
+@pytest.mark.parametrize("dtype,S,path", [
+    ("bfloat16", 64, "chunked"), ("bfloat16", 65, "chunked"),
+    ("bfloat16", 1024, "chunked"), ("bfloat16", 63, "sequential"),
+    ("bfloat16", 1, "sequential"), ("float32", 64, "sequential"),
+    ("float32", 1024, "sequential")])
+def test_mamba2_bwd_routes_by_bwd_schedule(monkeypatch, dtype, S, path):
+    """``bwd_schedule`` picks the chunked backward exactly for bf16 with S
+    >= ``CHUNK``; ``_Mamba2``'s backward (the CUDA branch) reaches
+    ``mamba2_scan_bwd``, which launches that path (the library's
+    ``chunked`` argument), sizes its scratch for it and counts the launch
+    on it."""
+    import contextlib
+    import types
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import mamba2_scan as m2
+    td = getattr(torch, dtype)
+    assert m2.bwd_schedule(td, S) == path
+    calls = []
+
+    class Lib:
+        def mamba2_scan_bwd(self, *args):
+            calls.append(args)
+            return 0
+    monkeypatch.setattr(_build, "load", lambda name: Lib())
+    monkeypatch.setattr(m2, "_check", lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda: types.SimpleNamespace(cuda_stream=0))
+    scratch = []
+    empty = torch.empty
+
+    def record_empty(*a, **k):
+        t = empty(*a, **k)
+        scratch.append(t.numel())
+        return t
+    monkeypatch.setattr(torch, "empty", record_empty)
+    x, dt, A, B_, C, dy = _scan_bwd_inputs(td, S)
+    counts = (m2.mamba2_scan_bwd.launches,
+              m2.mamba2_scan_bwd.chunked_launches,
+              m2.mamba2_scan_bwd.sequential_launches)
+    ctx = types.SimpleNamespace(saved_tensors=(x, dt, A, B_, C, None))
+    grads = m2._Mamba2.backward(ctx, dy, None)
+    assert len(calls) == 1 and len(grads) == 6 and grads[5] is None
+    chunked = path == "chunked"
+    # the path, then the cluster the scratch was sized for (H 2, P 64: one
+    # slice a head, so 2 blocks a b), then the stream
+    assert calls[0][-3:-1] == (int(chunked), m2.bwd_cluster(2) if chunked
+                               else 1)
+    assert m2.bwd_scratch_floats(1, S, 2, 64, 64, path) == scratch[-1]
+    assert (m2.mamba2_scan_bwd.launches,
+            m2.mamba2_scan_bwd.chunked_launches,
+            m2.mamba2_scan_bwd.sequential_launches) == (
+        counts[0] + 1, counts[1] + chunked, counts[2] + (not chunked))
+
+
+def _code(text):
+    """CUDA source text without its // comments."""
+    return "\n".join(line.split("//")[0] for line in text.splitlines())
+
+
+def _backward_section(source):
+    """The code of the backward part of a scan's CUDA source: from its
+    first "backward" section rule (``// ---... backward``) to the end."""
+    from repro_torch.kernels import mamba2_scan as m2
+    text = open(os.path.dirname(m2.__file__) + "/csrc/" + source).read()
+    start = re.search(r"^// -+ backward", text, re.M)
+    assert start, source
+    return _code(text[start.start():])
+
+
+@pytest.mark.parametrize("source", ["mamba2_scan.cu", "rwkv6_scan.cu"])
+def test_scan_backward_sources_take_no_float_atomics(source):
+    """Two runs of the scans' backward give the same bits: their sums run
+    in a fixed order, and no backward kernel calls an atomic (``atomicAdd``
+    on floats, or any other), nor does ``scan_bwd.cuh``."""
+    from repro_torch.kernels import mamba2_scan as m2
+    header = _code(open(os.path.dirname(m2.__file__)
+                        + "/csrc/scan_bwd.cuh").read())
+    for code in (_backward_section(source), header):
+        assert not re.search(r"\batomic\w*\s*\(", code)
+        assert not re.search(r"\bred\.(?:global|shared)", code)
+
+
+_C_TYPES = {"ptr": "c_void_p", "long long": "c_longlong", "int": "c_int",
+            "float": "c_float"}
+
+
+@pytest.mark.parametrize("source", ["flash_attention", "burst_gather",
+                                    "mamba2_scan", "rwkv6_scan", "moe_gmm",
+                                    "sim_sweep"])
+def test_build_signatures_are_the_sources(source):
+    """``_build``'s ctypes signature of each exported function is its C
+    declaration's, argument by argument (a pointer or stream, ``long
+    long``, ``int`` or ``float``), and every ``extern "C"`` function of
+    the source has one: a wrong count would shift every argument after
+    it."""
+    import ctypes
+
+    from repro_torch.kernels import _build
+    text = _code((_build._CSRC / f"{source}.cu").read_text())
+    found = {}
+    for name, params in re.findall(
+            r'extern "C" int (\w+)\(([^)]*)\)', text):
+        kinds = []
+        for param in params.split(","):
+            param = " ".join(param.split())
+            ptr = "*" in param or param.startswith("cudaStream_t ")
+            kinds.append("ptr" if ptr else next(
+                k for k in ("long long", "int", "float")
+                if param.startswith(k + " ")))
+        found[name] = [getattr(ctypes, _C_TYPES[k]) for k in kinds]
+    assert found == _build._SIGNATURES[source]
+
+
+def test_scan_bwd_load_counts_read_the_library(monkeypatch):
+    """The scans' backward counts by load, from the library's counters:
+    ``vec`` 1 is the TMA or 16-byte way, 0 the element-by-element one."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import mamba2_scan as m2
+    from repro_torch.kernels import rwkv6_scan as r6
+
+    class Lib:
+        def mamba2_bwd_chunked_launches(self, vec):
+            return 10 + vec
+
+        def rwkv6_bwd_scan_launches(self, vec):
+            return 20 + vec
+    monkeypatch.setattr(_build, "load", lambda name: Lib())
+    assert m2.bwd_chunked_loads() == {"tma": 11, "element": 10}
+    assert r6.bwd_loads() == {"vec": 21, "element": 20}
+
+
+def test_rwkv6_backward_source_takes_no_logarithm():
+    """``rwkv6_bwd_scan`` walks the recurrence step by step: no logarithm
+    of w (whose exact zeros and 1e-30-scale products the card's cases
+    hold), in any of its CUDA spellings, and no division."""
+    code = _backward_section("rwkv6_scan.cu")
+    assert not re.search(r"\b(?:__)?log(?:2|10|1p|b)?f?\s*\(", code)
+    assert not re.search(r"__fdividef|__frcp|\brcp", code)
