@@ -155,7 +155,15 @@ Phases, each printing its own lines:
    head size, f32, and bf16 rows four times the training length), and
    ``burst_gather_bwd`` with heavily repeated ids
    (one id taken by every row too) bit for bit equal to a sequential f32
-   sum, both run twice for the same bits; ``mamba2_scan_bwd`` and
+   sum, also past the one-block sort's 16,384 ids on the multi-block path
+   (granite-moe's 32,800-id dispatch, a B 16 batch's 16,400 embedding
+   ids, N either side of the limit, one id taken 32,800 times), both run
+   twice for the same bits; ``moe_gmm_bwd`` (dX and dW through autograd
+   from ``moe_gmm``) against autograd through the plain version at
+   granite-moe's training products, arctic-reduced's, unsorted and
+   out-of-range ids, an expert with no row, one expert, T off the tile,
+   K or N not a multiple of 8 and f32, twice for the same bits;
+   ``mamba2_scan_bwd`` and
    ``rwkv6_scan_bwd`` (through autograd from the scans' wrappers) against
    autograd through the plain versions at zamba2-7b's and rwkv6-1.6b's
    training shapes (bf16, x, B and C sliced from one projection, no state,
@@ -170,32 +178,37 @@ Phases, each printing its own lines:
    sequential; each chunked case, and each rwkv6 case, loading its inputs
    the way the library's counts by load say it must); the chunked mamba2
    backward at every cluster size and rwkv6's, called 40 rounds round
-   robin, the same bits every time; the two wrappers with
-   no backward kernel (decode attention, the grouped matmul) must raise
-   on a CUDA input that requires grad; one f32 step of eight reduced
-   models (granite, zamba2, rwkv6 and the five attention families) on
-   the card against the CPU (loss and every gradient); granite-moe's
-   train step must raise at ``moe_gmm``; the restart on the card
+   robin, the same bits every time; the wrapper with no backward kernel
+   (decode attention) must raise on a CUDA input that requires grad; one
+   f32 step of ten reduced models (granite, zamba2, rwkv6, the five
+   attention families, granite-moe and arctic) on the card against the
+   CPU (loss and every gradient; an MoE model's routing recorded on both
+   devices, a reroute allowed only at a near-tie and then compared on
+   one routing); the restart on the card
    (checkpoint at step 2, a failure at step 3, resumed into fresh
    tensors: the same losses, norms and final checkpoint bit for bit);
-   then the main path, ``repro_torch.launch.train.train`` for 5 steps of
-   B 4 x S 1024 on granite-8b (8 of its 36 layers), zamba2-7b (27 of its
-   81: one layer_pattern) and rwkv6-1.6b (all 24), each at full width
-   (exact launches of every kernel on its path, forward and backward,
-   zamba2's SSD backward all on the chunked path, finite losses; each
-   step's loss, grad norm and seconds, tokens/s, peak
-   memory); the four backward kernels' times beside SDPA's backward,
-   ``index_add_`` or none, each with the device time of every kernel it
-   launched by name (``torch.profiler``: the attention's delta and wgmma
-   passes, the gather's sort and writer, each scan's reverse walk and
-   sums), and their rows in the kernels line (the forward rows' launches
-   by path).
+   one step of granite-8b at B 16 x S 1024 (16,400 embedding ids, the
+   multi-block gather backward); then the main path,
+   ``repro_torch.launch.train.train`` for 5 steps of B 4 x S 1024 on
+   granite-8b (8 of its 36 layers), zamba2-7b (27 of its 81: one
+   layer_pattern), rwkv6-1.6b (all 24) and granite-moe-3b-a800m (all
+   32), each at full width (exact launches of every kernel on its path,
+   forward and backward, the gather backward's by path, zamba2's SSD
+   backward all on the chunked path, finite losses; each step's loss,
+   grad norm and seconds, tokens/s, peak memory); the backward kernels'
+   times beside SDPA's backward, ``index_add_``, autograd through
+   ``torch._grouped_mm`` or none, each with the device time of every
+   kernel it launched by name (``torch.profiler``: the attention's delta
+   and wgmma passes, the gather's sorts and writer, each scan's reverse
+   walk and sums, the grouped matmul's dX and dW), and their rows in the
+   kernels line (the forward rows' launches by path).
 
 Exits non-zero, printing no result line, if any phase fails or there is no
 CUDA device.  Imports nothing of JAX.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import hashlib
 import json
@@ -281,6 +294,7 @@ COUNTERS = {"flash_attention": fa.flash_attention,
             "rwkv6_scan": r6.rwkv6_scan,
             "rwkv6_scan_bwd": r6.rwkv6_scan_bwd,
             "moe_gmm": gmm.moe_gmm,
+            "moe_gmm_bwd": gmm.moe_gmm_bwd,
             "moe_plan": gmm.plan}
 CACHE_F32_TOL = dict(rtol=1e-3, atol=1e-3)
 CACHE_BF16_REL_L2 = 5e-2
@@ -781,8 +795,9 @@ def _route_hooks(params, cfg):
 
     def hook(module, args, out):
         x = args[0]
-        probs, _, top_i = moe.route(module.router, cfg,
-                                    x.reshape(-1, x.shape[-1]))
+        with torch.no_grad():
+            probs, _, top_i = moe.route(module.router, cfg,
+                                        x.reshape(-1, x.shape[-1]))
         record.append((probs.cpu(), top_i.cpu()))
 
     return record, [layer.moe.register_forward_hook(hook)
@@ -1081,12 +1096,14 @@ SOURCE = {"moe_plan": "moe_gmm.cu",
           "flash_attention": "flash_attention.cu",
           "flash_attention_bwd": "flash_attention.cu",
           "burst_gather_bwd": "burst_gather.cu",
+          "burst_gather_bwd[dispatch]": "burst_gather.cu",
           "decode_attention": "flash_attention.cu",
           "burst_gather": "burst_gather.cu",
           "mamba2_scan": "mamba2_scan.cu", "rwkv6_scan": "rwkv6_scan.cu",
           "mamba2_scan_bwd": "mamba2_scan.cu",
           "rwkv6_scan_bwd": "rwkv6_scan.cu",
-          "moe_gmm": "moe_gmm.cu", "sim_sweep": "sim_sweep.cu"}
+          "moe_gmm": "moe_gmm.cu", "moe_gmm_bwd": "moe_gmm.cu",
+          "sim_sweep": "sim_sweep.cu"}
 
 
 #: (model, kernel, (Sq, Skv, Hq, Hkv, D), kwargs) of each served model's
@@ -2317,7 +2334,7 @@ def serve_phase(arch, gen):
             "moe_plan": n_moe * (1 + GEN),
             # serving takes no gradient
             "flash_attention_bwd": 0, "burst_gather_bwd": 0,
-            "mamba2_scan_bwd": 0, "rwkv6_scan_bwd": 0}
+            "mamba2_scan_bwd": 0, "rwkv6_scan_bwd": 0, "moe_gmm_bwd": 0}
     memory = ""
     if extra:
         memory = (f"; memory {tuple(next(iter(extra.values())).shape)} -> "
@@ -2353,8 +2370,11 @@ TRAIN_ARCH = "granite-8b"
 #: card's 80 GB, so 8 layers (1.95 B params, ~23 GB); zamba2-7b's 81 need
 #: 7.30 B (~88 GB), so one whole layer_pattern, 27 layers (23 M, 4 H and
 #: the two shared blocks: 2.79 B, ~33 GB, ~70 GB at its peak with the
-#: activations); rwkv6-1.6b all 24 (1.45 B, ~17 GB)
-TRAIN_RUNS = (("granite-8b", 8), ("zamba2-7b", 27), ("rwkv6-1.6b", 24))
+#: activations); rwkv6-1.6b all 24 (1.45 B, ~17 GB); granite-moe-3b-a800m
+#: all 32 (3.30 B, ~39.6 GB, with ~0.6-0.8 GB of routed activations a layer
+#: at B 4 x S 1024: 32,800 rows of 1536, the f32 combine among them)
+TRAIN_RUNS = (("granite-8b", 8), ("zamba2-7b", 27), ("rwkv6-1.6b", 24),
+              ("granite-moe-3b-a800m", 32))
 TRAIN_B, TRAIN_S, TRAIN_STEPS = 4, 1024, 5
 #: the backward kernels' f32 cases against autograd through the plain
 #: version: the same f32 arithmetic summed in another order, over up to 1024
@@ -2423,16 +2443,29 @@ def check_attention_bwd(gen):
     return errs["train"]
 
 
+#: the MoE dispatch of the train phase: B 4 x (S + 1) tokens, each
+#: gathered top_k = 8 times, rows of granite-moe's d_model
+DISPATCH_BWD = (TRAIN_B * (TRAIN_S + 1), 8, 1536)
+
+
 def check_gather_bwd(gen):
     """``burst_gather_bwd``: bit for bit equal to a sequential f32
     ``index_add_`` on the CPU rounded once to the dtype, within 2e-2 (bf16)
     of autograd through ``ref.burst_gather_ref`` on f32-widened rows on the
-    card, and the same bits on two runs.  Cases: the training batch's ids
-    into granite-8b's (49152, 4096) embedding, one id taken by every row,
-    an odd bf16 width (element-by-element loads), f32, and rows no id
-    takes.  Returns the error of the embedding case."""
+    card, and the same bits on two runs, each on the path ``bg.bwd_path``
+    names (the launch counted there).  Cases: the training batch's ids into
+    granite-8b's (49152, 4096) embedding, one id taken by every row, an odd
+    bf16 width (element-by-element loads), f32, rows no id takes; past the
+    one-block sort's ``SORT_MAX`` ids (the multi-block path): granite-moe's
+    dispatch (32,800 ids, each of 4,100 rows 8 times, in the order of a
+    random routing, D 1536), a B 16 x S 1024 batch's 16,400 ids into the
+    embedding, N at ``SORT_MAX`` - 1, ``SORT_MAX`` and ``SORT_MAX`` + 1, and
+    one id taken by all 32,800.  Returns the errors of the embedding and
+    dispatch cases."""
     R = configs.get(TRAIN_ARCH).vocab_padded
     emb = embedding_ids()
+    tokens, k, d = DISPATCH_BWD
+    dispatch = torch.randperm(tokens * k, generator=gen, device="cuda") // k
     cases = [
         ("embedding", R, 4096, emb, torch.bfloat16),
         ("one-id-every-row", R, 4096, torch.full_like(emb, 7),
@@ -2442,13 +2475,25 @@ def check_gather_bwd(gen):
         ("f32", 5000, 256, emb % 5000, torch.float32),
         ("few-rows-taken", 1000, 64, torch.randint(
             0, 10, (333,), generator=gen, device="cuda"), torch.bfloat16),
+        ("dispatch", tokens, d, dispatch, torch.bfloat16),
+        ("embedding-b16", R, 4096, embedding_ids(batch=16), torch.bfloat16),
+        *((f"n-{n}", 3000, 256, torch.randint(
+            0, 3000, (n,), generator=gen, device="cuda"), torch.bfloat16)
+          for n in (bg.SORT_MAX - 1, bg.SORT_MAX, bg.SORT_MAX + 1)),
+        ("one-id-past-sort-max", tokens, d, torch.full_like(dispatch, 7),
+         torch.bfloat16),
     ]
     errs = {}
     for name, rows, width, idx, dtype in cases:
         idx = idx.to(torch.int32)
         dout = _rand((idx.numel(), width), gen, dtype)
+        path = bg.bwd_path(idx.numel())
+        before = getattr(bg.burst_gather_bwd, f"{path}_launches")
         got = bg.burst_gather_bwd(dout, idx, rows)
         again = bg.burst_gather_bwd(dout, idx, rows)
+        if getattr(bg.burst_gather_bwd, f"{path}_launches") != before + 2:
+            raise AssertionError(f"burst_gather_bwd[{name}]: not launched "
+                                 f"on the {path} path")
         seq_sum = torch.zeros((rows, width), dtype=torch.float32).index_add_(
             0, idx.cpu().long(), dout.cpu().float()).to(dtype)
         exact = torch.equal(got.cpu(), seq_sum)
@@ -2461,15 +2506,113 @@ def check_gather_bwd(gen):
             f"burst_gather_bwd[{name}] vs plain (f32 rows)", got, plain,
             F32_TOL if dtype == torch.float32 else BF16_TOL)
         same = torch.equal(got, again)
-        _phase(f"check burst_gather_bwd[{name}]: N={idx.numel()} into "
-               f"({rows}, {width}) {str(dtype).split('.')[-1]}, "
+        _phase(f"check burst_gather_bwd[{name}]: N={idx.numel()} ({path})"
+               f" into ({rows}, {width}) {str(dtype).split('.')[-1]}, "
                f"{int(idx.unique().numel())} rows taken, equal to the "
                f"sequential f32 sum: {exact}, two runs same bits: {same} "
                f"{'ok' if exact and same else 'FAIL'}")
         if not (exact and same):
             raise AssertionError(f"burst_gather_bwd[{name}] is not the "
                                  f"sequential f32 sum or not deterministic")
-    return errs["embedding"]
+        del got, again, dout, plain, table, seq_sum
+        torch.cuda.empty_cache()
+    return errs["embedding"], errs["dispatch"]
+
+
+#: (case, (T, K, N, E), dtype, ids) of moe_gmm_bwd: granite-moe's training
+#: products (B 4 x S 1024: 4,100 tokens x top 8, sorted as the model
+#: dispatches; gate/up K 1536 -> N 512, down 512 -> 1536), arctic-reduced's
+#: (N 96: top 2 of 8 over 2 x 129 tokens), then unsorted ids, ids out of
+#: range, an expert no row takes, a single expert, T not a multiple of the
+#: row tile, bf16 with K or N not a multiple of 8 (the generic kernels,
+#: also in 64-row sub-tiles of 128-row tiles) and f32 (ids in any order,
+#: out of range among them).  ids: ("sorted" or "token", k), the top-k
+#: of random router scores for T / k tokens, sorted as the model
+#: dispatches or in token order; (lo, hi), T uniform ids in [lo, hi); or
+#: "empty", uniform over the experts but expert 1
+MOE_BWD_CASES = [
+    ("train-gate-up", (TRAIN_B * (TRAIN_S + 1) * 8, 1536, 512, 40),
+     torch.bfloat16, ("sorted", 8)),
+    ("train-down", (TRAIN_B * (TRAIN_S + 1) * 8, 512, 1536, 40),
+     torch.bfloat16, ("sorted", 8)),
+    ("arctic-reduced-n96", (516, 64, 96, 8), torch.bfloat16, ("sorted", 2)),
+    ("arctic-reduced-down", (516, 96, 64, 8), torch.bfloat16,
+     ("sorted", 2)),
+    ("unsorted", (4096, 1536, 512, 40), torch.bfloat16, ("token", 8)),
+    ("out-of-range", (3000, 256, 136, 8), torch.bfloat16, (-3, 11)),
+    ("empty-expert", (2000, 128, 256, 6), torch.bfloat16, "empty"),
+    ("one-expert", (1500, 256, 264, 1), torch.bfloat16, (0, 1)),
+    ("t-off-the-tile", (1001, 192, 320, 4), torch.bfloat16, ("sorted", 1)),
+    ("generic-k37-n23", (1200, 37, 23, 4), torch.bfloat16, (-1, 5)),
+    ("generic-k40-n36-unsorted", (333, 40, 36, 5), torch.bfloat16,
+     ("token", 1)),
+    ("f32", (2064, 64, 96, 8), torch.float32, ("token", 4)),
+    ("f32-out-of-range", (700, 40, 24, 5), torch.float32, (-2, 7)),
+]
+
+
+def _moe_bwd_ids(gen, T, E, ids):
+    if ids == "empty":
+        g = torch.randint(0, E - 1, (T,), generator=gen, device="cuda")
+        return torch.where(g >= 1, g + 1, g).to(torch.int32)
+    order, k = ids
+    if isinstance(order, int):
+        return torch.randint(order, k, (T,), generator=gen, device="cuda",
+                             dtype=torch.int32)
+    return moe_ids(gen, T // k, E, k, order)
+
+
+def _gmm_grads(fn, x, w, ids, dy, *extra):
+    """(dx, dw) of ``fn(x, w, ids, *extra)`` for the output gradient dy."""
+    x, w = (t.detach().requires_grad_(True) for t in (x, w))
+    with torch.enable_grad():
+        return torch.autograd.grad(fn(x, w, ids, *extra), (x, w), dy)
+
+
+def check_moe_gmm_bwd(gen):
+    """``moe_gmm_bwd``, reached through autograd from ``gmm.moe_gmm``, at
+    every case of ``MOE_BWD_CASES``, against autograd through
+    ``ref.moe_gmm_ref`` on the same inputs on the card (bf16 at 2e-2, f32 at
+    ``F32_BWD_TOL``), one launch a backward on ``bwd_schedule``'s path, and
+    run twice for the same bits; the dx rows of ids outside [0, E) and the
+    dw of an expert no row takes are zeros.  Returns the worst error at
+    the training shapes (gate/up, down)."""
+    errs = {}
+    for name, (T, K, N, E), dtype, how in MOE_BWD_CASES:
+        g = _moe_bwd_ids(gen, T, E, how)
+        if g.numel() != T:
+            raise AssertionError(f"moe_gmm_bwd[{name}]: {g.numel()} ids")
+        x, w = moe_inputs(gen, T, K, N, E, dtype)
+        dy = _rand((T, N), gen, dtype)
+        before = gmm.moe_gmm_bwd.launches
+        got = _gmm_grads(gmm.moe_gmm, x, w, g, dy)
+        if gmm.moe_gmm_bwd.launches != before + 1:
+            raise AssertionError(f"moe_gmm_bwd[{name}]: "
+                                 f"{gmm.moe_gmm_bwd.launches - before} "
+                                 f"launches")
+        want = _gmm_grads(ref.moe_gmm_ref, x, w, g, dy)
+        tol = F32_BWD_TOL if dtype == torch.float32 else BF16_TOL
+        s = gmm.bwd_schedule(T, K, N, E, dtype)
+        errs[name] = max(_assert_close(
+            f"moe_gmm_bwd[{name}] {what} T={T} K={K} N={N} E={E} ({s.path})",
+            a, b, tol) for what, a, b in zip(("dx", "dw"), got, want))
+        outside = (g < 0) | (g >= E)
+        counts = torch.bincount(g[~outside].long(), minlength=E)
+        if bool(got[0][outside].any()) or bool(got[1][counts == 0].any()):
+            raise AssertionError(f"moe_gmm_bwd[{name}]: a row out of range "
+                                 f"or an expert with no row is not zero")
+        plan = gmm.plan(g, E)
+        again = _gmm_grads(gmm.moe_gmm, x, w, g, dy, plan)
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        _phase(f"check moe_gmm_bwd[{name}]: two runs (a shared plan the "
+               f"second), same bits: {same}; {int((counts == 0).sum())} "
+               f"experts without a row, {int(outside.sum())} ids out of "
+               f"range {'ok' if same else 'FAIL'}")
+        if not same:
+            raise AssertionError(f"moe_gmm_bwd[{name}]: two runs differ")
+        del x, w, dy, got, want, again
+        torch.cuda.empty_cache()
+    return errs["train-gate-up"], errs["train-down"]
 
 
 #: (case, (B, S, H, P, N), dtype, state in, final-state gradient, x/B/C
@@ -2742,15 +2885,13 @@ def check_scan_bwd_repeats(gen):
 
 
 def check_grad_refusals(gen):
-    """The CUDA wrappers with no backward kernel (decode attention, the
-    grouped matmul) raise NotImplementedError on an input that requires
-    grad, instead of cutting the graph."""
+    """The CUDA wrapper with no backward kernel (decode attention, which no
+    training path calls) raises NotImplementedError on an input that
+    requires grad, instead of cutting the graph."""
     q = _rand((2, 1, 8, 64), gen).requires_grad_(True)
     k, v = _rand((2, 64, 2, 64), gen), _rand((2, 64, 2, 64), gen)
-    x, w, ids = moe_case(gen, (64, 2), 64, 64, 4, torch.bfloat16, "sorted")
     cases = {
         "decode_attention": lambda: fa.decode_attention(q, k, v, kv_len=64),
-        "moe_gmm": lambda: gmm.moe_gmm(x, w.requires_grad_(True), ids),
     }
     for name, fn in cases.items():
         try:
@@ -2763,13 +2904,15 @@ def check_grad_refusals(gen):
                              f"grad, with no backward kernel")
 
 
-#: the reduced models that train on the card (their layers reach the
-#: attention, gather and scan kernels, which have backward kernels), and
-#: those that must refuse (the grouped matmul on their path)
+#: the reduced models whose f32 step is held to the CPU's: every
+#: architecture (the MoE models through the grouped matmul's backward)
 TRAIN_REF_ARCHS = ("granite-8b", "zamba2-7b", "rwkv6-1.6b", "gemma2-27b",
                    "gemma3-12b", "chatglm3-6b", "llama-3.2-vision-11b",
-                   "whisper-tiny")
-TRAIN_REFUSED = {"granite-moe-3b-a800m": "moe_gmm"}
+                   "whisper-tiny", "granite-moe-3b-a800m", "arctic-480b")
+#: router margin (k-th minus (k+1)-th probability) below which the f32
+#: step may route a token otherwise on the two devices: their inputs to a
+#: layer agree to f32 roundings (ROADMAP §3: 1e-5 on identical inputs)
+TRAIN_REF_ROUTE_MARGIN = 1e-5
 #: a reduced model in f32, card against CPU: the loss within 1e-5 and each
 #: gradient within 1e-4 of the CPU's largest entry of that gradient plus
 #: 1e-7; the same f32 arithmetic in another order (cuBLAS against the
@@ -2785,40 +2928,126 @@ TRAIN_REF_BF16_CAST = ("frontend_proj",)
 TRAIN_REF_GRAD_REL_BF16 = 2.0 ** -7
 
 
+@contextlib.contextmanager
+def _replayed_routes(top_is):
+    """Every MoE layer routes as ``top_is`` (one (T, k) top_i a layer, in
+    call order, again at each forward pass) says, weighted by its own
+    probabilities renormalised over those experts, as ``moe.route``
+    weighs its own top-k; None leaves the routing alone."""
+    if top_is is None:
+        yield
+        return
+    own, calls = moe.route, [0]
+
+    def route(router, cfg_, xf):
+        probs, _, _ = own(router, cfg_, xf)
+        ti = top_is[calls[0] % len(top_is)].to(probs.device)
+        calls[0] += 1
+        top_p = probs.gather(-1, ti)
+        return probs, top_p / torch.clamp_min(top_p.sum(-1, keepdim=True),
+                                              1e-9), ti
+
+    moe.route = route
+    try:
+        yield
+    finally:
+        moe.route = own
+
+
+def _train_ref_step(params, cfg, toks, extra, dev, replay=None):
+    """The loss and every gradient of one f32 step of ``params`` on
+    ``dev`` (CPU tensors), the routing of each MoE layer (CPU (probs,
+    top_i), recorded unless ``replay`` gives it), then the step's clip and
+    AdamW update in place."""
+    batch = {"tokens": toks.to(dev)}
+    if extra:
+        batch["extra"] = {k: v.to(dev) for k, v in extra.items()}
+    record, handles = _route_hooks(params, cfg) \
+        if cfg.n_experts and replay is None else ([], [])
+    with _replayed_routes(replay):
+        params.requires_grad_(True)
+        loss = lm.loss_fn(params, cfg, batch)
+        loss.backward()
+        for h in handles:
+            h.remove()
+        # a parameter no layer reaches (zamba2-reduced's one H layer uses
+        # the first of its two shared blocks) has no gradient: zeros
+        grads = {n: (torch.zeros_like(p) if p.grad is None else p.grad).cpu()
+                 for n, p in params.named_parameters()}
+        params.zero_grad(set_to_none=True)
+        train.train_step(params, cfg, adamw_init(
+            dict(params.named_parameters())), toks.to(dev), 1e-3)
+    return float(loss.detach()), grads, record
+
+
+def _first_reroute(cpu_rec, gpu_rec, k):
+    """The tokens of the first MoE layer (in call order) that the two
+    devices routed to other experts, as (layer, tokens, their CPU
+    margins); None where every layer routed alike.  Later layers see
+    hidden states that such a token has moved, so only the first layer's
+    margins say whether a near-tie caused it."""
+    for layer, ((probs, ti_c), (_, ti_g)) in enumerate(zip(
+            cpu_rec, gpu_rec, strict=True)):
+        differ = torch.tensor([set(a.tolist()) != set(b.tolist())
+                               for a, b in zip(ti_c, ti_g)])
+        if bool(differ.any()):
+            srt = probs.sort(-1, descending=True).values
+            margin = srt[:, k - 1] - srt[:, k]
+            return layer, int(differ.sum()), margin[differ].tolist()
+    return None
+
+
 def check_train_reference(arch):
     """One step of ``arch``'s reduced config in f32 on the card (kernels)
     and on the CPU (plain versions), same weights and batch (B 2, S 128;
     the X layers' gates at ``XATTN_GATE`` and a seeded memory): the loss
     and every parameter's gradient (the tied embedding's is the gather's
     scatter-add plus the head's), then the params after clip and AdamW,
-    whose largest difference is printed."""
+    whose largest difference is printed.
+
+    An MoE model records each layer's routing on both devices.  Where they
+    differ, the first such layer's tokens must sit below
+    ``TRAIN_REF_ROUTE_MARGIN`` on the CPU (a near-tie), which is printed;
+    then both devices run the step again from the same weights on the
+    CPU's routing (``_replayed_routes``) and that run is compared, at the
+    same tolerances."""
     cfg = configs.get_reduced(arch)
     cpu = lm.init_params(cfg, seed=0, device="cpu").to(torch.float32)
     for layer in cpu.layers:
         if hasattr(layer, "xattn_gate"):
             layer.xattn_gate.fill_(XATTN_GATE)
+    start = {n: t.clone() for n, t in cpu.state_dict().items()}
     gpu = lm.LM(cfg, "cuda").to(torch.float32)
-    gpu.load_state_dict(cpu.state_dict())
+    gpu.load_state_dict(start)
     toks = torch.from_numpy(SyntheticTokens(cfg.vocab, seed=3).batch(
         0, 0, 2, 128))
     extra = seeded_extra(cfg, 2, torch.Generator().manual_seed(6))
-    out = {}
-    for name, params, dev in (("cpu", cpu, "cpu"), ("cuda", gpu, "cuda")):
-        batch = {"tokens": toks.to(dev)}
-        if extra:
-            batch["extra"] = {k: v.to(dev) for k, v in extra.items()}
-        params.requires_grad_(True)
-        loss = lm.loss_fn(params, cfg, batch)
-        loss.backward()
-        # a parameter no layer reaches (zamba2-reduced's one H layer uses
-        # the first of its two shared blocks) has no gradient: zeros
-        out[name] = (float(loss.detach()), {
-            n: (torch.zeros_like(p) if p.grad is None else p.grad).cpu()
-            for n, p in params.named_parameters()})
-        params.zero_grad(set_to_none=True)
-        train.train_step(params, cfg, adamw_init(
-            dict(params.named_parameters())), toks.to(dev), 1e-3)
-    (l_cpu, g_cpu), (l_gpu, g_gpu) = out["cpu"], out["cuda"]
+    l_cpu, g_cpu, cpu_rec = _train_ref_step(cpu, cfg, toks, extra, "cpu")
+    l_gpu, g_gpu, gpu_rec = _train_ref_step(gpu, cfg, toks, extra, "cuda")
+    routed = ""
+    if cfg.n_experts:
+        first = _first_reroute(cpu_rec, gpu_rec, cfg.top_k)
+        routed = f"; {len(cpu_rec)} MoE layers routed alike on both devices"
+        if first is not None:
+            layer, n, margins = first
+            if not max(margins) < TRAIN_REF_ROUTE_MARGIN:
+                raise AssertionError(
+                    f"train reference {cfg.name}: MoE layer {layer} routed "
+                    f"{n} tokens otherwise at CPU margins {margins} >= "
+                    f"{TRAIN_REF_ROUTE_MARGIN}")
+            _phase(f"train reference {cfg.name}: MoE layer {layer} routed "
+                   f"{n} tokens otherwise on the card, at CPU margins "
+                   f"{margins} < {TRAIN_REF_ROUTE_MARGIN}; both devices run "
+                   f"the step again on the CPU's routing")
+            replay = [ti for _, ti in cpu_rec]
+            cpu.load_state_dict(start)
+            gpu.load_state_dict(start)
+            l_cpu, g_cpu, _ = _train_ref_step(cpu, cfg, toks, extra, "cpu",
+                                              replay)
+            l_gpu, g_gpu, _ = _train_ref_step(gpu, cfg, toks, extra, "cuda",
+                                              replay)
+            routed = (f"; layer {layer} rerouted {n} tokens at a near-tie, "
+                      f"compared on the CPU's routing")
     worst, worst_name, bad = 0.0, "", []
     for n, want in g_cpu.items():
         err = float((g_gpu[n] - want).abs().max())
@@ -2839,38 +3068,15 @@ def check_train_reference(arch):
                 for a, b in zip(gpu.parameters(), cpu.parameters()))
     memory = f"; memory {tuple(next(iter(extra.values())).shape)}, gates " \
         f"{XATTN_GATE}" if extra else ""
-    _phase(f"check train {cfg.name} f32 card vs cpu{memory}: loss "
-           f"{l_gpu:.7f} / {l_cpu:.7f} (|diff| {abs(l_gpu - l_cpu):.2e} <= "
+    _phase(f"check train {cfg.name} f32 card vs cpu{memory}{routed}: "
+           f"loss {l_gpu:.7f} / {l_cpu:.7f} (|diff| "
+           f"{abs(l_gpu - l_cpu):.2e} <= "
            f"{TRAIN_REF_LOSS_TOL}); {len(g_cpu)} grads each within "
            f"{TRAIN_REF_GRAD_REL} x its largest entry + "
            f"{TRAIN_REF_GRAD_ABS} ({TRAIN_REF_GRAD_REL_BF16:g} behind the "
            f"bf16 cast: {', '.join(TRAIN_REF_BF16_CAST)}; worst "
            f"{worst:.3f} of its bound, {worst_name}); params after one step "
            f"max diff {p_err:.2e} ok")
-
-
-def check_train_refusals():
-    """A model whose path reaches a kernel with no backward kernel fails
-    loudly on the card: one train step of the reduced MoE model raises
-    NotImplementedError naming that kernel."""
-    for arch, kernel in TRAIN_REFUSED.items():
-        cfg = configs.get_reduced(arch)
-        params = lm.init_params(cfg, seed=0, device="cuda")
-        params.requires_grad_(True)
-        toks = torch.from_numpy(SyntheticTokens(cfg.vocab, seed=3).batch(
-            0, 0, 2, 64)).cuda()
-        try:
-            train.train_step(params, cfg, adamw_init(
-                dict(params.named_parameters())), toks, 1e-3)
-        except NotImplementedError as e:
-            if kernel not in str(e):
-                raise
-            _phase(f"check train {cfg.name} on the card refuses at "
-                   f"{kernel} ok")
-            continue
-        raise AssertionError(f"train {cfg.name}: trained on the card "
-                             f"through {kernel}, which has no backward "
-                             f"kernel")
 
 
 def check_train_restart(tmp):
@@ -2912,9 +3118,12 @@ def train_phase(arch, depth):
     ``SyntheticTokens(seed=0)``.  Checks the exact launches of every kernel
     on its path, forward and backward (a step: one attention a G, L or H
     layer and two an X layer, one SSD scan an M or H layer, one WKV scan
-    an R layer, one gather, and the backward of each), and finite losses and norms; prints
-    each step's loss, grad norm and seconds, tokens/s and the peak memory.
-    Returns its launches."""
+    an R layer, the embedding's gather, an MoE layer's plan, dispatch
+    gather and three grouped matmuls, and the backward of each; the
+    embedding's gather backward on the one-block sort, the dispatch's
+    32,800 ids on the multi-block one), and finite losses and norms;
+    prints each step's loss, grad norm and seconds, tokens/s and the peak
+    memory.  Returns its launches, and the gather backward's by path."""
     full = configs.get(arch)
     cfg = full if depth == full.n_layers else dataclasses.replace(
         full, name=f"{arch} at {depth} of {full.n_layers} layers",
@@ -2924,22 +3133,35 @@ def train_phase(arch, depth):
     for fn in COUNTERS.values():
         fn.launches = 0
     m2.mamba2_scan_bwd.chunked_launches = 0
+    bg.burst_gather_bwd.one_block_launches = 0
+    bg.burst_gather_bwd.multi_block_launches = 0
     t0 = time.perf_counter()
     run = train.train(cfg, steps=TRAIN_STEPS, batch=TRAIN_B, seq=TRAIN_S,
                       device="cuda", log_every=1)
     wall = time.perf_counter() - t0
     launches = {n: fn.launches for n, fn in COUNTERS.items()}
+    paths = {"one_block": bg.burst_gather_bwd.one_block_launches,
+             "multi_block": bg.burst_gather_bwd.multi_block_launches}
     chunked = m2.mamba2_scan_bwd.chunked_launches
     pattern = cfg.layer_pattern
     kinds = [pattern[i % len(pattern)] for i in range(cfg.n_layers)]
+    # every MoE layer plans once, gathers its dispatch once and runs 3
+    # grouped matmuls (2 without a gate)
+    n_moe = sum(k in "GL" for k in kinds) if cfg.n_experts else 0
     # an X layer attends twice (itself, then the memory)
     per_step = {"flash_attention": sum(k in "GLXH" for k in kinds)
                 + kinds.count("X"),
                 "mamba2_scan": sum(k in "MH" for k in kinds),
-                "rwkv6_scan": kinds.count("R"), "burst_gather": 1}
+                "rwkv6_scan": kinds.count("R"), "burst_gather": 1 + n_moe,
+                "moe_gmm": (3 if cfg.gated_mlp else 2) * n_moe}
     want = dict.fromkeys(COUNTERS, 0)
     for name, n in per_step.items():
         want[name] = want[f"{name}_bwd"] = n * TRAIN_STEPS
+    want["moe_plan"] = n_moe * TRAIN_STEPS
+    # B (S + 1) = 4,100 embedding ids take one block; a dispatch's 8 x
+    # that many, the multi-block sort
+    want_paths = {"one_block": TRAIN_STEPS,
+                  "multi_block": n_moe * TRAIN_STEPS}
     tokens = TRAIN_B * (TRAIN_S + 1)
     steady = statistics.median(run.step_s[1:])
     peak = torch.cuda.max_memory_allocated() / 1e9
@@ -2952,10 +3174,10 @@ def train_phase(arch, depth):
            f"{[round(x, 4) for x in run.step_s]} (first with the build and "
            f"warm-up); steady {steady:.4f} s a step, {tokens / steady:.0f} "
            f"tokens/s; max_memory_allocated {peak:.2f} GB; launches "
-           f"{launches}")
-    if launches != want:
+           f"{launches}; burst_gather_bwd by path {paths}")
+    if launches != want or paths != want_paths:
         raise AssertionError(f"train {cfg.name}: launch counts {launches}, "
-                             f"want {want}")
+                             f"{paths}, want {want}, {want_paths}")
     # bf16 at S 1024: every SSD backward on the chunked path
     if chunked != launches["mamba2_scan_bwd"]:
         raise AssertionError(f"train {cfg.name}: {chunked} of "
@@ -2969,7 +3191,38 @@ def train_phase(arch, depth):
                              f"finite")
     del run
     torch.cuda.empty_cache()
-    return launches
+    return launches, paths
+
+
+#: the batch whose 16,400 embedding ids (B 16 x S 1024) exceed the
+#: one-block sort: granite-8b at this depth, full width, one step
+BIG_BATCH, BIG_BATCH_DEPTH = 16, 2
+
+
+def check_train_big_batch():
+    """One step of granite-8b (at ``BIG_BATCH_DEPTH`` of its layers, full
+    width) at B 16 x S 1024, the batch of ``launch.train --batch 16 --seq
+    1024``: its embedding's 16,400 ids take the gather backward's
+    multi-block path; the loss and norm are finite."""
+    full = configs.get(TRAIN_ARCH)
+    cfg = dataclasses.replace(
+        full, name=f"{TRAIN_ARCH} at {BIG_BATCH_DEPTH} of {full.n_layers} "
+        f"layers", n_layers=BIG_BATCH_DEPTH)
+    before = bg.burst_gather_bwd.multi_block_launches
+    run = train.train(cfg, steps=1, batch=BIG_BATCH, seq=TRAIN_S,
+                      device="cuda", log_every=1)
+    multi = bg.burst_gather_bwd.multi_block_launches - before
+    ok = multi == 1 and all(math.isfinite(x) for x in run.losses +
+                            run.grad_norms)
+    _phase(f"check train {cfg.name} at B {BIG_BATCH} x S {TRAIN_S} "
+           f"({BIG_BATCH * (TRAIN_S + 1)} embedding ids): loss "
+           f"{run.losses[0]:.4f}, grad norm {run.grad_norms[0]:.4f}, "
+           f"{multi} multi-block gather backward {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"train {cfg.name} at B {BIG_BATCH}: not "
+                             f"finite or not on the multi-block path")
+    del run
+    torch.cuda.empty_cache()
 
 
 def train_rows(errs, flush, gen):
@@ -3055,9 +3308,126 @@ def train_rows(errs, flush, gen):
     rows.append(_row("burst_gather_bwd", "src/repro/kernels/"
                      "burst_gather.py:59", errs[1], ms, plain, lib, b_ms,
                      b_by))
-    rows[-1]["kernels_ms"] = split
+    rows[-1].update(kernels_ms=split, path="one_block")
     del idx, dout, table, idx64, doutf
     return rows + scan_bwd_rows(errs[2:], flush, gen)
+
+
+def _grouped_mm_bwd(x, w, ids, E, dy):
+    """Autograd through ``torch._grouped_mm`` over the sorted rows (its
+    backward: dx and dw), timed as the library yardstick and never called
+    by the port; None where this PyTorch lacks it, or does not
+    differentiate it, as printed."""
+    fn = getattr(torch, "_grouped_mm", None)
+    if fn is None or x.dtype != torch.bfloat16:
+        return None
+    offs = torch.bincount(ids.long(), minlength=E).cumsum(0).to(torch.int32)
+    xg, wg = (t.detach().requires_grad_(True) for t in (x, w))
+    try:
+        with torch.enable_grad():
+            out = fn(xg, wg, offs=offs)
+            torch.autograd.grad(out, (xg, wg), dy, retain_graph=True)
+        torch.cuda.synchronize()
+    except (RuntimeError, NotImplementedError) as exc:
+        _phase(f"library: autograd through torch._grouped_mm refused: "
+               f"{str(exc)[:200]}")
+        return None
+    return lambda: torch.autograd.grad(out, (xg, wg), dy, retain_graph=True)
+
+
+def moe_bwd_rows(errs, dispatch_err, flush, gen):
+    """The kernels line's rows of the new backward kernels at granite-moe's
+    training shapes (B 4 x S 1024: 32,800 routed rows, sorted as the model
+    dispatches them, E 40, bf16).  moe_gmm_bwd: one backward call of the
+    gate/up product (K 1536, N 512; dX and dW, each kernel's device time
+    in ``kernels_ms``) on a shared plan, as the model calls it; the down
+    product's (K 512, N 1536) as ``down_*`` keys; plain: autograd through
+    ``ref.moe_gmm_ref``; library: autograd through ``torch._grouped_mm``
+    where this PyTorch differentiates it, else none.  Bound: dX and dW
+    2 T K N FLOPs each; bytes x, w and dy read and dx and dw written once
+    (each kernel's own in ``bound_ms_by_kernel``).
+    burst_gather_bwd[dispatch]: the dispatch gather's gradient, 32,800 ids
+    (each of 4,100 rows 8 times, in a random routing's order) into (4100,
+    1536) bf16, the multi-block path; plain: autograd through
+    ``ref.burst_gather_ref``; library: ``index_add_`` into f32.  Bound:
+    bytes, dout and ids read and the table written once."""
+    cases = {c[0]: c[1:] for c in MOE_BWD_CASES}
+    timed = {}
+    for case in ("train-gate-up", "train-down"):
+        (T, K, N, E), dtype, how = cases[case]
+        g = _moe_bwd_ids(gen, T, E, how)
+        x, w = moe_inputs(gen, T, K, N, E, dtype)
+        dy = _rand((T, N), gen, dtype)
+        plan = gmm.plan(g, E)
+
+        def kernel(x=x, w=w, g=g, dy=dy, plan=plan):
+            return gmm.moe_gmm_bwd(dy, x, w, g, plan)
+        ms = time_ms(kernel, flush)
+        split = kernel_split(kernel)
+        plain = time_ms(lambda: _gmm_grads(ref.moe_gmm_ref, x, w, g, dy),
+                        flush, reps=3)
+        lib = _grouped_mm_bwd(x, w, g, E, dy)
+        lib_ms = time_ms(lib, flush) if lib is not None else None
+        one = 2 * T * K * N
+        by_kernel = {"dx": bound(one, 2 * (T * N + E * K * N + T * K))[0],
+                     "dw": bound(one, 2 * (T * K + T * N + E * K * N))[0]}
+        nbytes = 2 * (2 * T * K + 2 * E * K * N + T * N) + 4 * T
+        b_ms, b_by = bound(2 * one, nbytes)
+        timed[case] = (ms, plain, lib_ms, b_ms, b_by, split, by_kernel)
+        _phase(f"time moe_gmm_bwd[{case}] T={T} K={K} N={N} E={E} bf16 "
+               f"(dX and dW): {ms:.4f} ms, plain {plain:.3f} ms, library "
+               f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound "
+               f"{b_ms:.4f} ms ({b_by}; {nbytes / 1e6:.1f} MB, "
+               f"{2 * one / 1e9:.1f} GFLOP; dX {by_kernel['dx']:.4f}, dW "
+               f"{by_kernel['dw']:.4f}), {2 * one / ms / 1e9:.1f} TFLOP/s; "
+               f"by kernel (profiler, ms a call) {_split_text(split)}")
+        del x, w, g, dy, plan, lib
+        torch.cuda.empty_cache()
+    ms, plain, lib_ms, b_ms, b_by, split, by_kernel = timed["train-gate-up"]
+    row = _row("moe_gmm_bwd", "src/repro/kernels/moe_gmm.py:50", errs[0],
+               ms, plain, lib_ms, b_ms, b_by)
+    row.update(kernels_ms=split, bound_ms_by_kernel=by_kernel)
+    ms, plain, lib_ms, b_ms, _, split, by_kernel = timed["train-down"]
+    row.update(down_ms=ms, down_plain_ms=plain, down_library_ms=lib_ms,
+               down_bound_ms=b_ms, down_kernels_ms=split,
+               down_max_abs_err=errs[1])
+
+    tokens, k, d = DISPATCH_BWD
+    idx = (torch.randperm(tokens * k, generator=gen, device="cuda") //
+           k).to(torch.int32)
+    dout = _rand((tokens * k, d), gen)
+
+    def gather_bwd():
+        return bg.burst_gather_bwd(dout, idx, tokens)
+    ms = time_ms(gather_bwd, flush)
+    split = kernel_split(gather_bwd)
+    table = torch.zeros((tokens, d), dtype=torch.bfloat16, device="cuda",
+                        requires_grad=True)
+
+    def plain_fn():
+        with torch.enable_grad():
+            return torch.autograd.grad(ref.burst_gather_ref(table, idx),
+                                       table, dout)
+    plain = time_ms(plain_fn, flush)
+    idx64, doutf = idx.long(), dout.float()
+    lib = time_ms(lambda: torch.zeros((tokens, d), dtype=torch.float32,
+                                      device="cuda").index_add_(
+        0, idx64, doutf), flush)
+    nbytes = 2 * dout.numel() + 4 * idx.numel() + 2 * tokens * d
+    b_ms, b_by = bound(dout.numel(), nbytes)
+    _phase(f"time burst_gather_bwd[dispatch] N={idx.numel()} "
+           f"({bg.bwd_path(idx.numel())}) into ({tokens}, {d}) bf16: "
+           f"{ms:.4f} ms, plain {plain:.4f} ms, index_add_ into f32 "
+           f"{lib:.4f} ms, bound {b_ms:.4f} ms ({b_by}; "
+           f"{nbytes / 1e6:.1f} MB); by stage (profiler, ms a call) "
+           f"{_split_text(split)}")
+    gather = _row("burst_gather_bwd[dispatch]", "src/repro/kernels/"
+                  "burst_gather.py:59", dispatch_err, ms, plain, lib, b_ms,
+                  b_by)
+    gather.update(kernels_ms=split, path="multi_block")
+    del idx, dout, table, idx64, doutf
+    torch.cuda.empty_cache()
+    return [row, gather]
 
 
 #: the scans' backward FLOPs a state element and step: mamba2 12 (the
@@ -3140,14 +3510,19 @@ def check_build_report():
                    f"registers, spill stores {r.get('spill_stores')} B, "
                    f"spill loads {r.get('spill_loads')} B; SASS HMMA/HGMMA "
                    f"{r.get('tensor_core')} (HGMMA {r.get('hgmma')})")
-    gmm_r = _build.kernel_report("moe_gmm").get("gmm_wgmma<128, 256, 4>",
-                                                {})
-    if not gmm_r.get("hgmma") or gmm_r.get("spill_stores") or \
-            gmm_r.get("spill_loads"):
-        raise AssertionError(f"gmm_wgmma<128, 256, 4>, the bf16 prefill "
-                             f"grouped matmul, needs HGMMA and no spill: "
-                             f"{gmm_r}")
-    _phase("check gmm_wgmma<128, 256, 4>: HGMMA in its SASS, no spill ok")
+    # the bf16 grouped matmul at prefill and training, and its backward's
+    # dX (w read transposed) and dW (x^T, M-major from shared memory)
+    gmm_report = _build.kernel_report("moe_gmm")
+    for kernel, what in (("gmm_wgmma<128, 256, 4, 0>", "the product"),
+                         ("gmm_wgmma<128, 256, 4, 1>", "its dX"),
+                         ("gmm_dw_wgmma<256, 4>", "its dW")):
+        gmm_r = gmm_report.get(kernel, {})
+        if not gmm_r.get("hgmma") or gmm_r.get("spill_stores") or \
+                gmm_r.get("spill_loads"):
+            raise AssertionError(f"{kernel}, {what} of the bf16 grouped "
+                                 f"matmul, needs HGMMA and no spill: {gmm_r}")
+    _phase("check gmm_wgmma<128, 256, 4, 0 / 1>, gmm_dw_wgmma<256, 4>: HGMMA "
+           "in their SASS, no spill ok")
     # zamba2-7b's bf16 prefill scan runs on the tensor cores
     ssd = _build.kernel_report("mamba2_scan").get(
         "mamba2_chunked<1, 1, 0>", {})
@@ -3284,25 +3659,35 @@ def main() -> int:
     # training: the backward kernels against their plain versions, the
     # refusals, the f32 step against the CPU, the restart, then the path
     trgen = torch.Generator(device="cuda").manual_seed(22)
-    train_errs = (check_attention_bwd(trgen), check_gather_bwd(trgen),
-                  *check_scan_bwd(trgen))
+    attn_bwd_err = check_attention_bwd(trgen)
+    emb_bwd_err, dispatch_bwd_err = check_gather_bwd(trgen)
+    moe_bwd_errs = check_moe_gmm_bwd(trgen)
+    train_errs = (attn_bwd_err, emb_bwd_err, *check_scan_bwd(trgen))
     check_scan_bwd_repeats(trgen)
     check_grad_refusals(trgen)
     for arch in TRAIN_REF_ARCHS:
         check_train_reference(arch)
-    check_train_refusals()
     build_dir = ROOT / "build"
     build_dir.mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
         check_train_restart(Path(tmp))
+    check_train_big_batch()
     train_launches = dict.fromkeys(COUNTERS, 0)
+    train_paths = {"one_block": 0, "multi_block": 0}
     for arch, depth in TRAIN_RUNS:
-        run = train_phase(arch, depth)
+        run, paths = train_phase(arch, depth)
         train_launches = {n: train_launches[n] + run[n] for n in COUNTERS}
+        train_paths = {p: train_paths[p] + paths[p] for p in train_paths}
     kernels += train_rows(train_errs, flush, trgen)
-    # each kernel's launches, summed over the serve runs and the train run
+    kernels += moe_bwd_rows(moe_bwd_errs, dispatch_bwd_err, flush, trgen)
+    # each kernel's launches, summed over the serve runs and the train runs
+    # (the gather backward's rows: the train runs' launches on the row's
+    # path; serving takes no gradient)
     for row in kernels:
         kernel = row["name"]
+        if kernel.startswith("burst_gather_bwd"):
+            row["launches"] = train_paths[row["path"]]
+            continue
         row["launches"] = launches[kernel] + train_launches[kernel]
         if launches[kernel] and train_launches[kernel]:
             row["launches_by_path"] = {"serve": launches[kernel],

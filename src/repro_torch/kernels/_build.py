@@ -41,7 +41,9 @@ _SIGNATURES = {
     },
     "burst_gather": {
         "burst_gather_fwd": [_P, _P, _P, _LL, _LL, _LL, _P, _P],
-        "burst_gather_bwd": [_P, _P, _P, _I, _I, _I, _I, _P, _I, _P],
+        "burst_gather_bwd": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _I,
+                             _P],
+        "burst_gather_bwd_scratch": [_I, _I, _I],
     },
     "mamba2_scan": {
         "mamba2_scan_fwd": [_P] * 8 + [_I] * 5 + [_LL] * 7 + [_I, _I, _P],
@@ -57,6 +59,7 @@ _SIGNATURES = {
     "moe_gmm": {
         "moe_gmm_plan": [_P] * 5 + [_I] * 4 + [_P],
         "moe_gmm_fwd": [_P] * 5 + [_I] * 9 + [_P],
+        "moe_gmm_bwd": [_P] * 8 + [_I] * 9 + [_P],
     },
     "sim_sweep": {
         "sim_sweep_fwd": [_P] * 8 + [_I] * 5 + [_P] * 5 + [_I, _P],

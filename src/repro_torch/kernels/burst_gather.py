@@ -7,7 +7,8 @@ autograd differentiates.  For a CUDA table it launches the kernel of
 adds one to ``burst_gather.launches``.  When a gradient is wanted (grad
 mode on and a table that requires grad) the CUDA call goes through
 ``_Gather``, whose backward is the hand-written ``burst_gather_bwd``
-(one more in ``burst_gather_bwd.launches`` a call).
+(one more in ``burst_gather_bwd.launches`` a call, and in the count of
+the path ``bwd_path`` picks).
 """
 from __future__ import annotations
 
@@ -21,9 +22,17 @@ from .flash_attention import _sm_count
 TILE = 8
 #: table dtypes of the backward kernel, by its C code
 _BWD_DTYPES = {torch.bfloat16: 0, torch.float32: 1}
-#: ids the backward kernel takes: what its one sorting block holds in
-#: shared memory (``SORT_MAX`` in csrc/burst_gather.cu)
-BWD_MAX_IDS = 16384
+#: ids the backward's one-block sort takes: what one sorting block holds
+#: in shared memory (``SORT_MAX`` in csrc/burst_gather.cu); more take the
+#: multi-block path, chunks of this many ids
+SORT_MAX = 16384
+
+
+def bwd_path(N: int) -> str:
+    """The sort ``burst_gather_bwd`` launches for N ids: "one_block"
+    (``bwd_sort``) up to ``SORT_MAX``, else "multi_block"
+    (``bwd_chunk_sort`` over chunks of ``SORT_MAX``, then ``bwd_merge``)."""
+    return "one_block" if N <= SORT_MAX else "multi_block"
 
 
 def _forward(table, idx, bursts):
@@ -113,9 +122,13 @@ def burst_gather_bwd(dout: torch.Tensor, idx: torch.Tensor,
     package does: in bf16 the two differ by the roundings of a row's
     repeated adds, so they are held to each other within a tolerance, not
     bit for bit.  On CUDA: bf16 or f32, ids in [0, rows) (others add to no
-    row), at most ``BWD_MAX_IDS`` of them; two kernels, a one-block sort of
-    the ids and a writer that sums the taken rows while it zeroes the
-    rest; adds one to ``burst_gather_bwd.launches``.
+    row); a stable sort of the ids by row (one block up to ``SORT_MAX``
+    ids, else chunks and a merge: ``bwd_path``), then a writer that sums
+    the taken rows while it zeroes the rest.  The scratch is sized by the
+    library's own rule (``burst_gather_bwd_scratch``), which raises here
+    where the ids' counts would not fit an int.  Adds one to
+    ``burst_gather_bwd.launches`` and to the path's
+    ``.one_block_launches`` or ``.multi_block_launches``.
     """
     if dout.device.type == "cpu":
         with torch.enable_grad():
@@ -136,26 +149,32 @@ def burst_gather_bwd(dout: torch.Tensor, idx: torch.Tensor,
         raise ValueError(f"burst_gather_bwd: dout and idx lie on "
                          f"{dout.device} and {idx.device}")
     N, D = dout.shape
-    if N > BWD_MAX_IDS:
-        raise ValueError(f"burst_gather_bwd: at most {BWD_MAX_IDS} ids on "
-                         f"CUDA (what one block sorts), got {N}")
+    path = bwd_path(N)
+    multi = int(path == "multi_block")
+    lib = _build.load("burst_gather")
+    size = lib.burst_gather_bwd_scratch(rows, N, multi)
+    if size < 0:
+        raise ValueError(f"burst_gather_bwd: {N} ids into {rows} rows do not "
+                         f"fit the {path} sort's int32 counts and offsets")
     dout = dout.contiguous()
     idx32 = idx.to(torch.int32).contiguous()
     dtable = torch.empty((rows, D), dtype=dout.dtype, device=dout.device)
-    # the taken rows' segments (4 ints each, at most min(N, rows)), the
-    # sorted positions (N), the bitmap of taken rows and the writer's state
-    scratch = torch.empty(4 * min(N, rows) + N + -(-rows // 32) + 5,
-                          dtype=torch.int32, device=dout.device)
-    lib = _build.load("burst_gather")
+    scratch = torch.empty(size, dtype=torch.int32, device=dout.device)
     with torch.cuda.device(dout.device):
         err = lib.burst_gather_bwd(
             dout.data_ptr(), idx32.data_ptr(), dtable.data_ptr(), rows, N, D,
-            _BWD_DTYPES[dout.dtype], scratch.data_ptr(),
+            _BWD_DTYPES[dout.dtype], multi, scratch.data_ptr(), size,
             _sm_count(dout.device.index),
             torch.cuda.current_stream().cuda_stream)
     _build.check(err, "burst_gather_bwd")
     burst_gather_bwd.launches += 1
+    if multi:
+        burst_gather_bwd.multi_block_launches += 1
+    else:
+        burst_gather_bwd.one_block_launches += 1
     return dtable
 
 
 burst_gather_bwd.launches = 0
+burst_gather_bwd.one_block_launches = 0
+burst_gather_bwd.multi_block_launches = 0

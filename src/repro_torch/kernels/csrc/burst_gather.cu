@@ -44,6 +44,17 @@
 //    the row changes (a block scan), in classes of count, most-taken
 //    first; a bitmap of the taken rows.  No R-wide pass but the bitmap's
 //    R / 32 words.
+//  * past SORT_MAX ids (the MoE dispatch's 32,800 at B 4 x S 1024; a batch
+//    of 16 x 1025 tokens), two kernels in its place, the same output:
+//    bwd_chunk_sort, a block a chunk of SORT_MAX ids, the same radix sort
+//    of the chunk with each sorted id's rank among the chunk's ids of its
+//    row, and the chunk's count of each row; then bwd_merge, one block, an
+//    exclusive scan of the counts over the rows and, within a row, over
+//    the chunks in order (chunk c holds positions [c SORT_MAX, (c + 1)
+//    SORT_MAX), so each row's positions stay increasing), which gives each
+//    (chunk, row) its first slot, then each id goes to its slot plus its
+//    rank, and the segments, bitmap and state as bwd_sort writes them.
+//    Integer counts and slots only, exact in any order.
 //  * bwd_write, three blocks of 8 warps an SM, every warp taking items off
 //    a counter.  Four warps of a block sum the taken rows, most-taken row
 //    first, from a ring of 16 rows in flight a lane (cp.async), and write
@@ -60,6 +71,7 @@
 // ~0.13 ms at 3.35 TB/s.  The sort (~14 us, one SM) comes before it.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
 
 #include <cub/block/block_radix_sort.cuh>
@@ -173,6 +185,7 @@ constexpr int ZERO_BYTES = 32768;  // table bytes of a zeroing item
 constexpr int WRITE_BLOCKS = 3;    // writer blocks an SM
 constexpr int HEAVY = 5;           // count classes from 2^5 up: a row taken
                                    // that often is summed slice by slice
+constexpr int STATE = 5;           // ints of the writer's state
 
 // An exclusive scan within the block of one value a thread; `sums` holds
 // SORT_T / 32 ints of shared memory.  Returns this thread's exclusive
@@ -297,6 +310,131 @@ bwd_sort(const int* __restrict__ idx, int N, int R, int end_bit,
     const int slot = atomicAdd(&class_at[31 - __clz(cnt)], 1);
     segs[slot] = make_int4((int)skey[first[t]], first[t], cnt, 0);
   }
+}
+
+// Past SORT_MAX ids, chunk c = blockIdx.x of SORT_MAX ids: bwd_sort's
+// radix sort of the chunk's rows (row R for an id outside [0, R) and for
+// the padding) with their positions, then for each sorted id j < n its
+// row ckey, position cpos and rank crank among the chunk's ids of that row
+// (in position order), at c SORT_MAX + j; and the chunk's count of each
+// row r in [0, R], hist[c (R + 1) + r].
+__global__ void __launch_bounds__(SORT_T)
+bwd_chunk_sort(const int* __restrict__ idx, int N, int R, int end_bit,
+               int* __restrict__ hist, int* __restrict__ ckey,
+               int* __restrict__ cpos, int* __restrict__ crank) {
+  constexpr int ITEMS = SORT_MAX / SORT_T;
+  extern __shared__ __align__(16) unsigned char sm[];
+  const int base = blockIdx.x * SORT_MAX;
+  const int n = min(SORT_MAX, N - base);
+  int* h = hist + (long long)blockIdx.x * (R + 1);
+  for (int r = threadIdx.x; r <= R; r += SORT_T) h[r] = 0;
+  unsigned key[ITEMS];
+  int pos[ITEMS];
+  const int b0 = threadIdx.x * ITEMS;
+#pragma unroll
+  for (int k = 0; k < ITEMS; ++k) {
+    const int r = b0 + k < n ? idx[base + b0 + k] : -1;
+    key[k] = r >= 0 && r < R ? (unsigned)r : (unsigned)R;
+    pos[k] = base + b0 + k;
+  }
+  RowSort<ITEMS>(*reinterpret_cast<typename RowSort<ITEMS>::TempStorage*>(
+                     sm))
+      .Sort(key, pos, 0, end_bit);
+  __syncthreads();  // the sort's storage is free, h is zero
+  unsigned* skey = reinterpret_cast<unsigned*>(sm);
+#pragma unroll
+  for (int k = 0; k < ITEMS; ++k) skey[b0 + k] = key[k];
+  __syncthreads();
+  int first = 0;  // the first sorted id of the current row in this chunk
+#pragma unroll
+  for (int k = 0; k < ITEMS; ++k) {
+    const int j = b0 + k;
+    if (j >= n) break;
+    if (k == 0 || key[k] != key[k - 1]) {
+      first = j;
+      if (k == 0 && j > 0 && skey[j - 1] == key[k]) {
+        // the row began in an earlier thread's ids: the lowest j' with
+        // skey[j'] == key[k]
+        int lo = 0, hi = j - 1;
+        while (lo < hi) {
+          const int mid = (lo + hi) >> 1;
+          if (skey[mid] < key[k]) lo = mid + 1;
+          else hi = mid;
+        }
+        first = lo;
+      }
+    }
+    ckey[base + j] = (int)key[k];
+    cpos[base + j] = pos[k];
+    crank[base + j] = j - first;
+    if (j + 1 == n || skey[j + 1] != key[k]) h[key[k]] = j - first + 1;
+  }
+}
+
+// Past SORT_MAX ids, one block, after bwd_chunk_sort: hist (nc chunks x
+// (R + 1) rows) becomes each (chunk, row)'s first slot of the sorted
+// order, an exclusive scan over the rows and, within a row, over the
+// chunks in order; then perm[first slot + rank] = position for every id,
+// and the taken rows' segments (row, first, count), in classes of count
+// from the largest down, the bitmap of taken rows and the writer's state,
+// as bwd_sort writes them.  A thread owns a run of rows.
+__global__ void __launch_bounds__(SORT_T)
+bwd_merge(int* __restrict__ hist, int nc, int R, int N,
+          const int* __restrict__ ckey, const int* __restrict__ cpos,
+          const int* __restrict__ crank, int* __restrict__ perm,
+          int4* __restrict__ segs, unsigned* __restrict__ taken,
+          int* __restrict__ state) {
+  __shared__ int sums[SORT_T / 32];
+  __shared__ int class_n[32], class_at[32];
+  const int rows = R + 1;
+  for (int w = threadIdx.x; w < (R + 31) / 32; w += SORT_T) taken[w] = 0u;
+  if (threadIdx.x < 32) class_n[threadIdx.x] = 0;
+  const int per = (rows + SORT_T - 1) / SORT_T;
+  const int r0 = min(rows, (int)threadIdx.x * per), r1 = min(rows, r0 + per);
+  int total = 0;
+  for (int r = r0; r < r1; ++r)
+    for (int c = 0; c < nc; ++c) total += hist[(long long)c * rows + r];
+  int n_all;
+  int run = block_scan(total, sums, &n_all);
+  for (int r = r0; r < r1; ++r)
+    for (int c = 0; c < nc; ++c) {
+      int* at = hist + (long long)c * rows + r;
+      const int v = *at;
+      *at = run;
+      run += v;
+    }
+  __syncthreads();  // every first slot written, the bitmap zero
+  // row r < R spans slots hist[r] .. hist[r + 1] (chunk 0's entries)
+  for (int r = r0; r < min(r1, R); ++r) {
+    const int cnt = hist[r + 1] - hist[r];
+    if (cnt > 0) {
+      atomicOr(taken + r / 32, 1u << (r % 32));
+      atomicAdd(&class_n[31 - __clz(cnt)], 1);
+    }
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int at = 0, heavy = 0;
+    for (int c = 31; c >= 0; --c) {
+      class_at[c] = at;
+      at += class_n[c];
+      if (c >= HEAVY) heavy = at;
+    }
+    state[0] = at;
+    state[1] = state[2] = state[4] = 0;
+    state[3] = heavy;
+  }
+  __syncthreads();
+  for (int r = r0; r < min(r1, R); ++r) {
+    const int cnt = hist[r + 1] - hist[r];
+    if (cnt > 0) {
+      const int slot = atomicAdd(&class_at[31 - __clz(cnt)], 1);
+      segs[slot] = make_int4(r, hist[r], cnt, 0);
+    }
+  }
+  for (int j = threadIdx.x; j < N; j += SORT_T)
+    perm[hist[(long long)(j / SORT_MAX) * rows + ckey[j]] + crank[j]] =
+        cpos[j];
 }
 
 __device__ inline float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -553,9 +691,51 @@ int launch_sort(const int* idx, int N, int R, int* perm, int4* segs,
   return (int)cudaGetLastError();
 }
 
+// The scratch of N ids into R rows, in ints: the taken rows' segments (4
+// ints each, at most min(N, R)), the sorted positions (N), the bitmap of
+// taken rows, the writer's state; past SORT_MAX ids (multi) also the
+// chunks' counts (a chunk of SORT_MAX ids x (R + 1) rows) and each
+// sorted id's row, position and rank (3 N).  -1 where an offset would not
+// fit an int.  The one rule, used by the wrapper and checked here.
+long long scratch_ints(int R, int N, int multi) {
+  long long n = 4LL * min(N, R) + N + (R + 31) / 32 + STATE;
+  if (multi) {
+    const long long nc = (N + SORT_MAX - 1) / SORT_MAX;
+    n += nc * (R + 1) + 3LL * N;
+  }
+  return n > INT_MAX ? -1 : n;
+}
+
+int launch_merge(const int* idx, int N, int R, int* perm, int4* segs,
+                 unsigned* taken, int* state, int* rest, cudaStream_t s) {
+  constexpr int ITEMS = SORT_MAX / SORT_T;
+  constexpr size_t smem = sort_smem<ITEMS>();
+  static bool configured = false;
+  if (!configured) {
+    cudaError_t e = cudaFuncSetAttribute(
+        bwd_chunk_sort, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    configured = true;
+  }
+  const int nc = (N + SORT_MAX - 1) / SORT_MAX;
+  int* hist = rest;
+  int* ckey = hist + (long long)nc * (R + 1);
+  int* cpos = ckey + N;
+  int* crank = cpos + N;
+  const int end_bit = 32 - __builtin_clz((unsigned)R);  // R itself fits
+  bwd_chunk_sort<<<nc, SORT_T, smem, s>>>(idx, N, R, end_bit, hist, ckey,
+                                          cpos, crank);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  bwd_merge<<<1, SORT_T, 0, s>>>(hist, nc, R, N, ckey, cpos, crank, perm,
+                                 segs, taken, state);
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 int launch_bwd(const void* dout, const int* idx, void* dtable, int R, int N,
-               int D, int* scratch, int n_sm, cudaStream_t s) {
+               int D, int multi, int* scratch, int n_sm, cudaStream_t s) {
   constexpr size_t ring_bytes = (size_t)SW * RING * SLICE;
   static bool configured = false;
   if (!configured) {
@@ -573,7 +753,9 @@ int launch_bwd(const void* dout, const int* idx, void* dtable, int R, int N,
   // ITEMS = ids a thread: B (S + 1) ids of a power-of-two S sit just above
   // a power of two, hence 5
   int e;
-  if (N <= SORT_T)
+  if (multi)
+    e = launch_merge(idx, N, R, perm, segs, taken, state, state + STATE, s);
+  else if (N <= SORT_T)
     e = launch_sort<1>(idx, N, R, perm, segs, taken, state, s);
   else if (N <= 2 * SORT_T)
     e = launch_sort<2>(idx, N, R, perm, segs, taken, state, s);
@@ -607,22 +789,36 @@ int launch_bwd(const void* dout, const int* idx, void* dtable, int R, int N,
 
 }  // namespace
 
+// Ints of burst_gather_bwd's scratch for N ids into R rows on the
+// one-block (multi 0) or the multi-block path (multi 1), or -1 where the
+// path cannot take them (the one-block path past SORT_MAX ids, the
+// multi-block path no id) or an offset would not fit an int.
+extern "C" int burst_gather_bwd_scratch(int R, int N, int multi) {
+  if (R <= 0 || N < 0 || (multi ? N == 0 : N > SORT_MAX)) return -1;
+  return (int)scratch_ints(R, N, multi);
+}
+
 // dout: (N, D) of dtype (0 = bfloat16, 1 = float32); idx: (N,) int32 on
-// the device, N <= 16384 (SORT_MAX); dtable: (R, D) of the same dtype,
-// every row written; scratch: 4 min(N, R) + N + ceil(R / 32) + 4 ints,
-// 16-byte aligned; n_sm: the device's SMs.  Ids outside [0, R) add to no
-// row.  Returns the CUDA error of the launches (0 on success).
+// the device; dtable: (R, D) of the same dtype, every row written; multi:
+// 0 for the one-block sort (N <= SORT_MAX), 1 for the chunks' sort and
+// merge; scratch: at least burst_gather_bwd_scratch(R, N, multi) ints
+// (scratch_n), 16-byte aligned; n_sm: the device's SMs.  Ids outside
+// [0, R) add to no row.  Returns the CUDA error of the launches (0 on
+// success).
 extern "C" int burst_gather_bwd(const void* dout, const int* idx,
                                 void* dtable, int R, int N, int D, int dtype,
-                                int* scratch, int n_sm, void* stream) {
-  if (R <= 0 || D <= 0 || N < 0 || N > SORT_MAX || n_sm <= 0 ||
+                                int multi, int* scratch, int scratch_n,
+                                int n_sm, void* stream) {
+  const int need = burst_gather_bwd_scratch(R, N, multi);
+  if (D <= 0 || need < 0 || scratch_n < need || n_sm <= 0 ||
       reinterpret_cast<uintptr_t>(scratch) % 16 != 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch_bwd<__nv_bfloat16>(dout, idx, dtable, R, N, D, scratch,
-                                     n_sm, s);
+    return launch_bwd<__nv_bfloat16>(dout, idx, dtable, R, N, D, multi,
+                                     scratch, n_sm, s);
   if (dtype == 1)
-    return launch_bwd<float>(dout, idx, dtable, R, N, D, scratch, n_sm, s);
+    return launch_bwd<float>(dout, idx, dtable, R, N, D, multi, scratch,
+                             n_sm, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -52,6 +52,11 @@
 //
 // Every row's output is the same dot products in the same order whatever
 // its tile, neighbours or plan, so the result is bit-reproducible.
+//
+// The backward (moe_gmm_bwd, the section at the end; the JAX package has
+// no backward kernel, and trains through the gradient of its ref): dX on
+// these kernels with w read transposed, dW a block a (K tile, N tile,
+// expert) that walks the expert's rows of the plan in order.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -279,16 +284,15 @@ __global__ void __launch_bounds__(PLAN_NT) plan_kernel(
 // bf16, K and N multiples of 8: wgmma fed by TMA (or a cp.async gather)
 // --------------------------------------------------------------------------
 
-// d (64 x N f32) (+)= A (64 x 16, smem, K-major) * B (16 x N, smem,
-// MN-major), both in the 128-byte swizzle
-template <int N>
-__device__ inline void wgmma_mn(float* d, uint64_t da, uint64_t db,
-                                int scale_d);
-
-template <>
-__device__ inline void wgmma_mn<128>(float* d, uint64_t da, uint64_t db,
-                                     int scale_d) {
-  asm volatile(
+// d (64 x N f32) (+)= A (64 x 16) * B (16 x N), both from shared memory in
+// the 128-byte swizzle: A K-major (TA 0) or M-major (TA 1, the transposed
+// operand, allowed for 16-bit types), B K-major (TB 0) or N-major (TB 1)
+template <int N, int TA, int TB>
+__device__ inline void wgmma_bf(float* d, uint64_t da, uint64_t db,
+                                int scale_d) {
+  static_assert(N == 128 || N == 256, "the tile widths of this file");
+  if constexpr (N == 128) {
+    asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
       "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
@@ -296,7 +300,7 @@ __device__ inline void wgmma_mn<128>(float* d, uint64_t da, uint64_t db,
       "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
       "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
       "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 1;\n}\n"
+      "%64, %65, p, 1, 1, %67, %68;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
         "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
         "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
@@ -310,13 +314,9 @@ __device__ inline void wgmma_mn<128>(float* d, uint64_t da, uint64_t db,
         "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
         "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
-template <>
-__device__ inline void wgmma_mn<256>(float* d, uint64_t da, uint64_t db,
-                                     int scale_d) {
-  asm volatile(
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+  } else {
+    asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
       "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
@@ -330,7 +330,7 @@ __device__ inline void wgmma_mn<256>(float* d, uint64_t da, uint64_t db,
       "%105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, "
       "%116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, "
       "%127}, "
-      "%128, %129, p, 1, 1, 0, 1;\n}\n"
+      "%128, %129, p, 1, 1, %131, %132;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
         "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
         "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
@@ -357,13 +357,16 @@ __device__ inline void wgmma_mn<256>(float* d, uint64_t da, uint64_t db,
         "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
         "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "l"(da), "l"(db), "r"(scale_d));
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+  }
 }
 
 // Stage s of the ring: the A tile (BM rows of 64 K-columns, 128 bytes a
-// row, swizzled), then the B tile (BN / 64 panels of 64 K-rows x 64
-// columns, 8 KB each, swizzled).  Stages start 1024-byte aligned.  The
-// epilogue stages the bf16 tile in the ring, rows LDC apart.
+// row, swizzled), then the B tile: BN / 64 panels of 64 K-rows x 64
+// columns, 8 KB each, swizzled (w read as the MN-major B), or for the
+// transposed product (KB, dX's w^T) BN rows of 64 K-columns, as A is.
+// Stages start 1024-byte aligned.  The epilogue stages the bf16 tile in
+// the ring, rows LDC apart.
 template <int BM, int BN, int ST>
 struct GmmCfg {
   static constexpr int NWG = BM / 64;               // consumer warpgroups
@@ -381,7 +384,7 @@ struct GmmCfg {
 // The consumer warpgroups of gmm_wgmma: wgmma over the ring's stages,
 // each stage handed back to the producer as soon as its products are
 // done, one group of products in flight; then the epilogue.
-template <int BM, int BN, int ST>
+template <int BM, int BN, int ST, int KB>
 __device__ __forceinline__ void consume(
     unsigned char* ring, uint64_t* full, uint64_t* empty, const int* rows,
     int n_rows, bool run, int nk, int n0, int N, bf16* __restrict__ out) {
@@ -407,9 +410,14 @@ __device__ __forceinline__ void consume(
     const unsigned char* sB = ring + s * C::STAGE + C::A_BYTES;
     wg_fence();
 #pragma unroll
-    for (int kk = 0; kk < GBK / 16; ++kk)
-      wgmma_mn<BN>(acc, wg_desc(sA + kk * 32, 16, 1024),
-                   wg_desc(sB + kk * 2048, 8192, 1024), 1);
+    for (int kk = 0; kk < GBK / 16; ++kk) {
+      if constexpr (KB)
+        wgmma_bf<BN, 0, 0>(acc, wg_desc(sA + kk * 32, 16, 1024),
+                           wg_desc(sB + kk * 32, 16, 1024), 1);
+      else
+        wgmma_bf<BN, 0, 1>(acc, wg_desc(sA + kk * 32, 16, 1024),
+                           wg_desc(sB + kk * 2048, 8192, 1024), 1);
+    }
     wg_commit();
     // the previous step's products are done: hand its stage back
     wg_wait<1>();
@@ -448,8 +456,10 @@ __device__ __forceinline__ void consume(
 // Block (column tile, row tile): the column tile fastest, so the blocks of
 // one row tile run together and x comes from device memory about once.
 // It writes its bf16 tile of out over the whole of K; tiles of bucket E
-// (ids out of range) write zeros.
-template <int BM, int BN, int ST>
+// (ids out of range) write zeros.  KB 0: out = x @ w[e], w (E, K, N);
+// KB 1: out = x @ w[e]^T, w (E, N, K) read K-major (the backward's dX,
+// x = dY).
+template <int BM, int BN, int ST, int KB>
 __global__ void __launch_bounds__(GmmCfg<BM, BN, ST>::THREADS, 1)
 gmm_wgmma(const __grid_constant__ CUtensorMap map_x,
           const __grid_constant__ CUtensorMap map_w,
@@ -499,8 +509,8 @@ gmm_wgmma(const __grid_constant__ CUtensorMap map_x,
   const int nk = (K + GBK - 1) / GBK;
 
   if (threadIdx.x < C::CONSUMERS) {
-    consume<BM, BN, ST>(ring, full, empty, rows, tile.z, run, nk, n0, N,
-                        out);
+    consume<BM, BN, ST, KB>(ring, full, empty, rows, tile.z, run, nk, n0, N,
+                            out);
     return;
   }
   // the producer warp
@@ -513,8 +523,11 @@ gmm_wgmma(const __grid_constant__ CUtensorMap map_x,
     if (kt >= ST) mbar_wait(&empty[s], (kt / ST - 1) & 1);
     if (lane == 0) {
       mbar_expect(&full[s], C::B_BYTES + (run ? C::A_BYTES : 0));
-      for (int p = 0; p < BN / 64; ++p)
-        tma_load_3d(sB + p * 8192, &map_w, &full[s], n0 + 64 * p, kk, e);
+      if constexpr (KB)
+        tma_load_3d(sB, &map_w, &full[s], kk, n0, e);
+      else
+        for (int p = 0; p < BN / 64; ++p)
+          tma_load_3d(sB + p * 8192, &map_w, &full[s], n0 + 64 * p, kk, e);
       if (run) tma_load_2d(sA, &map_x, &full[s], kk, tile.w);
     }
     if (run) continue;
@@ -571,6 +584,9 @@ __device__ void for_sub_tiles(const int* __restrict__ perm,
   }
 }
 
+// TB 0: out = x @ w[e], w (E, K, N); TB 1: out = x @ w[e]^T, w (E, N, K)
+// (the backward's dX), its tile read along K
+template <int TB>
 __global__ void __launch_bounds__(WNT) gmm_wmma_kernel(
     const uint16_t* __restrict__ x, const uint16_t* __restrict__ w,
     bf16* __restrict__ out, const int* __restrict__ perm,
@@ -595,10 +611,12 @@ __global__ void __launch_bounds__(WNT) gmm_wmma_kernel(
         As[r * LDA + i % WBK] = *reinterpret_cast<const bf16*>(&v);
       }
       for (int i = tid; i < WBK * SUB; i += WNT) {
-        const int kr = i / SUB, n = n0 + i % SUB;
-        const uint16_t v =
-            k0 + kr < K && n < N ? we[(long long)(k0 + kr) * N + n] : 0;
-        Bs[kr * LDB + i % SUB] = *reinterpret_cast<const bf16*>(&v);
+        const int kr = TB ? i % WBK : i / SUB, c = TB ? i / WBK : i % SUB;
+        const int n = n0 + c;
+        const long long at = TB ? (long long)n * K + k0 + kr
+                                : (long long)(k0 + kr) * N + n;
+        const uint16_t v = k0 + kr < K && n < N ? we[at] : 0;
+        Bs[kr * LDB + c] = *reinterpret_cast<const bf16*>(&v);
       }
       __syncthreads();
 #pragma unroll
@@ -647,6 +665,8 @@ __global__ void __launch_bounds__(WNT) gmm_wmma_kernel(
 constexpr int FNT = 256;            // 16 x 16 threads of 4 x 4 outputs
 constexpr int FBK = 16;             // K per stage
 
+// TB as in gmm_wmma_kernel
+template <int TB>
 __global__ void __launch_bounds__(FNT) gmm_f32_kernel(
     const float* __restrict__ x, const float* __restrict__ w,
     float* __restrict__ out, const int* __restrict__ perm,
@@ -669,9 +689,11 @@ __global__ void __launch_bounds__(FNT) gmm_f32_kernel(
 #pragma unroll
       for (int v = 0; v < FBK * SUB / FNT; ++v) {
         const int idx = tid + v * FNT;
-        const int kr = idx / SUB, c = idx % SUB;
-        Bs[kr][c] = k0 + kr < K && n0 + c < N
-                        ? we[(long long)(k0 + kr) * N + n0 + c] : 0.0f;
+        const int kr = TB ? idx % FBK : idx / SUB;
+        const int c = TB ? idx / FBK : idx % SUB;
+        const long long at = TB ? (long long)(n0 + c) * K + k0 + kr
+                                : (long long)(k0 + kr) * N + n0 + c;
+        Bs[kr][c] = k0 + kr < K && n0 + c < N ? we[at] : 0.0f;
       }
       __syncthreads();
 #pragma unroll
@@ -724,8 +746,9 @@ bool gmm_map(CUtensorMap* map, const void* p, long long rows, long long cols,
 }
 
 // Launches as a programmatic dependent of the previous launch on the
-// stream (gmm_wgmma waits for it).
-template <int BM, int BN, int ST>
+// stream (gmm_wgmma waits for it).  K is the sum's length, N the output's
+// width: for KB, w is (E, N, K), read in boxes of BN rows.
+template <int BM, int BN, int ST, int KB>
 int launch_wgmma(const void* x, const void* w, void* out, const int* perm,
                  const int4* info, int T, int K, int N, int E, int tiles,
                  cudaStream_t s) {
@@ -733,13 +756,15 @@ int launch_wgmma(const void* x, const void* w, void* out, const int* perm,
   static bool configured = false;
   if (!configured) {
     cudaError_t e = cudaFuncSetAttribute(
-        gmm_wgmma<BM, BN, ST>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)C::smem);
+        gmm_wgmma<BM, BN, ST, KB>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::smem);
     if (e != cudaSuccess) return (int)e;
     configured = true;
   }
   CUtensorMap mx, mw;
-  if (!gmm_map(&mx, x, T, K, 0, BM) || !gmm_map(&mw, w, K, N, E, GBK))
+  const bool mapped = KB ? gmm_map(&mw, w, N, K, E, BN)
+                         : gmm_map(&mw, w, K, N, E, GBK);
+  if (!gmm_map(&mx, x, T, K, 0, BM) || !mapped)
     return (int)cudaErrorInvalidValue;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
@@ -752,7 +777,7 @@ int launch_wgmma(const void* x, const void* w, void* out, const int* perm,
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   return (int)cudaLaunchKernelEx(
-      &cfg, gmm_wgmma<BM, BN, ST>, mx, mw, static_cast<const bf16*>(x),
+      &cfg, gmm_wgmma<BM, BN, ST, KB>, mx, mw, static_cast<const bf16*>(x),
       static_cast<bf16*>(out), perm, info, K, N, E);
 }
 
@@ -811,25 +836,437 @@ extern "C" int moe_gmm_fwd(const void* x, const void* w, void* out,
     if (dtype != 0 || K % 8 || N % 8 || align % 16)
       return (int)cudaErrorInvalidValue;
     if (bm == 128 && bn == 256)
-      return launch_wgmma<128, 256, 4>(x, w, out, perm, ti, T, K, N, E,
-                                       tiles, s);
+      return launch_wgmma<128, 256, 4, 0>(x, w, out, perm, ti, T, K, N, E,
+                                          tiles, s);
     if (bm == 64 && bn == 128)
-      return launch_wgmma<64, 128, 4>(x, w, out, perm, ti, T, K, N, E,
-                                      tiles, s);
+      return launch_wgmma<64, 128, 4, 0>(x, w, out, perm, ti, T, K, N, E,
+                                         tiles, s);
     return (int)cudaErrorInvalidValue;
   }
   if (path != 1 || bn != SUB)
     return (int)cudaErrorInvalidValue;
   const dim3 grid((N + SUB - 1) / SUB, tiles);
   if (dtype == 1)
-    gmm_f32_kernel<<<grid, FNT, 0, s>>>(
+    gmm_f32_kernel<0><<<grid, FNT, 0, s>>>(
         static_cast<const float*>(x), static_cast<const float*>(w),
         static_cast<float*>(out), perm, ti, K, N, E);
   else if (dtype == 0)
-    gmm_wmma_kernel<<<grid, WNT, 0, s>>>(
+    gmm_wmma_kernel<0><<<grid, WNT, 0, s>>>(
         static_cast<const uint16_t*>(x), static_cast<const uint16_t*>(w),
         static_cast<bf16*>(out), perm, ti, K, N, E);
   else
     return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
+}
+
+// ------------------------------------------------------------- backward
+//
+// The gradients of out = moe_gmm(x, w, ids) for the output gradient dY
+// (T, N), as autograd differentiates ref.py::moe_gmm_ref:
+//
+//   dX[i] = dY[i] @ w[ids[i]]^T              (zero for ids outside [0, E))
+//   dW[e] = sum over the rows i of e of x[i]^T dY[i]
+//
+// Both accumulate in f32 and are rounded once; neither takes an atomic,
+// and every sum runs in a fixed order, so two runs give the same bits.
+// Both use the forward's plan of the ids (the layer builds one for its
+// three products and the backward reuses it).
+//
+// - dX is the forward's product with w transposed, on the forward's
+//   kernels, tiles and grid with K and N swapped: in bf16 gmm_wgmma<..,
+//   1>, whose B is w[e] read K-major (contiguous along the sum, wgmma's
+//   default major) through a second TMA map over (E, K, N) with its box
+//   along N; the generic kernels read w[e]'s tile along the sum.
+// - dW is grouped along its sum: a block owns one (K tile, N tile,
+//   expert) and walks that expert's rows, slots off[e] to off[e + 1] of
+//   the plan, in increasing order, GBK rows a stage; an expert with no
+//   row writes zeros.  In bf16 (gmm_dw_wgmma) two consumer warpgroups run
+//   wgmma with A = x^T, MN-major from shared memory (the transposed A that
+//   16-bit types allow), and B = dY, MN-major as in the forward; four
+//   producer warps gather each stage's x and dY rows through perm by
+//   cp.async (zeros past the expert's rows and the matrices' edges) into
+//   panels of 64 rows x 128 bytes in the 128-byte swizzle.  f32 and odd K
+//   or N take 64 x 64 tiles on the FMA pipes or wmma.
+//
+// What bounds it on an H100: at granite-moe's training shapes (32,800
+// routed rows, K 1536, N 512, E 40, bf16) each of dX and dW is 51.6
+// GFLOP (0.052 ms at 989 TFLOP/s) against ~197 MB read and written once
+// (0.059 ms at 3.35 TB/s): bytes, narrowly.  dW reads each dY row once a
+// K tile and each x row once an N tile, mostly from L2.
+
+namespace {
+
+constexpr int DW_BK = 128;          // K rows of a bf16 dW tile (2 warpgroups)
+constexpr int DW_BN = 256;          // N columns of a bf16 dW tile
+constexpr int DW_PW = 4;            // producer warps of a dW block
+
+// Stage s of the dW ring: GBK rows of x (DW_BK / 64 panels of 64 rows x
+// 64 K-columns), then the same rows of dY (BN / 64 panels of 64 columns),
+// 8 KB a panel, each row 128 bytes, swizzled.
+template <int BN, int ST>
+struct DwCfg {
+  static constexpr int NWG = DW_BK / 64;
+  static constexpr int CONSUMERS = NWG * 128;
+  static constexpr int THREADS = CONSUMERS + 32 * DW_PW;  // + the producers
+  static constexpr int A_BYTES = GBK * DW_BK * 2;
+  static constexpr int B_BYTES = GBK * BN * 2;
+  static constexpr int STAGE = A_BYTES + B_BYTES;
+  static constexpr int LDC = BN + 8;
+  static constexpr size_t smem = 1024 + (size_t)ST * STAGE;
+  static_assert(DW_BK * LDC * 2 <= ST * STAGE, "epilogue tile fits the ring");
+  static_assert(smem <= kMaxSmem, "ring fits shared memory");
+};
+
+// Block (N tile, K tile, expert): dW[e][k0 .. k0 + DW_BK)[n0 .. n0 + BN),
+// the sum over the expert's rows in slot order, GBK rows a stage.
+template <int BN, int ST>
+__global__ void __launch_bounds__(DwCfg<BN, ST>::THREADS, 1)
+gmm_dw_wgmma(const bf16* __restrict__ x, const bf16* __restrict__ dy,
+             bf16* __restrict__ dw, const int* __restrict__ perm,
+             const int* __restrict__ off, int K, int N) {
+  using C = DwCfg<BN, ST>;
+  extern __shared__ __align__(16) unsigned char gsm[];
+  __shared__ uint64_t full[ST], empty[ST];
+  unsigned char* ring = gsm + ((1024 - (smem_u32(gsm) & 1023)) & 1023);
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+  const int n0 = blockIdx.x * BN, k0 = blockIdx.y * DW_BK, e = blockIdx.z;
+  const int s0 = off[e], s1 = off[e + 1];
+  const int nk = (s1 - s0 + GBK - 1) / GBK;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < ST; ++s) {
+      // one cp.async arrival a producer thread
+      mbar_init(&full[s], 32 * DW_PW);
+      mbar_init(&empty[s], C::NWG);    // one arrival a consumer warpgroup
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x < C::CONSUMERS) {
+    const int wg = threadIdx.x / 128;
+    float acc[BN / 2];
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+    wg_touch<BN / 2>(acc);
+    for (int kt = 0; kt < nk; ++kt) {
+      const int s = kt % ST;
+      mbar_wait(&full[s], (kt / ST) & 1);
+      fence_proxy_async();
+      const unsigned char* sA = ring + s * C::STAGE + wg * 8192;
+      const unsigned char* sB = ring + s * C::STAGE + C::A_BYTES;
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < GBK / 16; ++kk)
+        wgmma_bf<BN, 1, 1>(acc, wg_desc(sA + kk * 2048, 8192, 1024),
+                           wg_desc(sB + kk * 2048, 8192, 1024), 1);
+      wg_commit();
+      wg_wait<1>();
+      wg_touch<BN / 2>(acc);
+      if (kt > 0 && threadIdx.x % 128 == 0)
+        mbar_arrive(&empty[(kt - 1) % ST]);
+    }
+    wg_wait<0>();
+    wg_touch<BN / 2>(acc);
+    // this thread's K rows rbase and rbase + 8 of the tile, columns
+    // 8 j + 2 tq (+1): stage the bf16 tile in the ring, then write it in
+    // 16-byte row pieces
+    const int lane = threadIdx.x & 31;
+    const int gq = lane >> 2, tq = lane & 3;
+    const int rbase = wg * 64 + (threadIdx.x / 32 % 4) * 16 + gq;
+    asm volatile("bar.sync 1, %0;\n" ::"n"(C::CONSUMERS) : "memory");
+    bf16* sC = reinterpret_cast<bf16*>(ring);
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        *reinterpret_cast<__nv_bfloat162*>(
+            sC + (rbase + 8 * r) * C::LDC + 8 * j + 2 * tq) =
+            __floats2bfloat162_rn(acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1]);
+    asm volatile("bar.sync 1, %0;\n" ::"n"(C::CONSUMERS) : "memory");
+    bf16* dwe = dw + (long long)e * K * N;
+    for (int i = threadIdx.x; i < DW_BK * BN / 8; i += C::CONSUMERS) {
+      const int r = i / (BN / 8), c = i % (BN / 8) * 8;
+      const int k = k0 + r, n = n0 + c;
+      if (k < K && n < N)
+        *reinterpret_cast<uint4*>(dwe + (long long)k * N + n) =
+            *reinterpret_cast<const uint4*>(sC + r * C::LDC + c);
+    }
+    return;
+  }
+  // the DW_PW producer warps: stage kt holds the expert's slots s0 + kt
+  // GBK .., row r's 16-byte chunk c at chunk c ^ (r % 8) of its 128-byte
+  // row in its panel; rows past the expert and columns past K or N are
+  // zeros.  Warp pw takes rows pw, pw + DW_PW, ..: a lane a 16-byte chunk
+  // of dY's row (BN / 8 = 32 chunks), and half a warp a row pair of x
+  // (DW_BK / 8 = 16 chunks); each lane holds the x rows of slots lane and
+  // lane + 32, broadcast by shuffles.
+  static_assert(BN / 8 == 32 && DW_BK / 8 == 16, "a lane a chunk");
+  const int lane = threadIdx.x & 31;
+  const int pw = (threadIdx.x - C::CONSUMERS) >> 5;
+  for (int kt = 0; kt < nk; ++kt) {
+    const int s = kt % ST;
+    unsigned char* sA = ring + s * C::STAGE;
+    unsigned char* sB = sA + C::A_BYTES;
+    if (kt >= ST) mbar_wait(&empty[s], (kt / ST - 1) & 1);
+    const int base = s0 + kt * GBK;
+    const int lo = base + lane < s1 ? perm[base + lane] : -1;
+    const int hi = base + 32 + lane < s1 ? perm[base + 32 + lane] : -1;
+#pragma unroll 4
+    for (int r = pw; r < GBK; r += DW_PW) {
+      const int row = __shfl_sync(0xffffffffu, r < 32 ? lo : hi, r & 31);
+      const int col = n0 + lane * 8;
+      const bool in = row >= 0 && col < N;
+      cp_async16(sB + (lane >> 3) * 8192 + r * 128 +
+                     (((lane & 7) ^ (r & 7)) << 4),
+                 in ? dy + (long long)row * N + col : dy, in ? 16 : 0);
+    }
+#pragma unroll 4
+    for (int r2 = 2 * pw; r2 < GBK; r2 += 2 * DW_PW) {
+      const int r = r2 + (lane >> 4), c = lane & 15;
+      const int src = __shfl_sync(0xffffffffu, r2 < 32 ? lo : hi, r2 & 31);
+      const int nxt = __shfl_sync(0xffffffffu, r2 < 32 ? lo : hi,
+                                  (r2 + 1) & 31);
+      const int row = lane < 16 ? src : nxt, col = k0 + c * 8;
+      const bool in = row >= 0 && col < K;
+      cp_async16(sA + (c >> 3) * 8192 + r * 128 + (((c & 7) ^ (r & 7)) << 4),
+                 in ? x + (long long)row * K + col : x, in ? 16 : 0);
+    }
+    asm volatile(
+        "cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
+            smem_u32(&full[s]))
+        : "memory");
+  }
+}
+
+// bf16 dW with K or N not a multiple of 8: block (N tile, K tile, expert)
+// of 64 x 64, WBK rows of the expert a step, on wmma: A = x^T from its
+// rows stored row by row (a column-major A), B = dY.
+__global__ void __launch_bounds__(WNT) gmm_dw_wmma_kernel(
+    const uint16_t* __restrict__ x, const uint16_t* __restrict__ dy,
+    bf16* __restrict__ dw, const int* __restrict__ perm,
+    const int* __restrict__ off, int K, int N) {
+  __shared__ __align__(128) bf16 As[WBK * LDB];      // As[t][k]
+  __shared__ __align__(128) bf16 Bs[WBK * LDB];      // Bs[t][n]
+  __shared__ __align__(128) float Cs[SUB * LDC];
+  __shared__ int rows[WBK];
+  const int tid = threadIdx.x, warp = tid / 32;
+  const int wr = warp / 2, wc = warp % 2;
+  const int n0 = blockIdx.x * SUB, k0 = blockIdx.y * SUB, e = blockIdx.z;
+  const int s0 = off[e], s1 = off[e + 1];
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
+  for (int t0 = s0; t0 < s1; t0 += WBK) {
+    if (tid < WBK) rows[tid] = t0 + tid < s1 ? perm[t0 + tid] : -1;
+    __syncthreads();
+    for (int i = tid; i < WBK * SUB; i += WNT) {
+      const int t = i / SUB, c = i % SUB, row = rows[t];
+      const uint16_t a =
+          row >= 0 && k0 + c < K ? x[(long long)row * K + k0 + c] : 0;
+      const uint16_t b =
+          row >= 0 && n0 + c < N ? dy[(long long)row * N + n0 + c] : 0;
+      As[t * LDB + c] = *reinterpret_cast<const bf16*>(&a);
+      Bs[t * LDB + c] = *reinterpret_cast<const bf16*>(&b);
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < WBK; kk += 16) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> a[2];
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        wmma::load_matrix_sync(a[i], &As[kk * LDB + wr * 32 + i * 16], LDB);
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+        wmma::load_matrix_sync(b[j], &Bs[kk * LDB + wc * 32 + j * 16], LDB);
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+          wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+      wmma::store_matrix_sync(&Cs[(wr * 32 + i * 16) * LDC + wc * 32 + j * 16],
+                              acc[i][j], LDC, wmma::mem_row_major);
+  __syncthreads();
+  bf16* dwe = dw + (long long)e * K * N;
+  for (int i = tid; i < SUB * SUB; i += WNT) {
+    const int k = k0 + i / SUB, n = n0 + i % SUB;
+    if (k < K && n < N)
+      dwe[(long long)k * N + n] = __float2bfloat16(Cs[i / SUB * LDC + i % SUB]);
+  }
+}
+
+// f32 dW: block (N tile, K tile, expert) of 64 x 64, FBK rows of the
+// expert a step, each output one chain of FMAs over the rows in order.
+__global__ void __launch_bounds__(FNT) gmm_dw_f32_kernel(
+    const float* __restrict__ x, const float* __restrict__ dy,
+    float* __restrict__ dw, const int* __restrict__ perm,
+    const int* __restrict__ off, int K, int N) {
+  __shared__ float As[FBK][SUB + 4];      // As[t][k]
+  __shared__ float Bs[FBK][SUB + 4];      // Bs[t][n]
+  __shared__ int rows[FBK];
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const int n0 = blockIdx.x * SUB, k0 = blockIdx.y * SUB, e = blockIdx.z;
+  const int s0 = off[e], s1 = off[e + 1];
+  float acc[4][4] = {};
+  for (int t0 = s0; t0 < s1; t0 += FBK) {
+    if (tid < FBK) rows[tid] = t0 + tid < s1 ? perm[t0 + tid] : -1;
+    __syncthreads();
+#pragma unroll
+    for (int v = 0; v < FBK * SUB / FNT; ++v) {
+      const int idx = tid + v * FNT;
+      const int t = idx / SUB, c = idx % SUB, row = rows[t];
+      As[t][c] = row >= 0 && k0 + c < K ? x[(long long)row * K + k0 + c]
+                                        : 0.0f;
+      Bs[t][c] = row >= 0 && n0 + c < N ? dy[(long long)row * N + n0 + c]
+                                        : 0.0f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int t = 0; t < FBK; ++t) {
+      float a[4], b[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[i] = As[t][ty * 4 + i];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) b[j] = Bs[t][tx * 4 + j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+  float* dwe = dw + (long long)e * K * N;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int k = k0 + ty * 4 + i;
+    if (k >= K) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int n = n0 + tx * 4 + j;
+      if (n < N) dwe[(long long)k * N + n] = acc[i][j];
+    }
+  }
+}
+
+// dX by the forward's kernels with w transposed: the sum runs over N, the
+// output has K columns
+int launch_dx(const void* dy, const void* w, void* dx, const int* perm,
+              const int4* info, int T, int K, int N, int E, int dtype,
+              int path, int bm, int bn, int tiles, cudaStream_t s) {
+  if (path == 0) {
+    if (bm == 128 && bn == 256)
+      return launch_wgmma<128, 256, 4, 1>(dy, w, dx, perm, info, T, N, K, E,
+                                          tiles, s);
+    if (bm == 64 && bn == 128)
+      return launch_wgmma<64, 128, 4, 1>(dy, w, dx, perm, info, T, N, K, E,
+                                         tiles, s);
+    return (int)cudaErrorInvalidValue;
+  }
+  if (bn != SUB) return (int)cudaErrorInvalidValue;
+  const dim3 grid((K + SUB - 1) / SUB, tiles);
+  if (dtype == 1)
+    gmm_f32_kernel<1><<<grid, FNT, 0, s>>>(
+        static_cast<const float*>(dy), static_cast<const float*>(w),
+        static_cast<float*>(dx), perm, info, N, K, E);
+  else
+    gmm_wmma_kernel<1><<<grid, WNT, 0, s>>>(
+        static_cast<const uint16_t*>(dy), static_cast<const uint16_t*>(w),
+        static_cast<bf16*>(dx), perm, info, N, K, E);
+  return (int)cudaGetLastError();
+}
+
+// dW, a block a (N tile, K tile, expert); launched as a programmatic
+// dependent on the wgmma path, as the products are
+int launch_dw(const void* x, const void* dy, void* dw, const int* perm,
+              const int* off, int K, int N, int E, int dtype, int path,
+              cudaStream_t s) {
+  if (path == 0) {
+    using C = DwCfg<DW_BN, 4>;
+    static bool configured = false;
+    if (!configured) {
+      cudaError_t e = cudaFuncSetAttribute(
+          gmm_dw_wgmma<DW_BN, 4>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          (int)C::smem);
+      if (e != cudaSuccess) return (int)e;
+      configured = true;
+    }
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+    attr[0].val.programmaticStreamSerializationAllowed = 1;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3((N + DW_BN - 1) / DW_BN, (K + DW_BK - 1) / DW_BK, E);
+    cfg.blockDim = dim3(C::THREADS);
+    cfg.dynamicSmemBytes = C::smem;
+    cfg.stream = s;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    return (int)cudaLaunchKernelEx(
+        &cfg, gmm_dw_wgmma<DW_BN, 4>, static_cast<const bf16*>(x),
+        static_cast<const bf16*>(dy), static_cast<bf16*>(dw), perm, off, K,
+        N);
+  }
+  const dim3 grid((N + SUB - 1) / SUB, (K + SUB - 1) / SUB, E);
+  if (dtype == 1)
+    gmm_dw_f32_kernel<<<grid, FNT, 0, s>>>(
+        static_cast<const float*>(x), static_cast<const float*>(dy),
+        static_cast<float*>(dw), perm, off, K, N);
+  else
+    gmm_dw_wmma_kernel<<<grid, WNT, 0, s>>>(
+        static_cast<const uint16_t*>(x), static_cast<const uint16_t*>(dy),
+        static_cast<bf16*>(dw), perm, off, K, N);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// The gradients of moe_gmm_fwd's out for dy (T, N): dx (T, K), or null to
+// skip it, and dw (E, K, N), or null, in x's dtype (0 = bf16, 1 = f32);
+// x (T, K), w (E, K, N), dy contiguous.  perm, off and info: the forward's
+// plan (moe_gmm_plan) of the rows' ids, with `tiles` entries of info and
+// row tiles of bm rows.  path 0 (bf16, K and N multiples of 8, 16-byte
+// aligned): dX on gmm_wgmma<bm, bn, 4, 1> with (bm, bn) = (128, 256) or
+// (64, 128) over its K output columns, dW on gmm_dw_wgmma (DW_BK x DW_BN
+// tiles); path 1: the generic kernels, 64 x 64 tiles (bn = 64).  Returns
+// the CUDA error of the launches (0 on success).
+extern "C" int moe_gmm_bwd(const void* x, const void* w, const void* dy,
+                           void* dx, void* dw, const int* perm,
+                           const int* off, const int* info, int T, int K,
+                           int N, int E, int dtype, int path, int bm, int bn,
+                           int tiles, void* stream) {
+  if (T < 0 || K < 0 || N < 0 || E < 1 || E > MAXE || tiles < 0 ||
+      tiles > 65535 || (dtype != 0 && dtype != 1) || (path != 0 && path != 1))
+    return (int)cudaErrorInvalidValue;
+  if (path == 0) {
+    const uintptr_t align =
+        reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(w) |
+        reinterpret_cast<uintptr_t>(dy) | reinterpret_cast<uintptr_t>(dx) |
+        reinterpret_cast<uintptr_t>(dw);
+    if (dtype != 0 || K % 8 || N % 8 || align % 16)
+      return (int)cudaErrorInvalidValue;
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const size_t elem = dtype ? 4 : 2;
+  if (dx != nullptr && T > 0 && K > 0) {
+    const int err = N == 0
+        ? (int)cudaMemsetAsync(dx, 0, (size_t)T * K * elem, s)
+        : launch_dx(dy, w, dx, perm, reinterpret_cast<const int4*>(info), T,
+                    K, N, E, dtype, path, bm, bn, tiles, s);
+    if (err != 0) return err;
+  }
+  if (dw != nullptr && K > 0 && N > 0) {
+    // with no rows every expert's sum is empty
+    if (T == 0) return (int)cudaMemsetAsync(dw, 0, (size_t)E * K * N * elem, s);
+    return launch_dw(x, dy, dw, perm, off, K, N, E, dtype, path, s);
+  }
+  return 0;
 }

@@ -16,9 +16,12 @@ the same ids, as the MoE layer's three, builds it once and passes it.
 ``schedule(T, K, N, E, dtype)`` then picks the kernel, its tiles and the
 grid from what the host knows, so nothing waits for the card.
 
-On CUDA it has no backward kernel yet: it raises when a gradient is
-wanted of an input (``_grad.refuse_grad``).  On the CPU the plain
-version differentiates.
+Its gradient is ``moe_gmm_bwd``: on the CPU autograd through the plain
+version; on CUDA (grad mode on and ``x`` or ``w`` requiring grad, through
+``_Gmm``) the backward kernels of ``csrc/moe_gmm.cu`` on the forward's
+plan: dX on the forward's kernels with w read transposed, dW a block a
+(K tile, N tile, expert) walking that expert's rows.  Each backward call
+adds one to ``moe_gmm_bwd.launches``.
 """
 from __future__ import annotations
 
@@ -27,7 +30,6 @@ from typing import NamedTuple
 import torch
 
 from . import ref
-from ._grad import refuse_grad
 
 #: largest number of experts the kernel takes
 MAX_EXPERTS = 1024
@@ -37,6 +39,10 @@ SUB = 64
 #: (rows, columns) of a tile of the wgmma kernel, by the plan's row tile:
 #: the instantiations of ``launch_wgmma`` in csrc/moe_gmm.cu
 WGMMA_TILES = {128: 256, 64: 128}
+#: (K rows, N columns) of a dW tile of the bf16 backward kernel
+#: (``DW_BK``, ``DW_BN`` of csrc/moe_gmm.cu); the generic kernels' are
+#: ``SUB`` x ``SUB``
+DW_TILE = (128, 256)
 
 
 class Plan(NamedTuple):
@@ -72,6 +78,18 @@ class Schedule(NamedTuple):
     grid: tuple[int, int]
 
 
+class BwdSchedule(NamedTuple):
+    """What ``moe_gmm_bwd`` launches on the card.  ``path`` as the
+    forward's; ``dx`` the forward's schedule of the product with K and N
+    swapped (the sum over N, K output columns, w read transposed);
+    ``dw_tile`` the (K rows, N columns) of a dW block and ``dw_grid`` its
+    grid (N tiles, K tiles, E), each block walking its expert's rows."""
+    path: str
+    dx: Schedule
+    dw_tile: tuple[int, int]
+    dw_grid: tuple[int, int, int]
+
+
 def row_tile(T: int, E: int) -> int:
     """Rows of the plan's tiles: 128 where the experts average 128 rows or
     more (prefill), else 64.  Depends on T and E only, so one plan serves
@@ -103,6 +121,17 @@ def schedule(T: int, K: int, N: int, E: int,
     else:
         path, bn = "generic", SUB
     return Schedule(path, bm, bn, tiles, (-(-N // bn), tiles))
+
+
+def bwd_schedule(T: int, K: int, N: int, E: int,
+                 dtype: torch.dtype = torch.bfloat16) -> BwdSchedule:
+    """The kernels, tiles and grids of one backward call of a product x
+    (T, K) @ w (E, K, N), from host-known sizes: the forward's path rule
+    (bf16 with K and N multiples of 8 on wgmma, else the generic kernels)
+    for both dX and dW."""
+    dx = schedule(T, N, K, E, dtype)
+    bk, bn = DW_TILE if dx.path == "wgmma" else (SUB, SUB)
+    return BwdSchedule(dx.path, dx, (bk, bn), (-(-N // bn), -(-K // bk), E))
 
 
 def plan_ref(ids: torch.Tensor, E: int) -> Plan:
@@ -216,31 +245,13 @@ def _check_plan(p: Plan, T: int, E: int, device) -> None:
                          f"over {E} experts on {device}")
 
 
-def moe_gmm(x: torch.Tensor, w: torch.Tensor, group_ids: torch.Tensor,
-            plan: Plan | None = None) -> torch.Tensor:
-    """x: (T, K); w: (E, K, N); group_ids: (T,) integer in any order ->
-    (T, N) in x.dtype with row i = ``x[i] @ w[group_ids[i]]``, accumulated
-    in f32; a row whose id lies outside [0, E) is zero.  As
-    ``ref.moe_gmm_ref``.
-
-    On CUDA: x and w in one of bf16/f32 (bf16 on the tensor cores, f32 in
-    full f32 on the FMA pipes), E at most ``MAX_EXPERTS``; ``plan`` is the
-    ``plan`` of these ids, built here when not given.  Non-contiguous
-    inputs are copied.  On the CPU ``plan`` is not used.
-    """
-    if x.device.type == "cpu":
-        return ref.moe_gmm_ref(x, w, group_ids)
+def _forward(x, w, ids, plan):
+    """The card's product on contiguous x, w and int32 ids, with their
+    plan: one launch."""
     from . import _build
 
-    _check(x, w, group_ids)
-    refuse_grad("moe_gmm", x, w)
     T, K = x.shape
     E, _, N = w.shape
-    x, w = x.contiguous(), w.contiguous()
-    ids = group_ids.to(torch.int32).contiguous()
-    if plan is None:
-        plan = _plan(ids, E)
-    _check_plan(plan, T, E, x.device)
     s = schedule(T, K, N, E, x.dtype)
     out = torch.empty((T, N), dtype=x.dtype, device=x.device)
     lib = _build.load("moe_gmm")
@@ -255,5 +266,118 @@ def moe_gmm(x: torch.Tensor, w: torch.Tensor, group_ids: torch.Tensor,
     return out
 
 
+class _Gmm(torch.autograd.Function):
+    """The card's grouped matmul with ``moe_gmm_bwd`` as its backward, on
+    the forward's plan (built once a layer for its three products)."""
+
+    @staticmethod
+    def forward(ctx, x, w, ids, plan):
+        ctx.save_for_backward(x, w, ids)
+        ctx.plan = plan
+        return _forward(x, w, ids, plan)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w, ids = ctx.saved_tensors
+        dx, dw = moe_gmm_bwd(dy, x, w, ids, ctx.plan,
+                             need=ctx.needs_input_grad[:2])
+        return dx, dw, None, None
+
+
+def moe_gmm(x: torch.Tensor, w: torch.Tensor, group_ids: torch.Tensor,
+            plan: Plan | None = None) -> torch.Tensor:
+    """x: (T, K); w: (E, K, N); group_ids: (T,) integer in any order ->
+    (T, N) in x.dtype with row i = ``x[i] @ w[group_ids[i]]``, accumulated
+    in f32; a row whose id lies outside [0, E) is zero.  As
+    ``ref.moe_gmm_ref``.
+
+    On CUDA: x and w in one of bf16/f32 (bf16 on the tensor cores, f32 in
+    full f32 on the FMA pipes), E at most ``MAX_EXPERTS``; ``plan`` is the
+    ``plan`` of these ids, built here when not given.  Non-contiguous
+    inputs are copied.  With grad mode on and x or w requiring grad, the
+    call goes through ``_Gmm``, whose backward is ``moe_gmm_bwd``.  On the
+    CPU ``plan`` is not used.
+    """
+    if x.device.type == "cpu":
+        return ref.moe_gmm_ref(x, w, group_ids)
+    _check(x, w, group_ids)
+    T = x.shape[0]
+    E = w.shape[0]
+    x, w = x.contiguous(), w.contiguous()
+    ids = group_ids.to(torch.int32).contiguous()
+    if plan is None:
+        plan = _plan(ids, E)
+    _check_plan(plan, T, E, x.device)
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        return _Gmm.apply(x, w, ids, plan)
+    return _forward(x, w, ids, plan)
+
+
 moe_gmm.launches = 0
+
+
+def moe_gmm_bwd(dy: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
+                group_ids: torch.Tensor, plan: Plan | None = None, *,
+                need=(True, True)):
+    """The gradients of ``moe_gmm(x, w, group_ids)`` for the output
+    gradient dy (T, N): ``(dx, dw)``, dx (T, K) and dw (E, K, N) in x's
+    dtype, or None where ``need`` (for x, for w) is false.
+
+    dx[i] = dy[i] @ w[group_ids[i]]^T, zero for an id outside [0, E);
+    dw[e] = the sum over the rows i of e of x[i]^T dy[i], zeros for an
+    expert with no row.  Each is accumulated in f32 and rounded once.
+
+    On the CPU: autograd through ``ref.moe_gmm_ref``.  On CUDA, on
+    ``bwd_schedule``'s path and the forward's ``plan`` of these ids
+    (built here when not given): dX on the forward's kernels with w read
+    transposed, dW a block a (K tile, N tile, expert) that walks the
+    expert's rows in increasing order.  No atomics, so two runs give the
+    same bits.  Adds one to ``moe_gmm_bwd.launches``.
+    """
+    need_x, need_w = need
+    if x.device.type == "cpu":
+        leaves = [t.detach().requires_grad_(bool(n))
+                  for t, n in ((x, need_x), (w, need_w))]
+        want = [t for t in leaves if t.requires_grad]
+        with torch.enable_grad():
+            grads = iter(torch.autograd.grad(
+                ref.moe_gmm_ref(*leaves, group_ids), want, dy)
+                if want else ())
+        return tuple(next(grads) if t.requires_grad else None
+                     for t in leaves)
+    from . import _build
+
+    _check(x, w, group_ids)
+    T, K = x.shape
+    E, _, N = w.shape
+    if tuple(dy.shape) != (T, N) or dy.dtype != x.dtype \
+            or dy.device != x.device:
+        raise ValueError(f"moe_gmm_bwd: want dy {(T, N)} {x.dtype} on "
+                         f"{x.device}, got {tuple(dy.shape)} {dy.dtype} on "
+                         f"{dy.device}")
+    x, w, dy = x.contiguous(), w.contiguous(), dy.contiguous()
+    ids = group_ids.to(torch.int32).contiguous()
+    if plan is None:
+        plan = _plan(ids, E)
+    _check_plan(plan, T, E, x.device)
+    s = bwd_schedule(T, K, N, E, x.dtype)
+    dx = torch.empty((T, K), dtype=x.dtype, device=x.device) \
+        if need_x else None
+    dw = torch.empty((E, K, N), dtype=x.dtype, device=x.device) \
+        if need_w else None
+    lib = _build.load("moe_gmm")
+    with torch.cuda.device(x.device):
+        err = lib.moe_gmm_bwd(
+            x.data_ptr(), w.data_ptr(), dy.data_ptr(),
+            None if dx is None else dx.data_ptr(),
+            None if dw is None else dw.data_ptr(), plan.perm.data_ptr(),
+            plan.off.data_ptr(), plan.tiles.data_ptr(), T, K, N, E,
+            _DTYPES[x.dtype], 0 if s.path == "wgmma" else 1, s.dx.bm,
+            s.dx.bn, s.dx.tiles, torch.cuda.current_stream().cuda_stream)
+    _build.check(err, "moe_gmm_bwd")
+    moe_gmm_bwd.launches += 1
+    return dx, dw
+
+
+moe_gmm_bwd.launches = 0
 

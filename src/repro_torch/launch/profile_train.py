@@ -11,8 +11,8 @@ at B 4 x S 1024, then runs ``launch.train``'s step
 (loss, backward, clip, AdamW) on ``SyntheticTokens(seed=0)`` batches: two
 untraced warm-up steps, then two steps under ``torch.profiler``.  It
 prints the wall time, the device-busy share and the device time summed by
-kernel name, largest first.  Only a model whose path has backward kernels
-trains on the card (see ``launch/train.py``).
+kernel name, largest first.  Every architecture trains on the card
+(arctic-480b only at a depth that fits: ~960 GB whole).
 """
 from __future__ import annotations
 

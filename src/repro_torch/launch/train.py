@@ -6,10 +6,10 @@ data, checkpoint/restart (auto-resume from the latest step in
 ``--ckpt-dir``), and a simulated failure (``--fail-at``, exit 42) to
 exercise the restart.  The step is ``lm.loss_fn`` -> ``backward()`` ->
 ``clip_by_global_norm(1.0)`` -> ``adamw_update`` at ``cosine_schedule``
-(warm-up 20).  On the card the attention, the embedding gather and the
-mamba2 and rwkv6 scans differentiate through their backward kernels; a
-model with an MoE raises there (the grouped matmul has no backward
-kernel yet) and trains on the CPU.
+(warm-up 20).  On the card the attention, the gathers (the embedding and
+the MoE dispatch), the mamba2 and rwkv6 scans and the MoE's grouped
+matmuls differentiate through their backward kernels, so every
+architecture trains there (arctic-480b at a size that fits the card).
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch granite-8b \\
       --reduced --steps 200 --batch 8 --seq 128 --ckpt-dir /tmp/ckpt \\

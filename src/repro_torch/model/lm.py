@@ -17,9 +17,9 @@ package scans over stacked group params; here the layers are an
 ``nn.ModuleList`` walked by a Python loop, run eagerly.
 
 Parameters are made with ``requires_grad=False``, which serving keeps;
-a trainer turns them on (``params.requires_grad_(True)``).  The attention
-and gather kernels differentiate through their own backward kernels on
-the card; the scans and the grouped matmul refuse a gradient there.
+a trainer turns them on (``params.requires_grad_(True)``).  The attention,
+gather, scan and grouped-matmul kernels differentiate through their own
+backward kernels on the card.
 """
 from __future__ import annotations
 

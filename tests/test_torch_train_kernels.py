@@ -3,11 +3,12 @@ versions (the CPU path of ``flash_attention_bwd`` and ``burst_gather_bwd``,
 autograd through ``ref.py``) against JAX's gradients of the JAX package's
 refs, on the CPU; plain-torch models of the CUDA kernels' schedules (the
 attention backward's tile loops, with the tile rows read from the CUDA
-source; the gather backward's counting sort and segmented sum); the rule
-of the wrappers that have no backward kernel; which backward path
-``mamba2_scan_bwd`` launches (``bwd_schedule``, through a faked library
-on meta tensors); and, from the CUDA sources, that the scans' backward
-calls no atomic and rwkv6's no logarithm.  The CUDA kernels
+source; the gather backward's sort, one block's or past ``SORT_MAX`` ids
+the multi-block one, and its segmented sum); the rule of the wrapper
+that has no backward kernel; which backward path ``mamba2_scan_bwd`` and
+``burst_gather_bwd`` launch (through a faked library on meta tensors);
+and, from the CUDA sources, that the scans' and the grouped matmul's
+backward call no atomic and rwkv6's no logarithm.  The CUDA kernels
 themselves are held to these plain versions on the card by
 ``chip_smoke.py``.
 
@@ -129,17 +130,18 @@ def _calls(module, name):
 
 
 @pytest.mark.parametrize("module,refuses", [
-    ("mamba2_scan", False), ("rwkv6_scan", False), ("moe_gmm", True),
+    ("mamba2_scan", False), ("rwkv6_scan", False), ("moe_gmm", False),
     ("flash_attention", True)])
 def test_which_wrappers_refuse_a_gradient(module, refuses):
-    """The scans have backward kernels (``_Mamba2``, ``_Rwkv6``) and no
-    longer call ``refuse_grad``; the grouped matmul (and the decode
-    attention in ``flash_attention``) still do; every wrapper with a
-    backward kernel has its ``*_bwd`` and a ``torch.autograd.Function``."""
+    """The scans and the grouped matmul have backward kernels
+    (``_Mamba2``, ``_Rwkv6``, ``_Gmm``) and no longer call
+    ``refuse_grad``; the decode attention in ``flash_attention`` still
+    does; every wrapper with a backward kernel has its ``*_bwd`` and a
+    ``torch.autograd.Function``."""
     import importlib
     mod = importlib.import_module(f"repro_torch.kernels.{module}")
     assert _calls(mod, "refuse_grad") == refuses
-    if module.endswith("_scan"):
+    if not refuses:
         assert callable(getattr(mod, f"{module}_bwd"))
         assert any(isinstance(v, type)
                    and issubclass(v, torch.autograd.Function)
@@ -288,7 +290,7 @@ def _gather_src_int(name):
     return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
 
 
-def _gather_bwd_model(dout, idx, R, seed=0):
+def _gather_bwd_model(dout, idx, R, seed=0, sort=None):
     """``burst_gather_bwd``'s two kernels.  bwd_sort: a stable sort of
     the ids' rows (an id outside [0, R) as row R) with their positions, so
     each row's positions come out in increasing order; the taken rows'
@@ -300,17 +302,13 @@ def _gather_bwd_model(dout, idx, R, seed=0):
     a lighter row, one a (segment, 32 columns) where rows are not 16-byte
     aligned, each slice the sum of its rows in f32 from 0 in position order
     rounded once; then runs of ZERO_BYTES of rows, zeroed but for the taken
-    ones.  The table starts as NaN, so a row no item wrote shows."""
+    ones.  The table starts as NaN, so a row no item wrote shows.
+    ``sort`` (idx, R) -> (sorted positions, segments) stands in for the
+    sort kernels: ``bwd_sort``'s by default, past ``SORT_MAX`` ids the
+    multi-block path's (``_multi_block_sort``)."""
     N, D = dout.shape
-    rows = torch.where((idx >= 0) & (idx < R), idx.long(), R)
-    order = torch.sort(rows, stable=True)
-    perm, srows = order.indices.tolist(), order.values.tolist()
-    segs = []
-    for j, r in enumerate(srows):
-        if r < R and (j == 0 or srows[j - 1] != r):
-            segs.append([r, j, 0])
-        if r < R:
-            segs[-1][2] += 1
+    perm, segs = (sort or _one_block_sort)(idx, R)
+    perm, segs = perm.tolist(), [list(sg) for sg in segs]
     rng = np.random.default_rng(seed)
     rng.shuffle(segs)
     segs.sort(key=lambda sg: -int(np.log2(sg[2])))   # stable: by class
@@ -362,11 +360,161 @@ def test_gather_bwd_model_is_the_sequential_f32_sum(dtype, D):
         assert torch.equal(_gather_bwd_model(dout, idx, R, seed), want)
 
 
-def test_gather_bwd_id_limit_is_the_sorts():
-    """The wrapper's id limit is what the one sorting block holds
-    (``SORT_MAX`` of csrc/burst_gather.cu: 1024 threads x 16 ids)."""
-    assert bg.BWD_MAX_IDS == _gather_src_int("SORT_MAX") == \
+@pytest.mark.parametrize("N,path", [
+    (0, "one_block"), (4100, "one_block"), (16384, "one_block"),
+    (16385, "multi_block"), (16400, "multi_block"), (32800, "multi_block")])
+def test_gather_bwd_id_limit_is_the_sorts(monkeypatch, N, path):
+    """The one-block sort's limit is what its block holds (``SORT_MAX`` of
+    csrc/burst_gather.cu: 1024 threads x 16 ids); the wrapper sends more
+    ids to the multi-block path (the library's ``multi`` argument), sizes
+    the scratch by the library's own rule, passes that size for the
+    library to check, and counts the launch on its path."""
+    import contextlib
+    import types
+
+    from repro_torch.kernels import _build
+    assert bg.SORT_MAX == _gather_src_int("SORT_MAX") == \
         _gather_src_int("SORT_T") * 16
+    assert bg.bwd_path(N) == path
+    calls = []
+
+    class Lib:
+        def burst_gather_bwd_scratch(self, R, n, multi):
+            return 1000 + 10 * n + multi
+
+        def burst_gather_bwd(self, *args):
+            calls.append(args)
+            return 0
+    monkeypatch.setattr(_build, "load", lambda name: Lib())
+    monkeypatch.setattr(bg, "_sm_count", lambda index: 132)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda: types.SimpleNamespace(cuda_stream=0))
+    meta = dict(device="meta")
+    dout = torch.empty((N, 64), dtype=torch.bfloat16, **meta)
+    idx = torch.empty(N, dtype=torch.int32, **meta)
+    counts = (bg.burst_gather_bwd.launches,
+              bg.burst_gather_bwd.one_block_launches,
+              bg.burst_gather_bwd.multi_block_launches)
+    dtable = bg.burst_gather_bwd(dout, idx, 4100)
+    multi = path == "multi_block"
+    assert dtable.shape == (4100, 64) and len(calls) == 1
+    # rows, N, D, dtype, the path, the scratch and its size, SMs, stream
+    args = calls[0]
+    assert args[3:8] == (4100, N, 64, 0, int(multi))
+    assert args[9:] == (1000 + 10 * N + multi, 132, 0)
+    assert (bg.burst_gather_bwd.launches,
+            bg.burst_gather_bwd.one_block_launches,
+            bg.burst_gather_bwd.multi_block_launches) == (
+        counts[0] + 1, counts[1] + (not multi), counts[2] + multi)
+
+
+def test_gather_bwd_raises_where_the_library_refuses_the_ids(monkeypatch):
+    """Ids whose counts or offsets would not fit an int32 (the library's
+    scratch rule gives -1) raise before any launch."""
+    from repro_torch.kernels import _build
+
+    class Lib:
+        def burst_gather_bwd_scratch(self, R, n, multi):
+            return -1
+    monkeypatch.setattr(_build, "load", lambda name: Lib())
+    dout = torch.empty((20000, 8), dtype=torch.float32, device="meta")
+    idx = torch.empty(20000, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="multi_block sort's int32"):
+        bg.burst_gather_bwd(dout, idx, 10)
+
+
+def _one_block_sort(idx, R):
+    """``bwd_sort``'s order: a stable sort of the ids' rows (an id outside
+    [0, R) as row R) with their positions; the taken rows' segments (row,
+    first slot, count) in row order."""
+    rows = torch.where((idx >= 0) & (idx < R), idx.long(), R)
+    order = torch.sort(rows, stable=True)
+    counts = torch.bincount(rows, minlength=R + 1)[:R]
+    first = torch.cumsum(counts, 0) - counts
+    return order.indices, [(r, int(first[r]), int(counts[r]))
+                           for r in torch.nonzero(counts)[:, 0].tolist()]
+
+
+def _multi_block_sort(idx, R, chunk):
+    """``bwd_chunk_sort`` then ``bwd_merge``: each chunk of ``chunk`` ids
+    sorted stably on its own, with each sorted id's rank among the
+    chunk's ids of its row, and the chunk's count of each row in [0, R];
+    an exclusive scan of the counts over the rows and, within a row, over
+    the chunks in order gives each (chunk, row) its first slot; each id
+    goes to its slot plus its rank.  Returns the sorted positions and the
+    taken rows' segments (row, first slot, count) in row order."""
+    N = idx.numel()
+    rows = torch.where((idx >= 0) & (idx < R), idx.long(), R)
+    nc = -(-N // chunk)
+    hist = torch.zeros((nc, R + 1), dtype=torch.long)
+    ckey, cpos, crank = (torch.empty(N, dtype=torch.long) for _ in range(3))
+    for c in range(nc):
+        sl = slice(c * chunk, min(N, (c + 1) * chunk))
+        order = torch.sort(rows[sl], stable=True)
+        key = order.values
+        ckey[sl], cpos[sl] = key, order.indices + c * chunk
+        crank[sl] = torch.arange(key.numel()) - torch.searchsorted(key, key)
+        hist[c] = torch.bincount(key, minlength=R + 1)
+    flat = hist.t().reshape(-1)                  # (row, chunk) order
+    slot = (torch.cumsum(flat, 0) - flat).view(R + 1, nc).t()
+    perm = torch.full((N,), -1, dtype=torch.long)
+    perm[slot[torch.arange(N) // chunk, ckey] + crank] = cpos
+    counts = hist.sum(0)[:R]
+    return perm, [(r, int(slot[0, r]), int(counts[r]))
+                  for r in torch.nonzero(counts)[:, 0].tolist()]
+
+
+#: (N, rows, ids): at the one-block limit and either side of it, the MoE
+#: dispatch's 32,800 ids (each of 4,100 rows 8 times) and one row taken by
+#: every id, with ids outside [0, R) mixed in
+SORT_CASES = [(16383, 3000, "spread"), (16384, 2048, "each-8"),
+              (16385, 3000, "spread"), (32800, 4100, "each-8"),
+              (32800, 4100, "one-row"), (20000, 500, "out-of-range")]
+
+
+def _sort_ids(N, R, kind, seed):
+    rng = np.random.default_rng(seed)
+    if kind == "each-8":
+        idx = np.repeat(np.arange(N // 8), 8)
+        return torch.from_numpy(idx.astype(np.int32) % R)
+    if kind == "one-row":
+        return torch.full((N,), 7, dtype=torch.int32)
+    lo, hi = (-3, R + 3) if kind == "out-of-range" else (0, R)
+    return torch.from_numpy(rng.integers(lo, hi, N).astype(np.int32))
+
+
+@pytest.mark.parametrize("N,R,kind", SORT_CASES, ids=str)
+def test_gather_bwd_multi_block_sort_is_the_one_block_sort(N, R, kind):
+    """The multi-block sort, on chunks of ``SORT_MAX`` ids (read from the
+    source), gives a stable argsort of the rows (each row's positions in
+    increasing order) and the same segments as the one-block sort."""
+    idx = _sort_ids(N, R, kind, seed=N + R)
+    perm, segs = _multi_block_sort(idx, R, _gather_src_int("SORT_MAX"))
+    want_perm, want_segs = _one_block_sort(idx, R)
+    assert torch.equal(perm, want_perm)
+    assert segs == want_segs
+
+
+@pytest.mark.parametrize("N,R,kind", [(16385, 3000, "spread"),
+                                      (32800, 4100, "each-8"),
+                                      (32800, 4100, "one-row")], ids=str)
+def test_gather_bwd_multi_block_sum_is_the_sequential_f32_sum(N, R, kind):
+    """``_gather_bwd_model`` on the multi-block sort's order and segments
+    equals a sequential f32 ``index_add_`` rounded once, bit for bit, in
+    bf16 (16-byte rows) and f32."""
+    idx = _sort_ids(N, R, kind, seed=N)
+    rng = np.random.default_rng(N + 1)
+    for dtype, D in ((torch.bfloat16, 8), (torch.float32, 4)):
+        dout = torch.from_numpy(rng.standard_normal((N, D)).astype(
+            np.float32)).to(dtype)
+        keep = (idx >= 0) & (idx < R)
+        want = torch.zeros((R, D)).index_add_(
+            0, idx[keep].long(), dout[keep].float()).to(dtype)
+        got = _gather_bwd_model(dout, idx, R, sort=lambda i, r: (
+            _multi_block_sort(i, r, _gather_src_int("SORT_MAX"))))
+        assert torch.equal(got, want)
 
 
 # ---------------------------------------------------------------------------
@@ -591,7 +739,7 @@ def _code(text):
 
 
 def _backward_section(source):
-    """The code of the backward part of a scan's CUDA source: from its
+    """The code of the backward part of a CUDA source: from its
     first "backward" section rule (``// ---... backward``) to the end."""
     from repro_torch.kernels import mamba2_scan as m2
     text = open(os.path.dirname(m2.__file__) + "/csrc/" + source).read()
@@ -600,11 +748,13 @@ def _backward_section(source):
     return _code(text[start.start():])
 
 
-@pytest.mark.parametrize("source", ["mamba2_scan.cu", "rwkv6_scan.cu"])
+@pytest.mark.parametrize("source", ["mamba2_scan.cu", "rwkv6_scan.cu",
+                                    "moe_gmm.cu"])
 def test_scan_backward_sources_take_no_float_atomics(source):
-    """Two runs of the scans' backward give the same bits: their sums run
-    in a fixed order, and no backward kernel calls an atomic (``atomicAdd``
-    on floats, or any other), nor does ``scan_bwd.cuh``."""
+    """Two runs of the scans' and the grouped matmul's backward give the
+    same bits: their sums run in a fixed order, and no backward kernel
+    calls an atomic (``atomicAdd`` on floats, or any other), nor does
+    ``scan_bwd.cuh``."""
     from repro_torch.kernels import mamba2_scan as m2
     header = _code(open(os.path.dirname(m2.__file__)
                         + "/csrc/scan_bwd.cuh").read())
