@@ -11,7 +11,8 @@ Phases, each printing its own lines:
    Prints each kernel's registers and spills (ptxas -v) and its count of
    tensor-core instructions (cuobjdump -sass); the bf16 prefill attention
    must have HMMA/HGMMA instructions and no spill at head sizes <= 128,
-   the bf16 prefill grouped matmul (gmm_wgmma<128, 256, 4>) HGMMA and no
+   the bf16 grouped matmul's product (gmm_wgmma at both tiles), dX
+   (gmm_dx_wgmma at both tiles) and dW (gmm_dw_wgmma) HGMMA and no
    spill, the bf16 chunked SSD scan (mamba2_chunked<1, 1, 0>, zamba2-7b's
    prefill) HMMA/HGMMA and no spill, its chunked backward
    (mamba2_bwd_chunked<1, 1>, zamba2-7b's training) HGMMA and no spill,
@@ -162,7 +163,10 @@ Phases, each printing its own lines:
    from ``moe_gmm``) against autograd through the plain version at
    granite-moe's training products, arctic-reduced's, unsorted and
    out-of-range ids, an expert with no row, one expert, T off the tile,
-   K or N not a multiple of 8 and f32, twice for the same bits;
+   K or N not a multiple of 8, f32, experts ending 63, 64 and 65 rows past
+   a stage edge, fewer work items than SMs, a partial N tile (N 264), the
+   unsorted gather at the training rows and runs of x beside gathered rows
+   on one block at the training width, twice for the same bits;
    ``mamba2_scan_bwd`` and
    ``rwkv6_scan_bwd`` (through autograd from the scans' wrappers) against
    autograd through the plain versions at zamba2-7b's and rwkv6-1.6b's
@@ -2526,10 +2530,21 @@ def check_gather_bwd(gen):
 #: range, an expert no row takes, a single expert, T not a multiple of the
 #: row tile, bf16 with K or N not a multiple of 8 (the generic kernels,
 #: also in 64-row sub-tiles of 128-row tiles) and f32 (ids in any order,
-#: out of range among them).  ids: ("sorted" or "token", k), the top-k
-#: of random router scores for T / k tokens, sorted as the model
-#: dispatches or in token order; (lo, hi), T uniform ids in [lo, hi); or
-#: "empty", uniform over the experts but expert 1
+#: out of range among them); then for the persistent bf16 kernels: experts
+#: whose rows end 63, 64 and 65 past a stage edge with the next expert's
+#: rows behind them in the same stage (three K tiles: a cluster along K
+#: has a spare block), fewer work items than SMs, a partial last N tile
+#: (N 264), the unsorted gather at the training width and rows, and
+#: ("mixed") tiles and experts that are runs of x, of 8 and more stages,
+#: beside gathered ones on the same block at the training width (the
+#: producers' barrier phases across a run).  ids: ("sorted" or "token",
+#: k), the top-k of random router scores for T / k tokens, sorted as the
+#: model dispatches or in token order; (lo, hi), T uniform ids in [lo,
+#: hi); "empty", uniform over the experts but expert 1; ("rows", counts),
+#: each expert's count of rows, sorted; or ("mixed", n): experts 0 .. n -
+#: 1 a run of T // (3 n) consecutive rows each, expert n the row tile
+#: plus one rows (a one-row run tile after a gathered one) and the rest
+#: uniform over the other experts, all in token order
 MOE_BWD_CASES = [
     ("train-gate-up", (TRAIN_B * (TRAIN_S + 1) * 8, 1536, 512, 40),
      torch.bfloat16, ("sorted", 8)),
@@ -2548,6 +2563,16 @@ MOE_BWD_CASES = [
      ("token", 1)),
     ("f32", (2064, 64, 96, 8), torch.float32, ("token", 4)),
     ("f32-out-of-range", (700, 40, 24, 5), torch.float32, (-2, 7)),
+    ("stage-edge", (577, 384, 512, 7), torch.bfloat16,
+     ("rows", (63, 64, 65, 127, 128, 129, 1))),
+    ("few-items", (100, 256, 512, 1), torch.bfloat16, (0, 1)),
+    ("n264", (1500, 512, 264, 4), torch.bfloat16, ("sorted", 1)),
+    ("unsorted-train", (TRAIN_B * (TRAIN_S + 1) * 8, 1536, 512, 40),
+     torch.bfloat16, ("token", 8)),
+    ("mixed-train", (TRAIN_B * (TRAIN_S + 1) * 8, 1536, 512, 40),
+     torch.bfloat16, ("mixed", 8)),
+    ("mixed-train-down", (TRAIN_B * (TRAIN_S + 1) * 8, 512, 1536, 40),
+     torch.bfloat16, ("mixed", 8)),
 ]
 
 
@@ -2556,6 +2581,20 @@ def _moe_bwd_ids(gen, T, E, ids):
         g = torch.randint(0, E - 1, (T,), generator=gen, device="cuda")
         return torch.where(g >= 1, g + 1, g).to(torch.int32)
     order, k = ids
+    if order == "rows":
+        return torch.repeat_interleave(
+            torch.arange(E, dtype=torch.int32, device="cuda"),
+            torch.tensor(k, device="cuda"))
+    if order == "mixed":
+        run = T // (3 * k)
+        g = torch.randint(k + 1, E, (T,), generator=gen, device="cuda",
+                          dtype=torch.int32)
+        g[:k * run] = torch.arange(k, dtype=torch.int32,
+                                   device="cuda").repeat_interleave(run)
+        rest = k * run + torch.randperm(T - k * run, generator=gen,
+                                        device="cuda")
+        g[rest[:gmm.row_tile(T, E) + 1]] = k
+        return g
     if isinstance(order, int):
         return torch.randint(order, k, (T,), generator=gen, device="cuda",
                              dtype=torch.int32)
@@ -3335,17 +3374,47 @@ def _grouped_mm_bwd(x, w, ids, E, dy):
     return lambda: torch.autograd.grad(out, (xg, wg), dy, retain_graph=True)
 
 
+def _grouped_mm_parts(x, w, ids, E, dy):
+    """One ``torch._grouped_mm`` call for each backward kernel alone, over
+    the sorted rows: dX ``dy @ w[e]^T`` (``_grouped_mm(dy, w.transpose(1,
+    2), offs=offs)``) and dW ``x^T dy`` summed over each expert's rows
+    (``_grouped_mm(x.t(), dy, offs=offs)``), timed as yardsticks and never
+    called by the port: {"dx": fn, "dw": fn}, a form this PyTorch refuses
+    left out, as printed."""
+    fn = getattr(torch, "_grouped_mm", None)
+    if fn is None or x.dtype != torch.bfloat16:
+        return {}
+    offs = torch.bincount(ids.long(), minlength=E).cumsum(0).to(torch.int32)
+    wt, xt = w.transpose(1, 2), x.t()
+    parts = {}
+    for name, call in (("dx", lambda: fn(dy, wt, offs=offs)),
+                       ("dw", lambda: fn(xt, dy, offs=offs))):
+        try:
+            call()
+            torch.cuda.synchronize()
+        except (RuntimeError, NotImplementedError) as exc:
+            _phase(f"library: torch._grouped_mm for {name} alone refused: "
+                   f"{str(exc)[:200]}")
+            continue
+        parts[name] = call
+    return parts
+
+
 def moe_bwd_rows(errs, dispatch_err, flush, gen):
     """The kernels line's rows of the new backward kernels at granite-moe's
     training shapes (B 4 x S 1024: 32,800 routed rows, sorted as the model
     dispatches them, E 40, bf16).  moe_gmm_bwd: one backward call of the
     gate/up product (K 1536, N 512; dX and dW, each kernel's device time
-    in ``kernels_ms``) on a shared plan, as the model calls it; the down
+    in ``kernels_ms``, and a call asking for each alone in ``ms_alone``)
+    on a shared plan, as the model calls it; the down
     product's (K 512, N 1536) as ``down_*`` keys; plain: autograd through
     ``ref.moe_gmm_ref``; library: autograd through ``torch._grouped_mm``
-    where this PyTorch differentiates it, else none.  Bound: dX and dW
-    2 T K N FLOPs each; bytes x, w and dy read and dx and dw written once
-    (each kernel's own in ``bound_ms_by_kernel``).
+    where this PyTorch differentiates it, else none, and one
+    ``torch._grouped_mm`` call for each kernel alone in
+    ``library_ms_by_kernel`` (``_grouped_mm_parts``; a refused form takes
+    the whole call's time, as printed).  Bound: dX and dW 2 T K N FLOPs
+    each; bytes x, w and dy read and dx and dw written once (each kernel's
+    own in ``bound_ms_by_kernel``).
     burst_gather_bwd[dispatch]: the dispatch gather's gradient, 32,800 ids
     (each of 4,100 rows 8 times, in a random routing's order) into (4100,
     1536) bf16, the multi-block path; plain: autograd through
@@ -3364,32 +3433,46 @@ def moe_bwd_rows(errs, dispatch_err, flush, gen):
             return gmm.moe_gmm_bwd(dy, x, w, g, plan)
         ms = time_ms(kernel, flush)
         split = kernel_split(kernel)
+        alone = {k: time_ms(lambda need=need: gmm.moe_gmm_bwd(
+            dy, x, w, g, plan, need=need), flush)
+            for k, need in (("dx", (True, False)), ("dw", (False, True)))}
         plain = time_ms(lambda: _gmm_grads(ref.moe_gmm_ref, x, w, g, dy),
                         flush, reps=3)
         lib = _grouped_mm_bwd(x, w, g, E, dy)
         lib_ms = time_ms(lib, flush) if lib is not None else None
+        parts = _grouped_mm_parts(x, w, g, E, dy)
+        lib_parts = {k: time_ms(parts[k], flush) if k in parts else lib_ms
+                     for k in ("dx", "dw")}
         one = 2 * T * K * N
         by_kernel = {"dx": bound(one, 2 * (T * N + E * K * N + T * K))[0],
                      "dw": bound(one, 2 * (T * K + T * N + E * K * N))[0]}
         nbytes = 2 * (2 * T * K + 2 * E * K * N + T * N) + 4 * T
         b_ms, b_by = bound(2 * one, nbytes)
-        timed[case] = (ms, plain, lib_ms, b_ms, b_by, split, by_kernel)
+        timed[case] = (ms, plain, lib_ms, b_ms, b_by, split, by_kernel,
+                       lib_parts, alone)
         _phase(f"time moe_gmm_bwd[{case}] T={T} K={K} N={N} E={E} bf16 "
                f"(dX and dW): {ms:.4f} ms, plain {plain:.3f} ms, library "
                f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound "
                f"{b_ms:.4f} ms ({b_by}; {nbytes / 1e6:.1f} MB, "
                f"{2 * one / 1e9:.1f} GFLOP; dX {by_kernel['dx']:.4f}, dW "
                f"{by_kernel['dw']:.4f}), {2 * one / ms / 1e9:.1f} TFLOP/s; "
-               f"by kernel (profiler, ms a call) {_split_text(split)}")
-        del x, w, g, dy, plan, lib
+               f"by kernel (profiler, ms a call) {_split_text(split)}; "
+               f"each asked for alone {_split_text(alone)} ms; "
+               f"library by kernel (torch._grouped_mm alone, ms) "
+               f"{', '.join(f'{k} {v}' for k, v in lib_parts.items())}")
+        del x, w, g, dy, plan, lib, parts
         torch.cuda.empty_cache()
-    ms, plain, lib_ms, b_ms, b_by, split, by_kernel = timed["train-gate-up"]
+    ms, plain, lib_ms, b_ms, b_by, split, by_kernel, lib_parts, alone = \
+        timed["train-gate-up"]
     row = _row("moe_gmm_bwd", "src/repro/kernels/moe_gmm.py:50", errs[0],
                ms, plain, lib_ms, b_ms, b_by)
-    row.update(kernels_ms=split, bound_ms_by_kernel=by_kernel)
-    ms, plain, lib_ms, b_ms, _, split, by_kernel = timed["train-down"]
+    row.update(kernels_ms=split, ms_alone=alone,
+               bound_ms_by_kernel=by_kernel, library_ms_by_kernel=lib_parts)
+    ms, plain, lib_ms, b_ms, _, split, by_kernel, lib_parts, alone = \
+        timed["train-down"]
     row.update(down_ms=ms, down_plain_ms=plain, down_library_ms=lib_ms,
                down_bound_ms=b_ms, down_kernels_ms=split,
+               down_ms_alone=alone, down_library_ms_by_kernel=lib_parts,
                down_max_abs_err=errs[1])
 
     tokens, k, d = DISPATCH_BWD
@@ -3513,16 +3596,19 @@ def check_build_report():
     # the bf16 grouped matmul at prefill and training, and its backward's
     # dX (w read transposed) and dW (x^T, M-major from shared memory)
     gmm_report = _build.kernel_report("moe_gmm")
-    for kernel, what in (("gmm_wgmma<128, 256, 4, 0>", "the product"),
-                         ("gmm_wgmma<128, 256, 4, 1>", "its dX"),
-                         ("gmm_dw_wgmma<256, 4>", "its dW")):
+    gmm_kernels = (("gmm_wgmma<128, 256, 4>", "the product"),
+                   ("gmm_wgmma<64, 128, 4>", "the product at 64-row tiles"),
+                   ("gmm_dx_wgmma<128, 256>", "its dX"),
+                   ("gmm_dx_wgmma<64, 128>", "its dX at 64-row tiles"),
+                   ("gmm_dw_wgmma", "its dW"))
+    for kernel, what in gmm_kernels:
         gmm_r = gmm_report.get(kernel, {})
         if not gmm_r.get("hgmma") or gmm_r.get("spill_stores") or \
                 gmm_r.get("spill_loads"):
             raise AssertionError(f"{kernel}, {what} of the bf16 grouped "
                                  f"matmul, needs HGMMA and no spill: {gmm_r}")
-    _phase("check gmm_wgmma<128, 256, 4, 0 / 1>, gmm_dw_wgmma<256, 4>: HGMMA "
-           "in their SASS, no spill ok")
+    _phase(f"check {', '.join(k for k, _ in gmm_kernels)}: HGMMA in their "
+           f"SASS, no spill ok")
     # zamba2-7b's bf16 prefill scan runs on the tensor cores
     ssd = _build.kernel_report("mamba2_scan").get(
         "mamba2_chunked<1, 1, 0>", {})

@@ -59,7 +59,7 @@ _SIGNATURES = {
     "moe_gmm": {
         "moe_gmm_plan": [_P] * 5 + [_I] * 4 + [_P],
         "moe_gmm_fwd": [_P] * 5 + [_I] * 9 + [_P],
-        "moe_gmm_bwd": [_P] * 8 + [_I] * 9 + [_P],
+        "moe_gmm_bwd": [_P] * 9 + [_I] * 9 + [_P],
     },
     "sim_sweep": {
         "sim_sweep_fwd": [_P] * 8 + [_I] * 5 + [_P] * 5 + [_I, _P],

@@ -1,6 +1,7 @@
 // Hopper building blocks shared by the kernels of this directory: shared
 // memory addresses, cp.async, wgmma descriptors and fences, mbarriers,
-// tensor (TMA) copies and the driver's tensor-map encoder.  Each .cu
+// tensor (TMA) loads, multicast loads and stores, bulk groups, the thread
+// block cluster's barrier and the CUDA driver's tensor-map encoder.  Each .cu
 // file includes it once; everything is in an anonymous namespace, so every
 // library keeps its own copy.
 #pragma once
@@ -202,6 +203,95 @@ __device__ inline void bulk_load(void* dst, const void* src, int bytes,
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
       "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// The barrier tracks this thread's cp.async's issued so far: one more
+// arrival is pending on it until they have landed, so the phase they are
+// part of cannot complete before.
+__device__ inline void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.shared::cta.b64 [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+// A box of a 2-dimensional tensor loaded once and written to the same
+// shared-memory offset in every block of the cluster named in `mask` (bit
+// r: the block of rank r), each completing on its own barrier at `bar`'s
+// offset.
+__device__ inline void tma_load_2d_mc(void* dst, const CUtensorMap* map,
+                                      uint64_t* bar, int c0, int c1,
+                                      uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::"
+      "complete_tx::bytes.multicast::cluster [%0], [%1, {%4, %5}], [%2], "
+      "%3;\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "h"(mask),
+      "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// A box of shared memory to a 2- or 3-dimensional tensor through its map,
+// into this thread's open bulk group; the parts of the box past the
+// tensor's edges are not written.
+__device__ inline void tma_store_2d(const CUtensorMap* map, const void* src,
+                                    int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, "
+      "%3}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+__device__ inline void tma_store_3d(const CUtensorMap* map, const void* src,
+                                    int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, "
+      "%4}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// close this thread's open bulk group
+__device__ inline void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N of this thread's bulk groups (the newest) have yet
+// to read their shared memory
+template <int N = 0>
+__device__ inline void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+// wait until this thread's bulk stores are complete
+__device__ inline void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// the thread block cluster's barrier, in two halves: each thread arrives
+// (its shared-memory writes released to the cluster), then waits for
+// every thread of the cluster to have arrived
+__device__ inline void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ inline void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+__device__ inline uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// arrive on the barrier at `bar`'s offset in block `rank` of this cluster
+__device__ inline void mbar_arrive_cluster(uint64_t* bar, uint32_t rank) {
+  asm volatile(
+      "{\n.reg .b32 remote;\n"
+      "mapa.shared::cluster.u32 remote, %0, %1;\n"
+      "mbarrier.arrive.shared::cluster.b64 _, [remote];\n}\n" ::"r"(
+          smem_u32(bar)),
+      "r"(rank)
       : "memory");
 }
 

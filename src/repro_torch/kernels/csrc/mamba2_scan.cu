@@ -277,31 +277,6 @@ __device__ __forceinline__ void bulk_store(void* dst, const void* src,
       : "memory");
 }
 
-// wait until this thread's bulk stores have read their shared memory
-__device__ __forceinline__ void bulk_wait_read() {
-  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
-}
-
-// wait until this thread's bulk stores are complete
-__device__ __forceinline__ void bulk_wait() {
-  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
-}
-
-// the thread block cluster's barrier, in two halves: each thread arrives
-// (its shared-memory writes released to the cluster), then waits for
-// every thread of the cluster to have arrived
-__device__ __forceinline__ void cluster_arrive() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ uint32_t cluster_rank() {
-  uint32_t r;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
-  return r;
-}
-
 // 16 bytes at shared address `at` of this block, in block `rank` of its
 // cluster (distributed shared memory)
 __device__ __forceinline__ float4 ld_cluster4(uint32_t at, int rank) {

@@ -54,9 +54,10 @@
 // its tile, neighbours or plan, so the result is bit-reproducible.
 //
 // The backward (moe_gmm_bwd, the section at the end; the JAX package has
-// no backward kernel, and trains through the gradient of its ref): dX on
-// these kernels with w read transposed, dW a block a (K tile, N tile,
-// expert) that walks the expert's rows of the plan in order.
+// no backward kernel, and trains through the gradient of its ref) runs on
+// the same plan: in bf16 two persistent kernels, dX over (row tile, column
+// tile) items and dW over (expert, K tile, N tile) items, each walking the
+// expert's rows in order, fed by TMA and shared across clusters of blocks.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -363,10 +364,9 @@ __device__ inline void wgmma_bf(float* d, uint64_t da, uint64_t db,
 
 // Stage s of the ring: the A tile (BM rows of 64 K-columns, 128 bytes a
 // row, swizzled), then the B tile: BN / 64 panels of 64 K-rows x 64
-// columns, 8 KB each, swizzled (w read as the MN-major B), or for the
-// transposed product (KB, dX's w^T) BN rows of 64 K-columns, as A is.
-// Stages start 1024-byte aligned.  The epilogue stages the bf16 tile in
-// the ring, rows LDC apart.
+// columns, 8 KB each, swizzled (w read as the MN-major B).  Stages start
+// 1024-byte aligned.  The epilogue stages the bf16 tile in the ring, rows
+// LDC apart.
 template <int BM, int BN, int ST>
 struct GmmCfg {
   static constexpr int NWG = BM / 64;               // consumer warpgroups
@@ -384,7 +384,7 @@ struct GmmCfg {
 // The consumer warpgroups of gmm_wgmma: wgmma over the ring's stages,
 // each stage handed back to the producer as soon as its products are
 // done, one group of products in flight; then the epilogue.
-template <int BM, int BN, int ST, int KB>
+template <int BM, int BN, int ST>
 __device__ __forceinline__ void consume(
     unsigned char* ring, uint64_t* full, uint64_t* empty, const int* rows,
     int n_rows, bool run, int nk, int n0, int N, bf16* __restrict__ out) {
@@ -410,14 +410,9 @@ __device__ __forceinline__ void consume(
     const unsigned char* sB = ring + s * C::STAGE + C::A_BYTES;
     wg_fence();
 #pragma unroll
-    for (int kk = 0; kk < GBK / 16; ++kk) {
-      if constexpr (KB)
-        wgmma_bf<BN, 0, 0>(acc, wg_desc(sA + kk * 32, 16, 1024),
-                           wg_desc(sB + kk * 32, 16, 1024), 1);
-      else
-        wgmma_bf<BN, 0, 1>(acc, wg_desc(sA + kk * 32, 16, 1024),
-                           wg_desc(sB + kk * 2048, 8192, 1024), 1);
-    }
+    for (int kk = 0; kk < GBK / 16; ++kk)
+      wgmma_bf<BN, 0, 1>(acc, wg_desc(sA + kk * 32, 16, 1024),
+                         wg_desc(sB + kk * 2048, 8192, 1024), 1);
     wg_commit();
     // the previous step's products are done: hand its stage back
     wg_wait<1>();
@@ -455,11 +450,9 @@ __device__ __forceinline__ void consume(
 
 // Block (column tile, row tile): the column tile fastest, so the blocks of
 // one row tile run together and x comes from device memory about once.
-// It writes its bf16 tile of out over the whole of K; tiles of bucket E
-// (ids out of range) write zeros.  KB 0: out = x @ w[e], w (E, K, N);
-// KB 1: out = x @ w[e]^T, w (E, N, K) read K-major (the backward's dX,
-// x = dY).
-template <int BM, int BN, int ST, int KB>
+// It writes its bf16 tile of out = x @ w[e] over the whole of K; tiles of
+// bucket E (ids out of range) write zeros.
+template <int BM, int BN, int ST>
 __global__ void __launch_bounds__(GmmCfg<BM, BN, ST>::THREADS, 1)
 gmm_wgmma(const __grid_constant__ CUtensorMap map_x,
           const __grid_constant__ CUtensorMap map_w,
@@ -509,8 +502,7 @@ gmm_wgmma(const __grid_constant__ CUtensorMap map_x,
   const int nk = (K + GBK - 1) / GBK;
 
   if (threadIdx.x < C::CONSUMERS) {
-    consume<BM, BN, ST, KB>(ring, full, empty, rows, tile.z, run, nk, n0, N,
-                            out);
+    consume<BM, BN, ST>(ring, full, empty, rows, tile.z, run, nk, n0, N, out);
     return;
   }
   // the producer warp
@@ -523,11 +515,8 @@ gmm_wgmma(const __grid_constant__ CUtensorMap map_x,
     if (kt >= ST) mbar_wait(&empty[s], (kt / ST - 1) & 1);
     if (lane == 0) {
       mbar_expect(&full[s], C::B_BYTES + (run ? C::A_BYTES : 0));
-      if constexpr (KB)
-        tma_load_3d(sB, &map_w, &full[s], kk, n0, e);
-      else
-        for (int p = 0; p < BN / 64; ++p)
-          tma_load_3d(sB + p * 8192, &map_w, &full[s], n0 + 64 * p, kk, e);
+      for (int p = 0; p < BN / 64; ++p)
+        tma_load_3d(sB + p * 8192, &map_w, &full[s], n0 + 64 * p, kk, e);
       if (run) tma_load_2d(sA, &map_x, &full[s], kk, tile.w);
     }
     if (run) continue;
@@ -746,9 +735,8 @@ bool gmm_map(CUtensorMap* map, const void* p, long long rows, long long cols,
 }
 
 // Launches as a programmatic dependent of the previous launch on the
-// stream (gmm_wgmma waits for it).  K is the sum's length, N the output's
-// width: for KB, w is (E, N, K), read in boxes of BN rows.
-template <int BM, int BN, int ST, int KB>
+// stream (gmm_wgmma waits for it).
+template <int BM, int BN, int ST>
 int launch_wgmma(const void* x, const void* w, void* out, const int* perm,
                  const int4* info, int T, int K, int N, int E, int tiles,
                  cudaStream_t s) {
@@ -756,15 +744,13 @@ int launch_wgmma(const void* x, const void* w, void* out, const int* perm,
   static bool configured = false;
   if (!configured) {
     cudaError_t e = cudaFuncSetAttribute(
-        gmm_wgmma<BM, BN, ST, KB>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::smem);
+        gmm_wgmma<BM, BN, ST>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)C::smem);
     if (e != cudaSuccess) return (int)e;
     configured = true;
   }
   CUtensorMap mx, mw;
-  const bool mapped = KB ? gmm_map(&mw, w, N, K, E, BN)
-                         : gmm_map(&mw, w, K, N, E, GBK);
-  if (!gmm_map(&mx, x, T, K, 0, BM) || !mapped)
+  if (!gmm_map(&mx, x, T, K, 0, BM) || !gmm_map(&mw, w, K, N, E, GBK))
     return (int)cudaErrorInvalidValue;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
@@ -777,7 +763,7 @@ int launch_wgmma(const void* x, const void* w, void* out, const int* perm,
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   return (int)cudaLaunchKernelEx(
-      &cfg, gmm_wgmma<BM, BN, ST, KB>, mx, mw, static_cast<const bf16*>(x),
+      &cfg, gmm_wgmma<BM, BN, ST>, mx, mw, static_cast<const bf16*>(x),
       static_cast<bf16*>(out), perm, info, K, N, E);
 }
 
@@ -836,11 +822,11 @@ extern "C" int moe_gmm_fwd(const void* x, const void* w, void* out,
     if (dtype != 0 || K % 8 || N % 8 || align % 16)
       return (int)cudaErrorInvalidValue;
     if (bm == 128 && bn == 256)
-      return launch_wgmma<128, 256, 4, 0>(x, w, out, perm, ti, T, K, N, E,
-                                          tiles, s);
+      return launch_wgmma<128, 256, 4>(x, w, out, perm, ti, T, K, N, E,
+                                       tiles, s);
     if (bm == 64 && bn == 128)
-      return launch_wgmma<64, 128, 4, 0>(x, w, out, perm, ti, T, K, N, E,
-                                         tiles, s);
+      return launch_wgmma<64, 128, 4>(x, w, out, perm, ti, T, K, N, E,
+                                      tiles, s);
     return (int)cudaErrorInvalidValue;
   }
   if (path != 1 || bn != SUB)
@@ -872,171 +858,560 @@ extern "C" int moe_gmm_fwd(const void* x, const void* w, void* out,
 // Both use the forward's plan of the ids (the layer builds one for its
 // three products and the backward reuses it).
 //
-// - dX is the forward's product with w transposed, on the forward's
-//   kernels, tiles and grid with K and N swapped: in bf16 gmm_wgmma<..,
-//   1>, whose B is w[e] read K-major (contiguous along the sum, wgmma's
-//   default major) through a second TMA map over (E, K, N) with its box
-//   along N; the generic kernels read w[e]'s tile along the sum.
-// - dW is grouped along its sum: a block owns one (K tile, N tile,
-//   expert) and walks that expert's rows, slots off[e] to off[e + 1] of
-//   the plan, in increasing order, GBK rows a stage; an expert with no
-//   row writes zeros.  In bf16 (gmm_dw_wgmma) two consumer warpgroups run
-//   wgmma with A = x^T, MN-major from shared memory (the transposed A that
-//   16-bit types allow), and B = dY, MN-major as in the forward; four
-//   producer warps gather each stage's x and dY rows through perm by
-//   cp.async (zeros past the expert's rows and the matrices' edges) into
-//   panels of 64 rows x 128 bytes in the 128-byte swizzle.  f32 and odd K
-//   or N take 64 x 64 tiles on the FMA pipes or wmma.
+// In bf16 with K and N multiples of 8 both kernels are persistent: as many
+// blocks as the card holds at once walk a list of work items; a producer
+// fills a ring of BWD_ST = 4 stages of 48 KB by TMA (or by a cp.async
+// gather through perm where the rows are not one run of x); the consumer
+// warpgroups run wgmma and write each item's bf16 tile out a 64-column
+// panel at a time through two 8 KB buffers a warpgroup, outside the ring,
+// so the ring fills for the next item meanwhile.  (Three stages beside a
+// whole 64 KB tile measured slower.)  dW starts beside dX's last tiles.
+//
+// - dX (gmm_dx_wgmma): items (row tile of the plan, column tile of the K
+//   output columns), the column tile fastest, item i to block i mod the
+//   grid, so the blocks at work share a few row tiles and experts.  B is
+//   w[e] read K-major (contiguous along the sum, wgmma's default major)
+//   through a TMA map over (E, K, N) with its box along N.  A warpgroup
+//   whose 64 rows of the tile are one run of x stores them by TMA; others
+//   (gathered rows, a short tile's partial half) write 16-byte row pieces
+//   through perm; tiles of bucket E write zeros.
+// - dW (gmm_dw_wgmma): items (expert, K tile of DW_BK, N tile of DW_BN),
+//   the experts by rows, most first.  An item is the sum over the expert's
+//   rows (slots off[e] to off[e + 1]) in slot order, GBK a stage, with A =
+//   x^T, M-major from shared memory (the transposed A that 16-bit types
+//   allow), and B = dY, N-major.  A stage of GBK slots lies in one row
+//   tile of the plan (tiles of 64 or 128 slots from off[e]), so its rows
+//   are one run of x exactly when that tile's info.w >= 0, from x row
+//   info.w plus the stage's offset in the tile: such a stage comes by TMA
+//   boxes, and the consumers set the rows past a partial last stage (the
+//   next expert's, or past T) to zero once it lands; other stages are
+//   gathered through perm by cp.async with zero fill.  Clusters of DW_CK
+//   blocks along K take an item together, block kr its K tile kg DW_CK +
+//   kr of the N tile they share, and each of dY's TMA boxes is loaded once
+//   and multicast to the cluster.  A consumer hands a stage back to every
+//   block of its cluster, so no block writes a stage before all are done
+//   with it.  An expert with no row writes zeros.
+// - f32 and K or N not a multiple of 8: dX on the forward's generic
+//   kernels with w read transposed; dW a 64 x 64 block a (N tile, K tile,
+//   expert) on the FMA pipes or wmma.
 //
 // What bounds it on an H100: at granite-moe's training shapes (32,800
 // routed rows, K 1536, N 512, E 40, bf16) each of dX and dW is 51.6
 // GFLOP (0.052 ms at 989 TFLOP/s) against ~197 MB read and written once
-// (0.059 ms at 3.35 TB/s): bytes, narrowly.  dW reads each dY row once a
-// K tile and each x row once an N tile, mostly from L2.
+// (0.059 ms at 3.35 TB/s): bytes, narrowly.  dW reads each dY row once a K
+// tile and each x row once an N tile: ~605 MB from L2 a call with blocks
+// alone, ~403 MB with dY multicast to clusters of 2 along K (DW_CK;
+// PERF.md gives the other shapes measured).
 
 namespace {
 
 constexpr int DW_BK = 128;          // K rows of a bf16 dW tile (2 warpgroups)
 constexpr int DW_BN = 256;          // N columns of a bf16 dW tile
 constexpr int DW_PW = 4;            // producer warps of a dW block
+constexpr int BWD_ST = 4;           // ring stages of the bf16 backward
+constexpr int EPI_BUF = 8192;       // an epilogue buffer: 64 rows x 64 columns
+constexpr int DW_CK = 2;            // blocks of a dW cluster, along K
 
-// Stage s of the dW ring: GBK rows of x (DW_BK / 64 panels of 64 rows x
-// 64 K-columns), then the same rows of dY (BN / 64 panels of 64 columns),
-// 8 KB a panel, each row 128 bytes, swizzled.
-template <int BN, int ST>
-struct DwCfg {
-  static constexpr int NWG = DW_BK / 64;
+// The dynamic shared memory of a persistent bf16 backward block, from a
+// 1024-byte aligned base (the kernels have no static shared memory, so it
+// starts at the window's base): BWD_ST stages of STAGE bytes, two epilogue
+// buffers a consumer warpgroup, the ring's barriers (full, then empty),
+// then EXTRA bytes.
+template <int STAGE_, int NWG_, int EXTRA>
+struct BwdSmem {
+  static constexpr int STAGE = STAGE_, NWG = NWG_;
+  static constexpr int EPI = BWD_ST * STAGE;                 // offsets
+  static constexpr int BARS = EPI + NWG * 2 * EPI_BUF;
+  static constexpr int TAIL = BARS + 2 * BWD_ST * 8;
+  static constexpr size_t bytes = (size_t)TAIL + EXTRA;
+  static_assert(bytes <= kMaxSmem, "fits shared memory");
+};
+
+// A dW block: each stage GBK rows of x (DW_BK / 64 panels of 64 rows x 64
+// K-columns), then the same rows of dY (DW_BN / 64 panels of 64 columns),
+// 8 KB a panel, each row 128 bytes, swizzled (the layout of a TMA box);
+// the expert order (uint16, MAXE) after the barriers.
+struct DwCfg : BwdSmem<GBK * (DW_BK + DW_BN) * 2, DW_BK / 64, 2 * MAXE> {
   static constexpr int CONSUMERS = NWG * 128;
   static constexpr int THREADS = CONSUMERS + 32 * DW_PW;  // + the producers
   static constexpr int A_BYTES = GBK * DW_BK * 2;
-  static constexpr int B_BYTES = GBK * BN * 2;
-  static constexpr int STAGE = A_BYTES + B_BYTES;
-  static constexpr int LDC = BN + 8;
-  static constexpr size_t smem = 1024 + (size_t)ST * STAGE;
-  static_assert(DW_BK * LDC * 2 <= ST * STAGE, "epilogue tile fits the ring");
-  static_assert(smem <= kMaxSmem, "ring fits shared memory");
 };
 
-// Block (N tile, K tile, expert): dW[e][k0 .. k0 + DW_BK)[n0 .. n0 + BN),
-// the sum over the expert's rows in slot order, GBK rows a stage.
-template <int BN, int ST>
-__global__ void __launch_bounds__(DwCfg<BN, ST>::THREADS, 1)
-gmm_dw_wgmma(const bf16* __restrict__ x, const bf16* __restrict__ dy,
-             bf16* __restrict__ dw, const int* __restrict__ perm,
-             const int* __restrict__ off, int K, int N) {
-  using C = DwCfg<BN, ST>;
-  extern __shared__ __align__(16) unsigned char gsm[];
-  __shared__ uint64_t full[ST], empty[ST];
-  unsigned char* ring = gsm + ((1024 - (smem_u32(gsm) & 1023)) & 1023);
+// A dX block: each stage BM rows of dY (64 columns of the sum, 128 bytes a
+// row, swizzled), then BN rows of w[e] (K-major, as A).
+template <int BM, int BN>
+struct DxCfg : BwdSmem<GBK * (BM + BN) * 2, BM / 64, 0> {
+  static constexpr int CONSUMERS = BM / 64 * 128;
+  static constexpr int THREADS = CONSUMERS + 32;    // + the producer warp
+  static constexpr int A_BYTES = BM * GBK * 2;
+  static constexpr int B_BYTES = BN * GBK * 2;
+};
+
+// The base of a block's dynamic shared memory; it traps unless 1024-byte
+// aligned (the 128-byte swizzle's atom, which TMA and wgmma need)
+__device__ __forceinline__ unsigned char* bwd_smem() {
+  extern __shared__ __align__(1024) unsigned char bwd_sm[];
+  if (smem_u32(bwd_sm) & 1023) __trap();
+  return bwd_sm;
+}
+
+// named barrier `id` over `n` threads
+__device__ __forceinline__ void named_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+// A consumer warpgroup's epilogue: its 64 x BN f32 accumulators as bf16
+// (zeros where no product wrote them, !live), a 64-column panel at a time
+// through its two buffers `bufs` (64 rows x 128 bytes, row r's 16-byte
+// chunk c at chunk c ^ (r % 8): a TMA box's swizzle).  `store(p, buf)`
+// writes panel p out while the next is staged, as one bulk group of the
+// warpgroup's thread 0; a buffer is rewritten once the group two panels
+// back has read it.  The thread holds rows r0 and r0 + 8 of the 64,
+// columns 8 j + 2 tq (+1).
+template <int BN, typename Store>
+__device__ __forceinline__ void epilogue(unsigned char* bufs,
+                                         const float* acc, bool live,
+                                         Store store) {
+  const int tw = threadIdx.x % 128, wg = threadIdx.x / 128;
+  const int lane = threadIdx.x & 31, gq = lane >> 2, tq = lane & 3;
+  const int r0 = tw / 32 * 16 + gq;                   // r0 % 8 == gq
+#pragma unroll
+  for (int p = 0; p < BN / 64; ++p) {
+    unsigned char* buf = bufs + (p & 1) * EPI_BUF;
+    if (tw == 0) bulk_wait_read<1>();
+    named_sync(2 + wg, 128);
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int a = 4 * (8 * p + jj) + 2 * r;
+        *reinterpret_cast<__nv_bfloat162*>(buf + (r0 + 8 * r) * 128 +
+                                           ((jj ^ gq) << 4) + 4 * tq) =
+            live ? __floats2bfloat162_rn(acc[a], acc[a + 1])
+                 : __floats2bfloat162_rn(0.f, 0.f);
+      }
+    fence_proxy_async();
+    named_sync(2 + wg, 128);
+    store(p, buf);
+    if (tw == 0) bulk_commit();
+  }
+}
+
+// A stage handed back: one arrival a consumer warpgroup on its barrier in
+// each of the cs blocks of the cluster
+__device__ __forceinline__ void hand_back(uint64_t* bar, int cs) {
+  if (threadIdx.x % 128 != 0) return;
+  if (cs == 1)
+    mbar_arrive(bar);
+  else
+    for (int r = 0; r < cs; ++r) mbar_arrive_cluster(bar, r);
+}
+
+// dX = dY @ w[e]^T on a block's items i = blockIdx.x, + gridDim.x, ..: row
+// tile y = i / (column tiles) of the plan, while it is one, and column
+// tile i % (column tiles).  The sum runs over S (the forward's N), the
+// output has C columns (the forward's K), w is (E, C, S).
+template <int BM, int BN>
+__global__ void __launch_bounds__(DxCfg<BM, BN>::THREADS, 1)
+gmm_dx_wgmma(const __grid_constant__ CUtensorMap map_dy,
+             const __grid_constant__ CUtensorMap map_w,
+             const __grid_constant__ CUtensorMap map_dx,
+             const bf16* __restrict__ dy, bf16* __restrict__ dx,
+             const int* __restrict__ perm, const int4* __restrict__ info,
+             int S, int C, int E, int tiles) {
+  using Cf = DxCfg<BM, BN>;
+  unsigned char* ring = bwd_smem();
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + Cf::BARS);
+  uint64_t* empty = full + BWD_ST;
+  // launched as a programmatic dependent: wait for the grid before
   asm volatile("griddepcontrol.wait;\n" ::: "memory");
   asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
-  const int n0 = blockIdx.x * BN, k0 = blockIdx.y * DW_BK, e = blockIdx.z;
-  const int s0 = off[e], s1 = off[e + 1];
-  const int nk = (s1 - s0 + GBK - 1) / GBK;
   if (threadIdx.x == 0) {
-    for (int s = 0; s < ST; ++s) {
-      // one cp.async arrival a producer thread
-      mbar_init(&full[s], 32 * DW_PW);
-      mbar_init(&empty[s], C::NWG);    // one arrival a consumer warpgroup
+    for (int s = 0; s < BWD_ST; ++s) {
+      // the producer's expect_tx (a gather's cp.async's add their own)
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], Cf::NWG);    // one arrival a consumer warpgroup
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
+  const int ncol = (C + BN - 1) / BN, nk = (S + GBK - 1) / GBK;
+  int it = 0;                           // stages through the ring so far
 
-  if (threadIdx.x < C::CONSUMERS) {
-    const int wg = threadIdx.x / 128;
-    float acc[BN / 2];
+  if (threadIdx.x < Cf::CONSUMERS) {
+    const int wg = threadIdx.x / 128, tw = threadIdx.x % 128;
+    unsigned char* bufs = ring + Cf::EPI + wg * 2 * EPI_BUF;
+    for (int i = blockIdx.x;; i += gridDim.x) {
+      const int y = i / ncol;
+      if (y >= tiles) break;
+      // the plan's tile: (bucket, first slot, rows, first x row of a run)
+      const int4 tile = info[y];
+      const int e = tile.x;
+      if (e < 0) break;
+      // this warpgroup's rows of the tile: r0 .. r0 + rows (none if <= 0)
+      const int n0 = i % ncol * BN, r0 = wg * 64;
+      const int rows = min(64, tile.z - r0);
+      if (e == E) {  // ids out of range: zero rows
+        for (int j = tw; j < 64 * BN / 8; j += 128) {
+          const int r = j / (BN / 8), c = n0 + j % (BN / 8) * 8;
+          if (r < rows && c < C)
+            *reinterpret_cast<uint4*>(
+                dx + (long long)perm[tile.y + r0 + r] * C + c) =
+                make_uint4(0, 0, 0, 0);
+        }
+        continue;
+      }
+      const bool run = tile.w >= 0;
+      if (rows <= 0) {
+        // no row of a short tile: hand each stage back once it has landed,
+        // so the arrivals keep the other warpgroup's pace
+        for (int kt = 0; kt < nk; ++kt, ++it) {
+          mbar_wait(&full[it % BWD_ST], (it / BWD_ST) & 1);
+          hand_back(&empty[it % BWD_ST], 1);
+        }
+        continue;
+      }
+      // the item's first product overwrites the accumulators (scale-d 0):
+      // no other instruction writes them
+      float acc[BN / 2];
+      for (int kt = 0; kt < nk; ++kt, ++it) {
+        const int s = it % BWD_ST;
+        mbar_wait(&full[s], (it / BWD_ST) & 1);
+        if (!run) fence_proxy_async();
+        const unsigned char* sA = ring + s * Cf::STAGE + r0 * 128;
+        const unsigned char* sB = ring + s * Cf::STAGE + Cf::A_BYTES;
+        wg_fence();
 #pragma unroll
-    for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
-    wg_touch<BN / 2>(acc);
-    for (int kt = 0; kt < nk; ++kt) {
-      const int s = kt % ST;
-      mbar_wait(&full[s], (kt / ST) & 1);
-      fence_proxy_async();
-      const unsigned char* sA = ring + s * C::STAGE + wg * 8192;
-      const unsigned char* sB = ring + s * C::STAGE + C::A_BYTES;
-      wg_fence();
-#pragma unroll
-      for (int kk = 0; kk < GBK / 16; ++kk)
-        wgmma_bf<BN, 1, 1>(acc, wg_desc(sA + kk * 2048, 8192, 1024),
-                           wg_desc(sB + kk * 2048, 8192, 1024), 1);
-      wg_commit();
-      wg_wait<1>();
+        for (int kk = 0; kk < GBK / 16; ++kk)
+          wgmma_bf<BN, 0, 0>(acc, wg_desc(sA + kk * 32, 16, 1024),
+                             wg_desc(sB + kk * 32, 16, 1024), kt + kk > 0);
+        wg_commit();
+        // the previous step's products are done: hand its stage back
+        wg_wait<1>();
+        wg_touch<BN / 2>(acc);
+        if (kt > 0) hand_back(&empty[(it - 1) % BWD_ST], 1);
+      }
+      wg_wait<0>();
       wg_touch<BN / 2>(acc);
-      if (kt > 0 && threadIdx.x % 128 == 0)
-        mbar_arrive(&empty[(kt - 1) % ST]);
+      hand_back(&empty[(it - 1) % BWD_ST], 1);
+
+      // the epilogue, while the ring fills for the next tile: 64 rows of
+      // one run by TMA boxes, others in 16-byte row pieces through perm
+      const bool boxed = run && rows == 64;
+      epilogue<BN>(bufs, acc, true, [&](int p, const unsigned char* buf) {
+        const int c0 = n0 + 64 * p;
+        if (boxed) {
+          if (tw == 0 && c0 < C)
+            tma_store_2d(&map_dx, buf, c0, tile.w + r0);
+          return;
+        }
+        for (int j = tw; j < 64 * 8; j += 128) {
+          const int r = j / 8, q = j % 8, c = c0 + q * 8;
+          if (r < rows && c < C) {
+            const long long row =
+                run ? tile.w + r0 + r : perm[tile.y + r0 + r];
+            *reinterpret_cast<uint4*>(dx + row * C + c) =
+                *reinterpret_cast<const uint4*>(buf + r * 128 +
+                                                ((q ^ (r & 7)) << 4));
+          }
+        }
+      });
     }
-    wg_wait<0>();
-    wg_touch<BN / 2>(acc);
-    // this thread's K rows rbase and rbase + 8 of the tile, columns
-    // 8 j + 2 tq (+1): stage the bf16 tile in the ring, then write it in
-    // 16-byte row pieces
-    const int lane = threadIdx.x & 31;
-    const int gq = lane >> 2, tq = lane & 3;
-    const int rbase = wg * 64 + (threadIdx.x / 32 % 4) * 16 + gq;
-    asm volatile("bar.sync 1, %0;\n" ::"n"(C::CONSUMERS) : "memory");
-    bf16* sC = reinterpret_cast<bf16*>(ring);
-#pragma unroll
-    for (int j = 0; j < BN / 8; ++j)
-#pragma unroll
-      for (int r = 0; r < 2; ++r)
-        *reinterpret_cast<__nv_bfloat162*>(
-            sC + (rbase + 8 * r) * C::LDC + 8 * j + 2 * tq) =
-            __floats2bfloat162_rn(acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1]);
-    asm volatile("bar.sync 1, %0;\n" ::"n"(C::CONSUMERS) : "memory");
-    bf16* dwe = dw + (long long)e * K * N;
-    for (int i = threadIdx.x; i < DW_BK * BN / 8; i += C::CONSUMERS) {
-      const int r = i / (BN / 8), c = i % (BN / 8) * 8;
-      const int k = k0 + r, n = n0 + c;
-      if (k < K && n < N)
-        *reinterpret_cast<uint4*>(dwe + (long long)k * N + n) =
-            *reinterpret_cast<const uint4*>(sC + r * C::LDC + c);
-    }
+    if (tw == 0) bulk_wait();
     return;
   }
-  // the DW_PW producer warps: stage kt holds the expert's slots s0 + kt
-  // GBK .., row r's 16-byte chunk c at chunk c ^ (r % 8) of its 128-byte
-  // row in its panel; rows past the expert and columns past K or N are
-  // zeros.  Warp pw takes rows pw, pw + DW_PW, ..: a lane a 16-byte chunk
-  // of dY's row (BN / 8 = 32 chunks), and half a warp a row pair of x
-  // (DW_BK / 8 = 16 chunks); each lane holds the x rows of slots lane and
-  // lane + 32, broadcast by shuffles.
-  static_assert(BN / 8 == 32 && DW_BK / 8 == 16, "a lane a chunk");
+  // the producer warp
   const int lane = threadIdx.x & 31;
-  const int pw = (threadIdx.x - C::CONSUMERS) >> 5;
-  for (int kt = 0; kt < nk; ++kt) {
-    const int s = kt % ST;
-    unsigned char* sA = ring + s * C::STAGE;
-    unsigned char* sB = sA + C::A_BYTES;
-    if (kt >= ST) mbar_wait(&empty[s], (kt / ST - 1) & 1);
-    const int base = s0 + kt * GBK;
-    const int lo = base + lane < s1 ? perm[base + lane] : -1;
-    const int hi = base + 32 + lane < s1 ? perm[base + 32 + lane] : -1;
-#pragma unroll 4
-    for (int r = pw; r < GBK; r += DW_PW) {
-      const int row = __shfl_sync(0xffffffffu, r < 32 ? lo : hi, r & 31);
-      const int col = n0 + lane * 8;
-      const bool in = row >= 0 && col < N;
-      cp_async16(sB + (lane >> 3) * 8192 + r * 128 +
-                     (((lane & 7) ^ (r & 7)) << 4),
-                 in ? dy + (long long)row * N + col : dy, in ? 16 : 0);
+  for (int i = blockIdx.x;; i += gridDim.x) {
+    const int y = i / ncol;
+    if (y >= tiles) break;
+    const int4 tile = info[y];
+    const int e = tile.x;
+    if (e < 0) break;
+    if (e == E) continue;
+    const int n0 = i % ncol * BN;
+    const bool run = tile.w >= 0;
+    // gathered rows: lane l holds the x rows of the tile's rows l, l + 32, ..
+    int prow[BM / 32];
+#pragma unroll
+    for (int m = 0; m < BM / 32; ++m) {
+      const int r = lane + 32 * m;
+      prow[m] = !run && r < tile.z ? perm[tile.y + r] : -1;
     }
-#pragma unroll 4
-    for (int r2 = 2 * pw; r2 < GBK; r2 += 2 * DW_PW) {
-      const int r = r2 + (lane >> 4), c = lane & 15;
-      const int src = __shfl_sync(0xffffffffu, r2 < 32 ? lo : hi, r2 & 31);
-      const int nxt = __shfl_sync(0xffffffffu, r2 < 32 ? lo : hi,
-                                  (r2 + 1) & 31);
-      const int row = lane < 16 ? src : nxt, col = k0 + c * 8;
-      const bool in = row >= 0 && col < K;
-      cp_async16(sA + (c >> 3) * 8192 + r * 128 + (((c & 7) ^ (r & 7)) << 4),
-                 in ? x + (long long)row * K + col : x, in ? 16 : 0);
+    for (int kt = 0; kt < nk; ++kt, ++it) {
+      const int s = it % BWD_ST, kk = kt * GBK;
+      unsigned char* sA = ring + s * Cf::STAGE;
+      unsigned char* sB = sA + Cf::A_BYTES;
+      // every lane waits for every stage to be free, also one that lane 0
+      // alone fills (a run), and the warp moves on together: no lane runs
+      // ahead of the barrier's phase, so its parity names the right one
+      if (it >= BWD_ST) mbar_wait(&empty[s], (it / BWD_ST - 1) & 1);
+      __syncwarp();
+      if (run) {
+        if (lane == 0) {
+          mbar_expect(&full[s], Cf::STAGE);
+          tma_load_3d(sB, &map_w, &full[s], kk, n0, e);
+          tma_load_2d(sA, &map_dy, &full[s], kk, tile.w);
+        }
+        continue;
+      }
+      // row r's 16-byte chunk c goes to chunk c ^ (r % 8) of its 128-byte
+      // row; rows past the tile and columns past S are zero.  Lane l takes
+      // chunk l % 8 of rows l / 8 + 4 j, held by lane r % 32 in prow[j / 8]
+#pragma unroll
+      for (int j = 0; j < BM / 4; ++j) {
+        const int r = (lane >> 3) + 4 * j, c = lane & 7;
+        const int row = __shfl_sync(0xffffffffu, prow[j / 8], r & 31);
+        const int col = kk + c * 8;
+        const bool in = row >= 0 && col < S;
+        cp_async16(sA + r * 128 + ((c ^ (r & 7)) << 4),
+                   in ? dy + (long long)row * S + col : dy, in ? 16 : 0);
+      }
+      // each lane's copies hold the phase open before the expect_tx may
+      // close it
+      cp_async_arrive(&full[s]);
+      __syncwarp();
+      if (lane == 0) {
+        mbar_expect(&full[s], Cf::B_BYTES);
+        tma_load_3d(sB, &map_w, &full[s], kk, n0, e);
+      }
     }
-    asm volatile(
-        "cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
-            smem_u32(&full[s]))
-        : "memory");
   }
+}
+
+// The work of a dW launch, as each of its blocks computes it: nc clusters
+// of DW_CK blocks; this block's cluster c and rank kr in it; an expert's
+// items in nkg groups of DW_CK K tiles by nn N tiles.  Round w gives
+// cluster c the item w nc + c, in odd rounds w nc + nc - 1 - c, of the
+// list of every expert's items, the experts by rank (order), the K group
+// fastest.
+struct DwWork {
+  int kr, nc, c, nkg, nn;
+};
+
+// One item of a dW block: expert e's tile at (k0, n0) and its slots
+// s0 .. s1
+struct DwItem {
+  int e, k0, n0, s0, s1;
+};
+
+__device__ __forceinline__ bool dw_item(const DwWork& wk, int w,
+                                        const uint16_t* order,
+                                        const int* __restrict__ off, int E,
+                                        DwItem& t) {
+  const int per = wk.nkg * wk.nn;
+  const int i = w * wk.nc + ((w & 1) ? wk.nc - 1 - wk.c : wk.c);
+  if (i >= E * per) return false;
+  t.e = order[i / per];
+  t.k0 = (i % per % wk.nkg * DW_CK + wk.kr) * DW_BK;
+  t.n0 = i % per / wk.nkg * DW_BN;
+  t.s0 = off[t.e];
+  t.s1 = off[t.e + 1];
+  return true;
+}
+
+// A dW block of a cluster of DW_CK: its items (DwWork), each
+// dW[e][k0 .. k0 + DW_BK)[n0 .. n0 + DW_BN), the sum over the expert's
+// rows in slot order, GBK rows a stage.
+__global__ void __launch_bounds__(DwCfg::THREADS, 1)
+gmm_dw_wgmma(const __grid_constant__ CUtensorMap map_x,
+             const __grid_constant__ CUtensorMap map_dy,
+             const __grid_constant__ CUtensorMap map_dw,
+             const bf16* __restrict__ x, const bf16* __restrict__ dy,
+             const int* __restrict__ perm, const int* __restrict__ off,
+             const int* __restrict__ toff, const int4* __restrict__ info,
+             int K, int N, int E, int bm, int after_dx) {
+  using C = DwCfg;
+  unsigned char* ring = bwd_smem();
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + C::BARS);
+  uint64_t* empty = full + BWD_ST;
+  uint16_t* order = reinterpret_cast<uint16_t*>(ring + C::TAIL);
+  const DwWork wk = {(int)cluster_rank(), (int)gridDim.x / DW_CK,
+                     (int)blockIdx.x / DW_CK,
+                     ((K + DW_BK - 1) / DW_BK + DW_CK - 1) / DW_CK,
+                     (N + DW_BN - 1) / DW_BN};
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < BWD_ST; ++s) {
+      // the producer's expect_tx (a gather's cp.async's add their own)
+      mbar_init(&full[s], 1);
+      // an arrival a consumer warpgroup of the cluster
+      mbar_init(&empty[s], C::NWG * DW_CK);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  // Launched as a programmatic dependent.  Right after dX (after_dx), it
+  // starts once every dX block has passed its own wait for the grids
+  // before, so what dW reads (x, dY, the plan) is written by then: dW runs
+  // beside dX's last tiles and waits for dX only before it ends, so that
+  // it ends after dX.  Else it waits for the grid before here.
+  if (!after_dx) asm volatile("griddepcontrol.wait;\n" ::: "memory");
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+  // the experts by rows, most first, ties by expert (the epilogue buffers
+  // hold the counts meanwhile): every block of the launch the same order
+  int* cnt = reinterpret_cast<int*>(ring + C::EPI);
+  for (int e = threadIdx.x; e < E; e += C::THREADS)
+    cnt[e] = off[e + 1] - off[e];
+  __syncthreads();
+  for (int e = threadIdx.x; e < E; e += C::THREADS) {
+    const int n = cnt[e];
+    int r = 0;
+    for (int f = 0; f < E; ++f) r += cnt[f] > n || (cnt[f] == n && f < e);
+    order[r] = (uint16_t)e;
+  }
+  // every block's barriers are initialised and its order written before
+  // any block of the cluster arrives on them or loads into its stages
+  cluster_arrive();
+  cluster_wait();
+
+  int it = 0;                           // stages through the ring so far
+  DwItem t;
+  if (threadIdx.x < C::CONSUMERS) {
+    const int wg = threadIdx.x / 128, tw = threadIdx.x % 128;
+    unsigned char* bufs = ring + C::EPI + wg * 2 * EPI_BUF;
+    for (int w = 0; dw_item(wk, w, order, off, E, t); ++w) {
+      const int nk = (t.s1 - t.s0 + GBK - 1) / GBK;
+      // whether every tile of the expert's is one run of x, so no stage of
+      // the item is gathered (the model's sorted ids)
+      const int t0 = toff[t.e], t1 = toff[t.e + 1];
+      bool runs = true;
+      for (int i = t0; i < t1; ++i) runs = runs && info[i].w >= 0;
+      // the item's first product overwrites the accumulators (scale-d 0):
+      // no other instruction writes them
+      float acc[DW_BN / 2];
+      for (int kt = 0; kt < nk; ++kt, ++it) {
+        const int s = it % BWD_ST, rel = kt * GBK;
+        unsigned char* st = ring + s * C::STAGE;
+        // gathered by cp.async (its tile of the plan no run of x), or not
+        const bool gathered = !runs && info[t0 + rel / bm].w < 0;
+        mbar_wait(&full[s], (it / BWD_ST) & 1);
+        // a partial last stage: its rows n .. GBK - 1 in every panel
+        // (contiguous, the swizzle stays inside a row) are set to zero
+        const int n = min(GBK, t.s1 - t.s0 - rel);
+        if (n < GBK) {
+          constexpr int PANELS = (DW_BK + DW_BN) / 64;
+          const int per = (GBK - n) * 8;      // 16-byte pieces a panel
+          for (int j = threadIdx.x; j < PANELS * per; j += C::CONSUMERS)
+            *reinterpret_cast<uint4*>(st + j / per * 8192 + n * 128 +
+                                      j % per * 16) = make_uint4(0, 0, 0, 0);
+        }
+        // the generic proxy's writes (cp.async, the zeros) before wgmma's
+        // reads
+        if (gathered || n < GBK) fence_proxy_async();
+        if (n < GBK) named_sync(1, C::CONSUMERS);
+        const unsigned char* sA = st + wg * 8192;
+        const unsigned char* sB = st + C::A_BYTES;
+        wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < GBK / 16; ++kk)
+          wgmma_bf<DW_BN, 1, 1>(acc, wg_desc(sA + kk * 2048, 8192, 1024),
+                                wg_desc(sB + kk * 2048, 8192, 1024),
+                                kt + kk > 0);
+        wg_commit();
+        wg_wait<1>();
+        wg_touch<DW_BN / 2>(acc);
+        if (kt > 0) hand_back(&empty[(it - 1) % BWD_ST], DW_CK);
+      }
+      wg_wait<0>();
+      wg_touch<DW_BN / 2>(acc);
+      if (nk > 0) hand_back(&empty[(it - 1) % BWD_ST], DW_CK);
+
+      // the epilogue, by TMA while the next item's stages load and run; an
+      // expert with no row writes zeros
+      const int k0 = t.k0 + 64 * wg;
+      epilogue<DW_BN>(bufs, acc, nk > 0, [&](int p, const unsigned char* buf) {
+        if (tw == 0 && k0 < K && t.n0 + 64 * p < N)
+          tma_store_3d(&map_dw, buf, t.n0 + 64 * p, k0, t.e);
+      });
+    }
+    if (tw == 0) bulk_wait();
+  } else {
+    // the DW_PW producer warps
+    const int pt = threadIdx.x - C::CONSUMERS;
+    const int lane = pt & 31, pw = pt >> 5;
+    for (int w = 0; dw_item(wk, w, order, off, E, t); ++w) {
+      const int nk = (t.s1 - t.s0 + GBK - 1) / GBK;
+      for (int kt = 0; kt < nk; ++kt, ++it) {
+        const int s = it % BWD_ST, rel = kt * GBK;
+        unsigned char* sA = ring + s * C::STAGE;
+        unsigned char* sB = sA + C::A_BYTES;
+        // the stage's tile of the plan: a run of x from its first x row,
+        // by thread 0's TMA, or gathered by every producer thread.  Every
+        // producer thread waits for every stage to be free, also one that
+        // thread 0 alone fills, and the producers move on together: none
+        // runs ahead of the barrier's phase, so its parity names the right
+        // one.
+        const int4 tile = info[toff[t.e] + rel / bm];
+        if (it >= BWD_ST) mbar_wait(&empty[s], (it / BWD_ST - 1) & 1);
+        named_sync(4, 32 * DW_PW);
+        if (tile.w >= 0) {
+          if (pt != 0) continue;
+          const int xrow = tile.w + rel % bm;
+          // a box wholly past K or N is not loaded: its rows or columns
+          // of the tile are not stored
+          int bytes = 0;
+          for (int q = 0; q < DW_BK / 64; ++q)
+            bytes += t.k0 + 64 * q < K ? 8192 : 0;
+          for (int p = 0; p < DW_BN / 64; ++p)
+            bytes += t.n0 + 64 * p < N ? 8192 : 0;
+          mbar_expect(&full[s], bytes);
+          for (int q = 0; q < DW_BK / 64; ++q)
+            if (t.k0 + 64 * q < K)
+              tma_load_2d(sA + q * 8192, &map_x, &full[s], t.k0 + 64 * q,
+                          xrow);
+          // this block's share of dY's boxes, into every block of the
+          // cluster
+          for (int p = wk.kr; p < DW_BN / 64; p += DW_CK)
+            if (t.n0 + 64 * p < N)
+              tma_load_2d_mc(sB + p * 8192, &map_dy, &full[s], t.n0 + 64 * p,
+                             xrow, (1u << DW_CK) - 1);
+          continue;
+        }
+        // gathered: row r's 16-byte chunk c at chunk c ^ (r % 8) of its
+        // 128-byte row in its panel; rows past the expert and columns past
+        // K or N are zeros.  Warp pw takes rows pw, pw + DW_PW, ..: a lane
+        // a 16-byte chunk of dY's row (DW_BN / 8 = 32 chunks), and half a
+        // warp a row pair of x (DW_BK / 8 = 16 chunks); each lane holds
+        // the x rows of slots lane and lane + 32, broadcast by shuffles.
+        static_assert(DW_BN / 8 == 32 && DW_BK / 8 == 16, "a lane a chunk");
+        const int base = t.s0 + rel;
+        const int lo = base + lane < t.s1 ? perm[base + lane] : -1;
+        const int hi = base + 32 + lane < t.s1 ? perm[base + 32 + lane] : -1;
+#pragma unroll 4
+        for (int r = pw; r < GBK; r += DW_PW) {
+          const int row = __shfl_sync(0xffffffffu, r < 32 ? lo : hi, r & 31);
+          const int col = t.n0 + lane * 8;
+          const bool in = row >= 0 && col < N;
+          cp_async16(sB + (lane >> 3) * 8192 + r * 128 +
+                         (((lane & 7) ^ (r & 7)) << 4),
+                     in ? dy + (long long)row * N + col : dy, in ? 16 : 0);
+        }
+#pragma unroll 4
+        for (int r2 = 2 * pw; r2 < GBK; r2 += 2 * DW_PW) {
+          const int r = r2 + (lane >> 4), c = lane & 15;
+          const int src = __shfl_sync(0xffffffffu, r2 < 32 ? lo : hi,
+                                      r2 & 31);
+          const int nxt = __shfl_sync(0xffffffffu, r2 < 32 ? lo : hi,
+                                      (r2 + 1) & 31);
+          const int row = lane < 16 ? src : nxt, col = t.k0 + c * 8;
+          const bool in = row >= 0 && col < K;
+          cp_async16(sA + (c >> 3) * 8192 + r * 128 +
+                         (((c & 7) ^ (r & 7)) << 4),
+                     in ? x + (long long)row * K + col : x, in ? 16 : 0);
+        }
+        // every producer's copies hold the phase open before the last
+        // arrival may close it
+        cp_async_arrive(&full[s]);
+        named_sync(4, 32 * DW_PW);
+        if (pt == 0) mbar_arrive(&full[s]);
+      }
+    }
+  }
+  // no block leaves while a block of its cluster may still arrive on its
+  // barriers, nor before dX has ended
+  __syncwarp();
+  cluster_arrive();
+  if (after_dx) asm volatile("griddepcontrol.wait;\n" ::: "memory");
+  cluster_wait();
 }
 
 // bf16 dW with K or N not a multiple of 8: block (N tile, K tile, expert)
@@ -1158,18 +1533,71 @@ __global__ void __launch_bounds__(FNT) gmm_dw_f32_kernel(
   }
 }
 
-// dX by the forward's kernels with w transposed: the sum runs over N, the
-// output has K columns
+
+// SMs of the current device
+int sm_count() {
+  static int n = 0;
+  if (n == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess)
+      n = 0;
+  }
+  return n;
+}
+
+// dX on gmm_dx_wgmma, as many blocks as the card holds at once and at most
+// one an item; a programmatic dependent of the launch before it.  The sum
+// runs over S, the output has C columns.
+template <int BM, int BN>
+int launch_dx_wgmma(const void* dy, const void* w, void* dx, const int* perm,
+                    const int4* info, int T, int S, int C, int E, int tiles,
+                    cudaStream_t s) {
+  using Cf = DxCfg<BM, BN>;
+  static int per_sm = 0;
+  if (per_sm == 0) {
+    cudaError_t e = cudaFuncSetAttribute(
+        gmm_dx_wgmma<BM, BN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)Cf::bytes);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, gmm_dx_wgmma<BM, BN>, Cf::THREADS, Cf::bytes);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const long long items = (long long)tiles * ((C + BN - 1) / BN);
+  const long long blocks = (long long)per_sm * sm_count();
+  CUtensorMap ma, mb, mo;
+  if (blocks < 1 || !gmm_map(&ma, dy, T, S, 0, BM) ||
+      !gmm_map(&mb, w, C, S, E, BN) || !gmm_map(&mo, dx, T, C, 0, 64))
+    return (int)cudaErrorInvalidValue;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(items < blocks ? items : blocks));
+  cfg.blockDim = dim3(Cf::THREADS);
+  cfg.dynamicSmemBytes = Cf::bytes;
+  cfg.stream = s;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return (int)cudaLaunchKernelEx(&cfg, gmm_dx_wgmma<BM, BN>, ma, mb, mo,
+                                 static_cast<const bf16*>(dy),
+                                 static_cast<bf16*>(dx), perm, info, S, C, E,
+                                 tiles);
+}
+
+// dX: the sum runs over N, the output has K columns
 int launch_dx(const void* dy, const void* w, void* dx, const int* perm,
               const int4* info, int T, int K, int N, int E, int dtype,
               int path, int bm, int bn, int tiles, cudaStream_t s) {
   if (path == 0) {
     if (bm == 128 && bn == 256)
-      return launch_wgmma<128, 256, 4, 1>(dy, w, dx, perm, info, T, N, K, E,
-                                          tiles, s);
+      return launch_dx_wgmma<128, 256>(dy, w, dx, perm, info, T, N, K, E,
+                                       tiles, s);
     if (bm == 64 && bn == 128)
-      return launch_wgmma<64, 128, 4, 1>(dy, w, dx, perm, info, T, N, K, E,
-                                         tiles, s);
+      return launch_dx_wgmma<64, 128>(dy, w, dx, perm, info, T, N, K, E,
+                                      tiles, s);
     return (int)cudaErrorInvalidValue;
   }
   if (bn != SUB) return (int)cudaErrorInvalidValue;
@@ -1185,36 +1613,63 @@ int launch_dx(const void* dy, const void* w, void* dx, const int* perm,
   return (int)cudaGetLastError();
 }
 
-// dW, a block a (N tile, K tile, expert); launched as a programmatic
-// dependent on the wgmma path, as the products are
-int launch_dw(const void* x, const void* dy, void* dw, const int* perm,
-              const int* off, int K, int N, int E, int dtype, int path,
-              cudaStream_t s) {
-  if (path == 0) {
-    using C = DwCfg<DW_BN, 4>;
-    static bool configured = false;
-    if (!configured) {
-      cudaError_t e = cudaFuncSetAttribute(
-          gmm_dw_wgmma<DW_BN, 4>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-          (int)C::smem);
-      if (e != cudaSuccess) return (int)e;
-      configured = true;
-    }
-    cudaLaunchAttribute attr[1];
-    attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
-    attr[0].val.programmaticStreamSerializationAllowed = 1;
-    cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = dim3((N + DW_BN - 1) / DW_BN, (K + DW_BK - 1) / DW_BK, E);
-    cfg.blockDim = dim3(C::THREADS);
-    cfg.dynamicSmemBytes = C::smem;
-    cfg.stream = s;
-    cfg.attrs = attr;
-    cfg.numAttrs = 1;
-    return (int)cudaLaunchKernelEx(
-        &cfg, gmm_dw_wgmma<DW_BN, 4>, static_cast<const bf16*>(x),
-        static_cast<const bf16*>(dy), static_cast<bf16*>(dw), perm, off, K,
-        N);
+// dW on gmm_dw_wgmma in clusters of DW_CK blocks, as many clusters as the
+// card holds at once and at most one an item; a programmatic dependent of
+// the launch before it, gmm_dx_wgmma's where after_dx
+int launch_dw_wgmma(const void* x, const void* dy, void* dw, const int* perm,
+                    const int* off, const int* toff, const int4* info, int T,
+                    int K, int N, int E, int bm, int after_dx,
+                    cudaStream_t s) {
+  if (bm % GBK) return (int)cudaErrorInvalidValue;
+  static bool configured = false;
+  if (!configured) {
+    cudaError_t e = cudaFuncSetAttribute(
+        gmm_dw_wgmma, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)DwCfg::bytes);
+    if (e != cudaSuccess) return (int)e;
+    configured = true;
   }
+  cudaLaunchAttribute attr[2];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = DW_CK;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  attr[1].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[1].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.blockDim = dim3(DwCfg::THREADS);
+  cfg.dynamicSmemBytes = DwCfg::bytes;
+  cfg.stream = s;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  // the clusters the card holds at once
+  static int fit = 0;
+  if (fit == 0) {
+    cfg.gridDim = dim3(DW_CK * sm_count());
+    const cudaError_t e =
+        cudaOccupancyMaxActiveClusters(&fit, gmm_dw_wgmma, &cfg);
+    if (e != cudaSuccess) return (int)e;
+    if (fit < 1) return (int)cudaErrorInvalidConfiguration;
+  }
+  const long long items =
+      (long long)E * (((K + DW_BK - 1) / DW_BK + DW_CK - 1) / DW_CK) *
+      ((N + DW_BN - 1) / DW_BN);
+  CUtensorMap mx, mdy, mdw;
+  if (!gmm_map(&mx, x, T, K, 0, GBK) || !gmm_map(&mdy, dy, T, N, 0, GBK) ||
+      !gmm_map(&mdw, dw, K, N, E, 64))
+    return (int)cudaErrorInvalidValue;
+  cfg.gridDim = dim3((unsigned)(DW_CK * (items < fit ? items : fit)));
+  cfg.numAttrs = 2;
+  return (int)cudaLaunchKernelEx(
+      &cfg, gmm_dw_wgmma, mx, mdy, mdw, static_cast<const bf16*>(x),
+      static_cast<const bf16*>(dy), perm, off, toff, info, K, N, E, bm,
+      after_dx);
+}
+
+// dW on the generic kernels, a block a (N tile, K tile, expert)
+int launch_dw_generic(const void* x, const void* dy, void* dw,
+                      const int* perm, const int* off, int K, int N, int E,
+                      int dtype, cudaStream_t s) {
   const dim3 grid((N + SUB - 1) / SUB, (K + SUB - 1) / SUB, E);
   if (dtype == 1)
     gmm_dw_f32_kernel<<<grid, FNT, 0, s>>>(
@@ -1231,18 +1686,19 @@ int launch_dw(const void* x, const void* dy, void* dw, const int* perm,
 
 // The gradients of moe_gmm_fwd's out for dy (T, N): dx (T, K), or null to
 // skip it, and dw (E, K, N), or null, in x's dtype (0 = bf16, 1 = f32);
-// x (T, K), w (E, K, N), dy contiguous.  perm, off and info: the forward's
-// plan (moe_gmm_plan) of the rows' ids, with `tiles` entries of info and
-// row tiles of bm rows.  path 0 (bf16, K and N multiples of 8, 16-byte
-// aligned): dX on gmm_wgmma<bm, bn, 4, 1> with (bm, bn) = (128, 256) or
-// (64, 128) over its K output columns, dW on gmm_dw_wgmma (DW_BK x DW_BN
-// tiles); path 1: the generic kernels, 64 x 64 tiles (bn = 64).  Returns
-// the CUDA error of the launches (0 on success).
+// x (T, K), w (E, K, N), dy contiguous.  perm, off, toff and info: the
+// forward's plan (moe_gmm_plan) of the rows' ids, with `tiles` entries of
+// info and row tiles of bm rows.  path 0 (bf16, K and N multiples of 8,
+// 16-byte aligned): dX on gmm_dx_wgmma<bm, bn> with (bm, bn) = (128, 256)
+// or (64, 128) over its K output columns, dW on gmm_dw_wgmma (DW_BK x
+// DW_BN tiles) in clusters of DW_CK blocks along K; path 1: the generic
+// kernels, 64 x 64 tiles (bn = 64).  Returns the CUDA error of the
+// launches (0 on success).
 extern "C" int moe_gmm_bwd(const void* x, const void* w, const void* dy,
                            void* dx, void* dw, const int* perm,
-                           const int* off, const int* info, int T, int K,
-                           int N, int E, int dtype, int path, int bm, int bn,
-                           int tiles, void* stream) {
+                           const int* off, const int* toff, const int* info,
+                           int T, int K, int N, int E, int dtype, int path,
+                           int bm, int bn, int tiles, void* stream) {
   if (T < 0 || K < 0 || N < 0 || E < 1 || E > MAXE || tiles < 0 ||
       tiles > 65535 || (dtype != 0 && dtype != 1) || (path != 0 && path != 1))
     return (int)cudaErrorInvalidValue;
@@ -1256,17 +1712,23 @@ extern "C" int moe_gmm_bwd(const void* x, const void* w, const void* dy,
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const size_t elem = dtype ? 4 : 2;
+  const int4* ti = reinterpret_cast<const int4*>(info);
+  // dX's bf16 kernel precedes dW's
+  const bool after_dx = dx != nullptr && T > 0 && K > 0 && N > 0 && path == 0;
   if (dx != nullptr && T > 0 && K > 0) {
     const int err = N == 0
         ? (int)cudaMemsetAsync(dx, 0, (size_t)T * K * elem, s)
-        : launch_dx(dy, w, dx, perm, reinterpret_cast<const int4*>(info), T,
-                    K, N, E, dtype, path, bm, bn, tiles, s);
+        : launch_dx(dy, w, dx, perm, ti, T, K, N, E, dtype, path, bm, bn,
+                    tiles, s);
     if (err != 0) return err;
   }
   if (dw != nullptr && K > 0 && N > 0) {
     // with no rows every expert's sum is empty
     if (T == 0) return (int)cudaMemsetAsync(dw, 0, (size_t)E * K * N * elem, s);
-    return launch_dw(x, dy, dw, perm, off, K, N, E, dtype, path, s);
+    return path == 0 ? launch_dw_wgmma(x, dy, dw, perm, off, toff, ti, T, K,
+                                       N, E, bm, after_dx, s)
+                     : launch_dw_generic(x, dy, dw, perm, off, K, N, E, dtype,
+                                         s);
   }
   return 0;
 }

@@ -19,9 +19,11 @@ grid from what the host knows, so nothing waits for the card.
 Its gradient is ``moe_gmm_bwd``: on the CPU autograd through the plain
 version; on CUDA (grad mode on and ``x`` or ``w`` requiring grad, through
 ``_Gmm``) the backward kernels of ``csrc/moe_gmm.cu`` on the forward's
-plan: dX on the forward's kernels with w read transposed, dW a block a
-(K tile, N tile, expert) walking that expert's rows.  Each backward call
-adds one to ``moe_gmm_bwd.launches``.
+plan.  In bf16 both are persistent, a block an SM walking a work list:
+dX over (row tile, column tile) items, dW over (expert, K tile, N tile)
+items, experts with the most rows first, in clusters of two blocks along
+K that share dY's TMA loads, each walking its expert's rows.  Each
+backward call adds one to ``moe_gmm_bwd.launches``.
 """
 from __future__ import annotations
 
@@ -81,9 +83,13 @@ class Schedule(NamedTuple):
 class BwdSchedule(NamedTuple):
     """What ``moe_gmm_bwd`` launches on the card.  ``path`` as the
     forward's; ``dx`` the forward's schedule of the product with K and N
-    swapped (the sum over N, K output columns, w read transposed);
-    ``dw_tile`` the (K rows, N columns) of a dW block and ``dw_grid`` its
-    grid (N tiles, K tiles, E), each block walking its expert's rows."""
+    swapped (the sum over N, K output columns, w read transposed): its
+    tiles, and as ``grid`` its work items (column tiles, row tiles), each
+    a block on the generic path, walked by persistent blocks on the wgmma
+    path.  ``dw_tile`` the (K rows, N columns) of a dW item and
+    ``dw_grid`` the items (N tiles, K tiles, E), each walking its expert's
+    rows: a block each on the generic path, walked by persistent clusters
+    of ``DW_CK`` blocks along K (csrc/moe_gmm.cu) on the wgmma path."""
     path: str
     dx: Schedule
     dw_tile: tuple[int, int]
@@ -329,10 +335,11 @@ def moe_gmm_bwd(dy: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
 
     On the CPU: autograd through ``ref.moe_gmm_ref``.  On CUDA, on
     ``bwd_schedule``'s path and the forward's ``plan`` of these ids
-    (built here when not given): dX on the forward's kernels with w read
-    transposed, dW a block a (K tile, N tile, expert) that walks the
-    expert's rows in increasing order.  No atomics, so two runs give the
-    same bits.  Adds one to ``moe_gmm_bwd.launches``.
+    (built here when not given): dX over (row tile, column tile) items,
+    dW over (expert, K tile, N tile) items, each walking the expert's
+    rows in increasing order.
+    No atomics, so two runs give the same bits.  Adds one to
+    ``moe_gmm_bwd.launches``.
     """
     need_x, need_w = need
     if x.device.type == "cpu":
@@ -371,9 +378,10 @@ def moe_gmm_bwd(dy: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
             x.data_ptr(), w.data_ptr(), dy.data_ptr(),
             None if dx is None else dx.data_ptr(),
             None if dw is None else dw.data_ptr(), plan.perm.data_ptr(),
-            plan.off.data_ptr(), plan.tiles.data_ptr(), T, K, N, E,
-            _DTYPES[x.dtype], 0 if s.path == "wgmma" else 1, s.dx.bm,
-            s.dx.bn, s.dx.tiles, torch.cuda.current_stream().cuda_stream)
+            plan.off.data_ptr(), plan.toff.data_ptr(), plan.tiles.data_ptr(),
+            T, K, N, E, _DTYPES[x.dtype], 0 if s.path == "wgmma" else 1,
+            s.dx.bm, s.dx.bn, s.dx.tiles,
+            torch.cuda.current_stream().cuda_stream)
     _build.check(err, "moe_gmm_bwd")
     moe_gmm_bwd.launches += 1
     return dx, dw

@@ -2,6 +2,7 @@
 shapes, split by the kernels each call launches, on one GPU.
 
   PYTHONPATH=src python -m repro_torch.launch.profile_bwd [--reps N]
+      [--only NAME,..]
 
 ``flash_attention_bwd`` at granite-8b's training shape (B 4, S 1024, 32 /
 8 heads, D 128, causal, bf16), ``burst_gather_bwd`` at its embedding
@@ -11,12 +12,19 @@ heads, P 64, N 64, bf16 x, B and C sliced from one projection: the
 chunked path, a states pass ``mamba2_chunked<1, true, true>``, then
 ``mamba2_bwd_chunked`` and ``mamba2_bwd_sum``) and ``rwkv6_scan_bwd`` at
 rwkv6-1.6b's (B 4, S 1024, 32 heads, D 64, bf16: ``rwkv6_bwd_scan`` and
-``rwkv6_bwd_sum``).
+``rwkv6_bwd_sum``) and ``moe_gmm_bwd`` at granite-moe-3b-a800m's two
+grouped products (32,800 routed rows, the top 8 of 40 experts for 4,100
+tokens, sorted as the dispatch sorts them, bf16; gate/up K 1536 -> N
+512, down 512 -> 1536; on the layer's shared plan: dX and dW).
+``--only`` keeps the named ones of
+``flash_attention_bwd``, ``burst_gather_bwd``, ``mamba2_scan_bwd``,
+``rwkv6_scan_bwd`` and ``moe_gmm_bwd``.
 For each it prints the median device time of one call from CUDA
 events (the L2 flushed before each call) and the device time per call of
 each kernel the call launches, from ``torch.profiler``, after the card's
-name and power limit.  It calls only the wrappers' public entry points,
-so it also measures another checkout's kernels:
+name and power limit; for ``moe_gmm_bwd`` also its kernels' registers and
+spills (``_build.kernel_report``).  It calls only the wrappers' public
+entry points, so it also measures another checkout's kernels:
 ``PYTHONPATH=<checkout>/src python src/repro_torch/launch/profile_bwd.py``.
 It needs a CUDA device.
 """
@@ -35,6 +43,7 @@ from repro_torch.data import SyntheticTokens
 from repro_torch.kernels import burst_gather as bg
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import mamba2_scan as m2
+from repro_torch.kernels import moe_gmm as gmm
 from repro_torch.kernels import rwkv6_scan as r6
 from repro_torch.launch.profile_serve import _device_us, _traced
 
@@ -43,6 +52,12 @@ ARCH = "granite-8b"
 #: the scans' heads at the train phase's B and S: zamba2-7b's (H, P, N),
 #: rwkv6-1.6b's (H, D)
 M2_HPN, R6_HD = (112, 64, 64), (32, 64)
+#: granite-moe-3b-a800m's grouped products at the train phase's B and S:
+#: (tokens, top k, experts), and (K, N) of each product
+MOE_TKE = (B * (S + 1), 8, 40)
+MOE_KN = {"gate-up": (1536, 512), "down": (512, 1536)}
+NAMES = ("flash_attention_bwd", "burst_gather_bwd", "mamba2_scan_bwd",
+         "rwkv6_scan_bwd", "moe_gmm_bwd")
 #: clock cycles the card idles before each timed call (~0.5 ms at 2 GHz):
 #: longer than the host takes to issue the slowest wrapper ``chip_smoke.py``
 #: times, the split-KV decode with its scratch and two launches
@@ -147,10 +162,57 @@ def rwkv6_bwd_inputs(gen, b=B, s=S, hd=R6_HD, dtype=torch.bfloat16):
     return (*(t.to(dtype) for t in (r, k, v, w)), u, None, dy.to(dtype))
 
 
+def moe_bwd_inputs(gen, K, N, tke=MOE_TKE):
+    """x, w, ids, dy and the plan of one grouped product's backward as the
+    MoE layer gives them: the ids the top k of random router scores,
+    sorted by expert as the dispatch sorts them; x and dy standard normal,
+    w at std 1/sqrt(K); bf16."""
+    tokens, k, E = tke
+    ids = torch.randn((tokens, E), generator=gen, device="cuda").topk(
+        k, -1).indices.reshape(-1).sort().values.to(torch.int32)
+    x = torch.randn((tokens * k, K), generator=gen, device="cuda").bfloat16()
+    w = (torch.randn((E, K, N), generator=gen, device="cuda") *
+         K ** -0.5).bfloat16()
+    dy = torch.randn((tokens * k, N), generator=gen, device="cuda").bfloat16()
+    return x, w, ids, dy, gmm.plan(ids, E)
+
+
+def moe_bwd(out, gen, flush, reps):
+    """``moe_gmm_bwd`` at both products into ``out``: ms and kernels_ms,
+    and ``ms_alone`` of a call that asks for dX alone and one for dW alone
+    (the profiler's kernel times of the whole call overlap where dW starts
+    beside dX's last tiles); then the grouped matmul's kernels' registers
+    and spills."""
+    from repro_torch.kernels import _build
+
+    for prod, (K, N) in MOE_KN.items():
+        x, w, ids, dy, plan = moe_bwd_inputs(gen, K, N)
+
+        def call():
+            return gmm.moe_gmm_bwd(dy, x, w, ids, plan)
+        row = {"ms": time_ms(call, flush, reps),
+               "kernels_ms": kernel_split(call),
+               "ms_alone": {k: time_ms(lambda need=need: gmm.moe_gmm_bwd(
+                   dy, x, w, ids, plan, need=need), flush, reps)
+                   for k, need in (("dx", (True, False)),
+                                   ("dw", (False, True)))}}
+        out[f"moe_gmm_bwd[{prod}]"] = row
+        del x, w, ids, dy, plan
+    out["moe_gmm_kernels"] = {
+        k: v for k, v in _build.kernel_report("moe_gmm").items()
+        if "wgmma" in k}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--reps", type=int, default=25)
+    ap.add_argument("--only", default=",".join(NAMES),
+                    help="comma-separated kernels to time, of " +
+                    ", ".join(NAMES))
     args = ap.parse_args(argv)
+    only = set(args.only.split(","))
+    if only - set(NAMES):
+        raise SystemExit(f"profile_bwd: unknown --only {only - set(NAMES)}")
     if not torch.cuda.is_available():
         raise SystemExit("profile_bwd: no CUDA device is available")
     print(subprocess.run(
@@ -161,39 +223,52 @@ def main(argv=None):
     gen = torch.Generator(device="cuda").manual_seed(0)
     out = {"device": torch.cuda.get_device_name(0)}
 
-    q, k, v, o, lse, do = attention_inputs(gen)
+    if "flash_attention_bwd" in only:
+        q, k, v, o, lse, do = attention_inputs(gen)
 
-    def attn():
-        return fa.flash_attention_bwd(q, k, v, o, lse, do, causal=True)
-    out["flash_attention_bwd"] = {"ms": time_ms(attn, flush, args.reps),
-                                  "kernels_ms": kernel_split(attn)}
-    del q, k, v, o, lse, do
+        def attn():
+            return fa.flash_attention_bwd(q, k, v, o, lse, do, causal=True)
+        out["flash_attention_bwd"] = {"ms": time_ms(attn, flush, args.reps),
+                                      "kernels_ms": kernel_split(attn)}
+        del q, k, v, o, lse, do
 
-    R = configs.get(ARCH).vocab_padded
-    idx = embedding_ids()
-    dout = torch.randn((idx.numel(), 4096), generator=gen,
-                       device="cuda").bfloat16()
+    if "burst_gather_bwd" in only:
+        R = configs.get(ARCH).vocab_padded
+        idx = embedding_ids()
+        dout = torch.randn((idx.numel(), 4096), generator=gen,
+                           device="cuda").bfloat16()
 
-    def gather():
-        return bg.burst_gather_bwd(dout, idx, R)
-    out["burst_gather_bwd"] = {"ms": time_ms(gather, flush, args.reps),
-                               "kernels_ms": kernel_split(gather)}
-    del idx, dout
+        def gather():
+            return bg.burst_gather_bwd(dout, idx, R)
+        out["burst_gather_bwd"] = {"ms": time_ms(gather, flush, args.reps),
+                                   "kernels_ms": kernel_split(gather)}
+        del idx, dout
 
     for name, fn, inputs in (
-            ("mamba2_scan_bwd", m2.mamba2_scan_bwd, mamba2_bwd_inputs(gen)),
-            ("rwkv6_scan_bwd", r6.rwkv6_scan_bwd, rwkv6_bwd_inputs(gen))):
-        def scan(fn=fn, inputs=inputs):
+            ("mamba2_scan_bwd", m2.mamba2_scan_bwd, mamba2_bwd_inputs),
+            ("rwkv6_scan_bwd", r6.rwkv6_scan_bwd, rwkv6_bwd_inputs)):
+        if name not in only:
+            continue
+
+        def scan(fn=fn, inputs=inputs(gen)):
             return fn(*inputs)
         out[name] = {"ms": time_ms(scan, flush, args.reps),
                      "kernels_ms": kernel_split(scan)}
-    for name in ("flash_attention_bwd", "burst_gather_bwd", "mamba2_scan_bwd",
-                 "rwkv6_scan_bwd"):
-        row = out[name]
+    if "moe_gmm_bwd" in only:
+        moe_bwd(out, gen, flush, args.reps)
+    for name, row in out.items():
+        if not isinstance(row, dict) or "ms" not in row:
+            continue
         parts = ", ".join(f"{k} {v:.4f}" for k, v in
                           row["kernels_ms"].items())
+        alone = "".join(f"; {k} alone {v:.4f} ms" for k, v in
+                        row.get("ms_alone", {}).items())
         print(f"{name}: {row['ms']:.4f} ms a call; by kernel (profiler, "
-              f"ms a call): {parts}")
+              f"ms a call): {parts}{alone}")
+    for kernel, r in out.get("moe_gmm_kernels", {}).items():
+        print(f"ptxas moe_gmm.cu {kernel}: {r.get('registers')} registers, "
+              f"spill stores {r.get('spill_stores')} B, spill loads "
+              f"{r.get('spill_loads')} B, HGMMA {r.get('hgmma')}")
     print(json.dumps(out))
 
 

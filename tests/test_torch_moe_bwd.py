@@ -5,16 +5,20 @@ the CPU, against the JAX package.
 held to ``jax.vjp`` of ``repro.kernels.ref.moe_gmm_ref`` on numpy-seeded
 inputs, with sorted, unsorted and out-of-range ids and an expert that no
 row takes.  On the card its kernels run on ``moe_gmm.bwd_schedule``: dX
-on the forward's kernels with K and N swapped (w read transposed), dW a
-block a (K tile, N tile, expert) that walks the expert's rows of the plan
-in order.  No CUDA kernel runs here, so this file checks that schedule
-(every dX output once, every dW element once, the tiles read from
-``csrc/moe_gmm.cu``), holds a plain-torch model of the dW kernels' walk
-(f32 sums a step of rows at a time, zeros for an expert with no row)
-to the plain gradient and JAX's, follows the CUDA branch of the wrappers
-through a faked library on meta tensors, and holds the MoE layer's
-gradients, and arctic-480b-reduced's whole loss and gradients, to JAX's.
-``chip_smoke.py`` holds the kernels to the plain version on the card.
+over (row tile, column tile) items with K and N swapped (w read
+transposed), dW over (expert, K tile, N tile) items that walk the
+expert's rows of the plan in order; in bf16 both are persistent
+(``_dx_work``, ``_dw_work``) and dW's stages come by TMA where they are one
+run of x (``_dw_stages``).  No CUDA kernel runs here, so this file checks
+those schedules (every dX output once, every dW element once, the work
+lists, the stages, the constants read from ``csrc/moe_gmm.cu``), holds a
+plain-torch model of the dW kernels' walk (f32 sums a stage of rows at a
+time, a TMA stage's rows read from its first x row with its tail set to
+zero, zeros for an expert with no row) to the plain gradient and JAX's,
+follows the CUDA branch of the wrappers through a faked library on meta
+tensors, and holds the MoE layer's gradients, and arctic-480b-reduced's
+whole loss and gradients, to JAX's.  ``chip_smoke.py`` holds the kernels
+to the plain version on the card.
 
 Tolerances: 2e-5 in f32 and 2e-2 in bf16, ``tests/test_kernels.py``'s
 (the same sums in another order; in bf16 one rounding of outputs of
@@ -64,15 +68,37 @@ def _np(x):
     return np.asarray(jnp.asarray(x, jnp.float32))
 
 
+#: rows of each expert of the "stage-edge" ids: 63, 64 and 65 past a
+#: stage edge, the next expert's rows in the same stage
+EDGE_ROWS = (63, 64, 65, 127, 128, 129, 1)
+
+
 def _ids(kind, T, E, rng):
     """(T,) int32 ids: "sorted", "unsorted", "out-of-range" (unsorted,
-    some below 0 and some at or above E) or "empty-expert" (unsorted, no
-    row of expert E // 2)."""
-    lo, hi = (-2, E + 3) if kind == "out-of-range" else (0, E)
+    some below 0 and some at or above E), "sorted-out-of-range" (as
+    "out-of-range", sorted: each expert's rows one run of x that does not
+    start at its first slot), "empty-expert" (unsorted, no row of expert
+    E // 2), "stage-edge" (sorted, ``EDGE_ROWS`` rows an expert, in
+    turn, up to T) or "mixed" (token order: experts 0 and 1 a run of T // 6
+    consecutive rows each, expert 2 the plan's row tile plus one rows at
+    random places, so a gathered tile and then a one-row run, and the rest
+    uniform over the other experts)."""
+    if kind == "mixed":
+        run = T // 6
+        g = rng.integers(3, E, T).astype(np.int32)
+        g[:2 * run] = np.repeat(np.arange(2, dtype=np.int32), run)
+        rest = 2 * run + rng.permutation(T - 2 * run)
+        g[rest[:gmm.row_tile(T, E) + 1]] = 2
+        return g
+    if kind == "stage-edge":
+        counts = [EDGE_ROWS[e % len(EDGE_ROWS)] for e in range(E)]
+        g = np.repeat(np.arange(E, dtype=np.int32), counts)[:T]
+        return np.concatenate([g, np.full(T - len(g), E - 1, np.int32)])
+    lo, hi = (-2, E + 3) if "out-of-range" in kind else (0, E)
     g = rng.integers(lo, hi, T).astype(np.int32)
     if kind == "empty-expert":
         g[g == E // 2] = (E // 2 + 1) % E
-    return np.sort(g) if kind == "sorted" else g
+    return np.sort(g) if kind.startswith("sorted") else g
 
 
 def _inputs(shape, kind, seed=0):
@@ -138,6 +164,10 @@ def _const(name):
     return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
 
 
+#: rows of an expert a stage of the bf16 dW kernel
+_DW_STEP = _const("GBK")
+
+
 def _dw_step(path, dtype):
     """Rows of an expert a dW block takes a step: ``GBK`` of the wgmma
     kernel, ``WBK`` (bf16) or ``FBK`` (f32) of the generic ones."""
@@ -147,15 +177,31 @@ def _dw_step(path, dtype):
 
 
 def test_bwd_constants_are_the_kernels():
-    """The dW tile is the kernel's; dX launches the forward's wgmma tiles,
-    transposed."""
+    """The dW tile is the kernel's, and its cluster of ``DW_CK`` blocks
+    along K (a portable cluster size) splits dY's 64-column boxes evenly
+    among its blocks; dX launches the
+    forward's tiles, transposed; the ring of ``BWD_ST`` stages, two
+    epilogue buffers a consumer warpgroup and the barriers (and dW's
+    expert order, 2 bytes an expert) fit a block's shared memory with no
+    room lost to alignment."""
     assert gmm.DW_TILE == (_const("DW_BK"), _const("DW_BN"))
+    ck = _const("DW_CK")
+    assert 1 <= ck <= 8 and gmm.DW_TILE[1] // 64 % ck == 0
     src = (CSRC / "moe_gmm.cu").read_text()
     back = src[re.search(r"^// -+ backward", src, re.M).start():]
     tiles = {int(m): int(n) for m, n in re.findall(
-        r"if \(bm == (\d+) && bn == (\d+)\)\n\s+return launch_wgmma<\1, \2, "
-        r"4, 1>", back)}
+        r"if \(bm == (\d+) && bn == (\d+)\)\n\s+return launch_dx_wgmma<\1, "
+        r"\2>", back)}
     assert tiles == gmm.WGMMA_TILES
+    stages, step, buf = _const("BWD_ST"), _const("GBK"), _const("EPI_BUF")
+
+    def smem(rows, cols, extra=0):
+        return stages * step * (rows + cols) * 2 + rows // 64 * 2 * buf + \
+            2 * stages * 8 + extra
+    assert buf == 64 * 128
+    assert smem(*gmm.DW_TILE, 2 * _const("MAXE")) <= _const("kMaxSmem")
+    for bm, bn in gmm.WGMMA_TILES.items():
+        assert smem(bm, bn) <= _const("kMaxSmem")
 
 
 #: (T, K, N, E, ids): granite-moe's training products (gate/up and down,
@@ -254,35 +300,76 @@ def test_bwd_schedule_covers_every_gradient_once(T, K, N, E, kind):
             assert _partition(ks, K) and _partition(ns, N)
 
 
-def _dw_model(x, dy, ids, E, dtype):
-    """The dW kernels' arithmetic in plain torch, on the plain plan and
-    ``bwd_schedule``'s tiles: each block sums its expert's rows a step at
-    a time in slot order, x^T dY of the step added to an f32 accumulator,
-    rounded once; an expert with no row gets the zeros its block writes.
-    The table starts as NaN, so an element no block wrote shows."""
+def _stage_rows(plan, T, slot, rows, xrow):
+    """The ``DW_STEP`` x rows a dW stage holds, row T standing for the
+    zeros TMA reads past the table: from its first x row by TMA, else its
+    rows through perm."""
+    step = _DW_STEP
+    if xrow >= 0:
+        return [min(r, T) for r in range(xrow, xrow + step)]
+    return plan.perm[slot:slot + rows].tolist() + [T] * (step - rows)
+
+
+def _dw_model(x, dy, ids, E, dtype, clusters=3):
+    """The dW kernels' arithmetic in plain torch, on the plain plan.  On
+    the wgmma path each block of ``_dw_work`` (``clusters`` clusters) walks
+    its items' ``_dw_stages``: the stage's ``DW_STEP`` rows of x and dY,
+    read from its first x row where it comes by TMA (the next expert's
+    rows, or zeros past T, included) and its rows past ``rows`` set to
+    zero, or gathered through perm; on the generic path each block of the
+    grid its expert's rows a step at a time.  x^T dY of each stage is
+    added to an f32 accumulator, rounded once, and a tile past the table
+    is not stored; an expert with no row gets the zeros its block writes.
+    The table starts as NaN, and each element may be written once, so an
+    element no block wrote, or two wrote, shows."""
     T, K = x.shape
     N = dy.shape[1]
     plan = gmm.plan(ids, E)
     s = gmm.bwd_schedule(T, K, N, E, dtype)
+    bk, bn = s.dw_tile
+    xz = torch.cat([x, x.new_zeros((1, K))])
+    dyz = torch.cat([dy, dy.new_zeros((1, N))])
     dw = torch.full((E, K, N), float("nan"))
-    for e, ks, ns, steps in _dw_blocks(plan, s, K, N, E, dtype):
+    if s.path == "generic":
+        items = [(e, ks, ns, [(rows, len(rows)) for rows in steps])
+                 for e, ks, ns, steps in _dw_blocks(plan, s, K, N, E, dtype)]
+    else:
+        items = [(e, range(kt * bk, min(kt * bk + bk, K)),
+                  range(nt * bn, min(nt * bn + bn, N)),
+                  [(_stage_rows(plan, T, *st), st[1])
+                   for st in _dw_stages(plan, e)])
+                 for walk in _dw_work(s, plan.off, clusters)
+                 for e, kt, nt in walk]
+    for e, ks, ns, stages in items:
+        if not ks or not ns:        # past the table: summed, not stored
+            continue
         acc = torch.zeros((len(ks), len(ns)))
-        for rows in steps:
+        for rows, n in stages:
             r = torch.tensor(rows, dtype=torch.long)
-            acc += x[r][:, ks.start:ks.stop].float().T @ \
-                dy[r][:, ns.start:ns.stop].float()
+            a = xz[r][:, ks.start:ks.stop].float()
+            b = dyz[r][:, ns.start:ns.stop].float()
+            a[n:], b[n:] = 0, 0
+            acc += a.T @ b
+        assert torch.isnan(dw[e, ks.start:ks.stop, ns.start:ns.stop]).all()
         dw[e, ks.start:ks.stop, ns.start:ns.stop] = acc
     return dw.to(x.dtype)
 
 
-@pytest.mark.parametrize("kind", ["sorted", "unsorted", "empty-expert"])
+@pytest.mark.parametrize("kind", ["sorted", "unsorted", "empty-expert",
+                                  "sorted-out-of-range", "stage-edge",
+                                  "mixed"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_dw_model_is_the_plain_gradient(dtype, kind):
     """The model of the dW kernels' walk equals the plain gradient and
     JAX's within the dtype's tolerance, on the wgmma tiles (bf16: K and N
-    multiples of 8, more rows an expert than one step) and the generic
-    ones (f32), with exact zeros for the expert no row takes."""
-    shape = (700, 136, 264, 5)
+    multiples of 8 and K != N, more rows an expert than one stage, three K
+    tiles in clusters of ``DW_CK``, a partial last N tile) and the generic
+    ones (f32), with exact zeros for the expert no row takes: stages by
+    TMA from runs of x that start at their slot (sorted) or elsewhere
+    (sorted with ids out of range), partial last stages of 63, 64 and 65
+    rows with the next expert's rows behind them (stage edge), gathered
+    stages (unsorted), and experts of runs beside gathered ones (mixed)."""
+    shape = (700, 264, 200, 5) if kind != "stage-edge" else (660, 264, 200, 7)
     x, w, g, dy = _inputs(shape, kind, seed=3)
     tx, tw, tdy = (torch.from_numpy(a).to(TDT[dtype]) for a in (x, w, dy))
     got = _dw_model(tx, tdy, torch.from_numpy(g), shape[3], TDT[dtype])
@@ -295,6 +382,221 @@ def test_dw_model_is_the_plain_gradient(dtype, kind):
     for e in range(shape[3]):
         if not (g == e).any():
             assert not _np(got[e]).any()
+
+
+# ---------------------------------------------------------------------------
+# the persistent work lists and dW's stages
+# ---------------------------------------------------------------------------
+def _dx_work(s, n_tiles, blocks):
+    """A model of the bf16 dX kernel's items, block by block, as it walks
+    them: block b takes items b, b + blocks, .. of (row tile y, column
+    tile x), x fastest, while y is below ``n_tiles`` (the plan's tiles,
+    ``toff[E + 1]``).  ``s`` is ``bwd_schedule(..).dx``."""
+    cols = s.grid[0]
+    return [[(i // cols, i % cols)
+             for i in range(b, n_tiles * cols, blocks)]
+            for b in range(blocks)]
+
+
+def _dw_order(off):
+    """The experts of a dW launch in the order its work list takes them:
+    by rows (``off[e + 1] - off[e]``), most first, ties by expert."""
+    off = [int(o) for o in off]
+    E = len(off) - 2
+    return sorted(range(E), key=lambda e: (off[e] - off[e + 1], e))
+
+
+def _dw_work(s, off, clusters):
+    """A model of the bf16 dW kernel's items, block by block in the order
+    of the launch's blocks (``clusters`` clusters of ck = ``DW_CK`` blocks
+    along K, rank kr), as each walks them: (expert, K tile, N tile).
+
+    An expert's items are ceil(K tiles / ck) x (N tiles) groups, the K
+    group fastest, and the experts come in ``_dw_order``.  Round w gives
+    cluster c the group w nc + c, in odd rounds w nc + nc - 1 - c (nc =
+    ``clusters``), so the largest groups spread over the clusters; block
+    kr of the cluster takes K tile kg ck + kr and N tile ng of group (kg,
+    ng).  A K tile past the table (an odd count of K tiles) is loaded and
+    summed as zeros and not stored."""
+    ck = _const("DW_CK")
+    nn, nk, E = s.dw_grid
+    nkg = -(-nk // ck)
+    per = nkg * nn
+    order = _dw_order(off)
+    work = []
+    for c in range(clusters):
+        rounds = []
+        for w in range(-(-E * per // clusters) + 1):
+            i = w * clusters + (clusters - 1 - c if w & 1 else c)
+            if i >= E * per:
+                break
+            rounds.append((order[i // per], i % per % nkg, i % per // nkg))
+        work += [[(e, kg * ck + kr, ng) for e, kg, ng in rounds]
+                 for kr in range(ck)]
+    return work
+
+
+def _dw_stages(p, e):
+    """A model of expert e's stages in the bf16 dW kernel's walk: (first
+    slot, rows, first x row or -1), ``_DW_STEP`` slots a stage from
+    ``off[e]``.
+
+    A stage lies in one row tile of the plan (tiles of ``p.bm``, a
+    multiple of ``_DW_STEP``, from ``off[e]``), so its rows are one run of
+    x exactly when that tile's run (its 4th entry) is not -1, and then
+    they start at the tile's first x row plus the stage's offset in the
+    tile: the stage comes by TMA boxes of ``_DW_STEP`` rows from there,
+    and its rows past ``rows`` (the next expert's, or past T) are set to
+    zero once it lands.  Else (-1) its rows are gathered through perm,
+    zeros past ``rows``."""
+    off, toff = p.off.tolist(), p.toff.tolist()
+    stages = []
+    for rel in range(0, off[e + 1] - off[e], _DW_STEP):
+        run = int(p.tiles[toff[e] + rel // p.bm, 3])
+        stages.append((off[e] + rel,
+                       min(_DW_STEP, off[e + 1] - off[e] - rel),
+                       run + rel % p.bm if run >= 0 else -1))
+    return stages
+
+
+
+#: (T, K, N, E, ids): granite-moe's training products, fewer items than
+#: clusters (one expert), an empty expert, three K tiles and a partial N
+#: tile, arctic-reduced's single tile, and runs beside gathered experts
+WORK_CASES = [
+    (32800, 1536, 512, 40, "sorted"),
+    (32800, 512, 1536, 40, "sorted"),
+    (100, 256, 512, 1, "sorted"),
+    (333, 264, 200, 5, "empty-expert"),
+    (516, 64, 96, 8, "sorted"),
+    (32800, 1536, 512, 40, "mixed"),
+]
+
+
+@pytest.mark.parametrize("clusters", [1, 4, 66])
+@pytest.mark.parametrize("T,K,N,E,kind", WORK_CASES, ids=str)
+def test_dw_work_takes_every_tile_once(T, K, N, E, kind, clusters):
+    """dW's work list on one cluster, a few, and the 66 of an H100 (132
+    SMs in pairs): every (expert, K tile, N tile) of the table once over
+    all blocks, a K tile past it only as a cluster's spare block; the
+    items in the order of the experts' rows, most first; within a
+    cluster, at every round, one expert (so the same stages of the same
+    rows) and one N tile (dY's boxes, which its blocks share), each block
+    on its own K tile, and every block the same number of items."""
+    g = _ids(kind, T, E, np.random.default_rng(T + K))
+    plan = gmm.plan(torch.from_numpy(g), E)
+    off = plan.off.tolist()
+    s = gmm.bwd_schedule(T, K, N, E)
+    ck = _const("DW_CK")
+    nn, nk, _ = s.dw_grid
+    work = _dw_work(s, plan.off, clusters)
+    assert len(work) == clusters * ck
+    seen = [item for walk in work for item in walk]
+    inside = [(e, kt, nt) for e, kt, nt in seen if kt < nk]
+    assert all(nt < nn for _, _, nt in seen)
+    assert sorted(inside) == [(e, kt, nt) for e in range(E)
+                              for kt in range(nk) for nt in range(nn)]
+    assert len(seen) - len(inside) == E * nn * (-(-nk // ck) * ck - nk)
+    rows = [off[e + 1] - off[e] for e in range(E)]
+    assert _dw_order(plan.off) == sorted(range(E),
+                                            key=lambda e: (-rows[e], e))
+    firsts = [walk[0][0] for walk in work[::ck] if walk]
+    assert rows[firsts[0]] == max(rows)
+    # round w of every cluster takes items of experts of no more rows than
+    # round w - 1 of any
+    by_round = {}
+    for walk in work:
+        for w, (e, _, _) in enumerate(walk):
+            by_round.setdefault(w, []).append(rows[e])
+    for w in range(1, len(by_round)):
+        assert max(by_round[w]) <= min(by_round[w - 1])
+    for c in range(clusters):
+        blocks = work[c * ck:(c + 1) * ck]
+        assert len({len(b) for b in blocks}) == 1
+        for items in zip(*blocks):
+            assert len({e for e, _, _ in items}) == 1
+            assert len({nt for _, _, nt in items}) == 1    # dY's boxes
+            assert [kt % ck for _, kt, _ in items] == list(range(ck))
+
+
+@pytest.mark.parametrize("blocks", [1, 7, 132, 264])
+@pytest.mark.parametrize("T,K,N,E,kind", [
+    (32800, 1536, 512, 40, "sorted"), (600, 136, 40, 8, "unsorted"),
+    (300, 72, 200, 6, "out-of-range"), (100, 256, 512, 1, "sorted")],
+    ids=str)
+def test_dx_work_takes_every_tile_once(T, K, N, E, kind, blocks):
+    """dX's work list: every (row tile, column tile) of the plan's tiles
+    once over the blocks, each block's in increasing order, the column
+    tile fastest."""
+    g = _ids(kind, T, E, np.random.default_rng(T + K))
+    plan = gmm.plan(torch.from_numpy(g), E)
+    s = gmm.bwd_schedule(T, K, N, E).dx
+    n_tiles = int(plan.toff[-1])
+    work = _dx_work(s, n_tiles, blocks)
+    seen = [item for walk in work for item in walk]
+    assert sorted(seen) == [(y, x) for y in range(n_tiles)
+                            for x in range(s.grid[0])]
+    assert all(walk == sorted(walk) for walk in work)
+    assert s.grid[0] == -(-K // s.bn)
+
+
+@pytest.mark.parametrize("kind", ["sorted", "unsorted", "out-of-range",
+                                  "sorted-out-of-range", "empty-expert",
+                                  "stage-edge", "mixed"])
+def test_dw_stages_load_runs_by_tma_and_zero_the_tail(kind):
+    """Each expert's stages cut its slots into ``DW_STEP``-slot stages in
+    order; a stage goes by TMA (a first x row) exactly when the rows of its
+    row tile of the plan are one run of x, from the x row of its first
+    slot, else it is gathered;
+    only the last stage is partial, its rows past the expert (the next
+    expert's, or past T, in a TMA box) zeroed.  With sorted ids every
+    stage goes by TMA from its own slot; at the stage edge an expert of
+    63, 64 and 65 rows takes one partial, one full, and a full and a
+    one-row stage; mixed, the experts of a run go by TMA from their own
+    slots, and the scattered expert of a row tile plus one is gathered but
+    for its last stage, a one-row run."""
+    T, E = (660, 7) if kind == "stage-edge" else (700, 6)
+    g = _ids(kind, T, E, np.random.default_rng(17))
+    plan = gmm.plan(torch.from_numpy(g), E)
+    perm, off = plan.perm.tolist(), plan.off.tolist()
+    step = _DW_STEP
+    for e in range(E):
+        stages = _dw_stages(plan, e)
+        n = off[e + 1] - off[e]
+        assert [st[0] for st in stages] == list(range(off[e], off[e + 1],
+                                                      step))
+        assert [st[1] for st in stages] == [min(step, n - i)
+                                            for i in range(0, n, step)]
+        for slot, rows, xrow in stages:
+            # the stage's row tile of the plan, and whether it is one run
+            t0 = off[e] + (slot - off[e]) // plan.bm * plan.bm
+            t_rows = perm[t0:min(t0 + plan.bm, off[e + 1])]
+            run = t_rows == list(range(t_rows[0], t_rows[0] + len(t_rows)))
+            assert (xrow >= 0) == run
+            if xrow >= 0:
+                assert perm[slot:slot + rows] == list(range(xrow,
+                                                            xrow + rows))
+            if kind.startswith("sorted") or kind == "stage-edge":
+                assert xrow == perm[slot]
+            if kind == "sorted" or kind == "stage-edge":
+                assert xrow == slot
+        if kind == "empty-expert" and e == E // 2:
+            assert stages == []
+    if kind == "stage-edge":
+        got = {off[e + 1] - off[e]: [st[1] for st in _dw_stages(plan, e)]
+               for e in range(3)}
+        assert got == {63: [63], 64: [64], 65: [64, 1]}
+    if kind == "unsorted":
+        assert any(xrow < 0 for e in range(E)
+                   for _, _, xrow in _dw_stages(plan, e))
+    if kind == "mixed":
+        for e in (0, 1):
+            assert all(xrow == slot for slot, _, xrow in _dw_stages(plan, e))
+        assert off[3] - off[2] == plan.bm + 1
+        tail = _dw_stages(plan, 2)
+        assert [xrow >= 0 for _, _, xrow in tail] == \
+            [False] * (len(tail) - 1) + [True]
+        assert tail[-1][1] == 1
 
 
 # ---------------------------------------------------------------------------
@@ -313,8 +615,12 @@ def _meta_plan(T, E):
 @pytest.fixture
 def faked_card(monkeypatch):
     """The CUDA branches of ``moe_gmm`` and ``moe_gmm_bwd`` up to their
-    launches, on meta tensors: the library records each call."""
+    launches, on meta tensors: the library records each call.  The
+    wrappers' launch counts are restored afterwards, so no other test in
+    the process sees the faked launches."""
     calls = []
+    for fn in (gmm.moe_gmm, gmm.moe_gmm_bwd, gmm.plan):
+        monkeypatch.setattr(fn, "launches", fn.launches)
 
     class Lib:
         def moe_gmm_fwd(self, *args):
@@ -365,7 +671,7 @@ def test_cuda_grad_goes_through_the_backward_kernels(faked_card, dtype, K, N,
     # dx and dw both written; then T, K, N, E, dtype, path, dX's bm, bn,
     # tiles and the stream
     assert args[3] is not None and args[4] is not None
-    assert args[8:] == (T, K, N, E, gmm._DTYPES[dtype],
+    assert args[9:] == (T, K, N, E, gmm._DTYPES[dtype],
                         0 if path == "wgmma" else 1, s.dx.bm, s.dx.bn,
                         s.dx.tiles, 0)
     assert s.path == path
