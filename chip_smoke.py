@@ -206,6 +206,27 @@ Phases, each printing its own lines:
    and wgmma passes, the gather's sorts and writer, each scan's reverse
    walk and sums, the grouped matmul's dX and dW), and their rows in the
    kernels line (the forward rows' launches by path).
+11. dist: the distributed runtime (``repro_torch.launch.steps``).
+   ``flash_attention`` and its backward at tp 2's local heads (16 / 4,
+   D 128) against the plain version; a one-rank NCCL group in this
+   process: ``build_baseline_train`` on a (1, 1) mesh and
+   ``build_tapa_train`` with a one-stage plan, each first on
+   granite-8b-reduced in f32 against ``train.train_step`` (loss and every
+   gradient at ``check_train_reference``'s bounds, the grad norm, each
+   parameter entry after the step within what those bounds leave of an
+   AdamW first step, against the reference's and the step written out),
+   then the main path, 3 steps of granite-8b at 8 of 36 layers,
+   full width, B 8 x S 1024 in 8 microbatches; ``build_baseline_serve`` on
+   granite-8b-reduced teacher-forced against ``lm.step`` on the CPU.  Then
+   two gloo ranks sharing the card (NCCL refuses two ranks on one GPU; gloo
+   stages every collective through host memory), processes of this
+   script (``--dist-child``) under ``DIST_TIMEOUT``: tp 2 and 2 stages of
+   boundary depth 2, the f32 runs against the one-rank runs, step 1's bf16
+   loss and grad norm within ``DIST_BF16_LOSS`` and ``DIST_BF16_NORM_REL``
+   of theirs; the f32 run alone at data 2 (ZeRO-1); serving at tp 2.  Each
+   rank's launches exactly; the ``dist`` line (step seconds, tokens/s, peak
+   memory per rank, launches per rank); the kernels line's launches gain
+   the ``dist`` path.
 
 Exits non-zero, printing no result line, if any phase fails or there is no
 CUDA device.  Imports nothing of JAX.
@@ -214,9 +235,11 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import hashlib
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -3686,6 +3709,545 @@ def check_cache_f32(params, cfg, prompts, extra=None):
                 serve.generate(params, cfg, prompts, 1, extra=extra), extra)
 
 
+
+# ---------------------------------------------------------------------------
+# dist: the distributed runtime (repro_torch.launch.steps)
+# ---------------------------------------------------------------------------
+
+#: the distributed runtime's full-width runs: granite-8b at the train
+#: phase's depth (8 of 36 layers), B 8 x S 1024 in 8 microbatches of one
+#: row, 3 steps a builder at the reference's lr 3e-4
+DIST_DEPTH, DIST_B, DIST_S, DIST_MICRO, DIST_STEPS = 8, 8, 1024, 8, 3
+DIST_LR = 3e-4
+#: the f32 check: granite-8b-reduced on ``check_train_reference``'s
+#: batch (B 2 x S 128 of SyntheticTokens seed 3) and rate (1e-3), in 2
+#: microbatches
+DIST_REF_B, DIST_REF_S, DIST_REF_MICRO, DIST_REF_LR = 2, 128, 2, 1e-3
+#: step 1's bf16 loss and grad norm of a two-rank run against the one-rank
+#: run's, on the same weights and batch.  Under tp 2 each layer's attention
+#: and MLP outputs are two bf16 partial sums added after rounding, where one
+#: rank rounds the whole sum once: one more bf16 rounding (2^-8 relative)
+#: of both sublayers in each of the 8 layers, and the vocab-parallel cross
+#: entropy sums its shards in another order.  Those roundings are
+#: independent across the 8,192 tokens and largely cancel in the mean:
+#: the NVIDIA H100 80GB HBM3 (700 W) read a loss gap of 1.9e-4 (tp 2) and
+#: 0 (2 stages) and grad norms 3.7e-5 and 4.8e-6 apart (relative), so the
+#: bounds are 5x and 27x those readings.  The loss at random weights sits
+#: near ln 49,152 = 10.8 whatever the layers do: the grad norm is the
+#: check that reads them.
+DIST_BF16_LOSS, DIST_BF16_NORM_REL = 1e-3, 1e-3
+#: the f32 step's grad norm against the reference's, relative (the
+#: gradients' own f32 bounds allow about that much)
+DIST_F32_NORM_REL = 1e-5
+#: AdamW's eps and weight decay (``optim.adamw_update``'s defaults)
+ADAM_EPS, ADAM_WD = 1e-8, 0.1
+#: serving through ``build_baseline_serve``: granite-8b-reduced, B 2,
+#: a 24-token prefill then 8 decode steps, teacher-forced against
+#: ``lm.step`` on the CPU at ``REF_ATOL``
+DIST_SERVE_B, DIST_SERVE_PROMPT, DIST_SERVE_STEPS = 2, 24, 8
+#: seconds the two ranks sharing the card may take in all
+DIST_TIMEOUT = 300
+#: the groups: NCCL with one rank in this process, then gloo with two
+#: ranks (two processes) sharing the card, which NCCL refuses.  Each train
+#: run is (name, builder, mesh (data, model), stages of its plan).
+DIST_GROUPS = {
+    "nccl-1": dict(backend="nccl", world=1, train=(
+        ("baseline", "baseline", (1, 1), None),
+        ("tapa-1-stage", "tapa", (1, 1), 1)), serve=(1, 1)),
+    "gloo-2": dict(backend="gloo", world=2, train=(
+        ("baseline-tp2", "baseline", (1, 2), None),
+        ("tapa-2-stages", "tapa", (1, 2), 2)), serve=(1, 2),
+        # the f32 check alone at data 2 (one row a rank, one microbatch):
+        # the batch split, the grads' average and ZeRO-1's AdamW slices
+        f32_only=(("baseline-dp2", "baseline", (2, 1), None, 1),)),
+}
+#: a two-rank run against this one-rank run
+DIST_PAIRS = {"baseline-tp2": "baseline", "tapa-2-stages": "tapa-1-stage",
+              "baseline-dp2": "baseline"}
+
+
+def _dist_cfg():
+    full = configs.get(TRAIN_ARCH)
+    return dataclasses.replace(
+        full, name=f"{TRAIN_ARCH} at {DIST_DEPTH} of {full.n_layers} layers",
+        n_layers=DIST_DEPTH)
+
+
+def _dist_plan(cfg, n_stages):
+    """A plan of ``n_stages`` stages on slots (0, 0), (0, 1), ..., each
+    boundary of depth 2 (two skew ticks)."""
+    from repro_torch.distributed.sharding import TpuPlan
+    n_groups = cfg.n_layers // len(cfg.layer_pattern)
+    return TpuPlan(mode="tapa", n_stages=n_stages,
+                   groups_per_stage=n_groups // n_stages,
+                   stage_slots=[(0, c) for c in range(n_stages)],
+                   boundary_depth=[2] * (n_stages - 1), tp=1,
+                   crossing_cost=0.0)
+
+
+def _dist_step(builder, cfg, mesh_shape, stages, device_type, *, B, S,
+               n_micro, lr):
+    from repro_torch.distributed.taskgraph import ShapeCell
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_mesh
+    mesh = make_mesh(mesh_shape, ("data", "model"), device_type=device_type)
+    cell = ShapeCell("dist", S, B, "train")
+    if builder == "baseline":
+        return steps.build_baseline_train(cfg, mesh, cell, n_micro=n_micro,
+                                          lr=lr)
+    return steps.build_tapa_train(cfg, mesh, cell, plan=_dist_plan(
+        cfg, stages), n_micro=n_micro, lr=lr)
+
+
+def _dist_batch(step, toks):
+    """A numpy (B, S + 1) batch as the step takes it: (n_micro, B /
+    n_micro, S + 1) for the pipeline."""
+    t = torch.from_numpy(toks)
+    if step.mode == "tapa":
+        t = t.reshape(step.n_micro, -1, t.shape[-1])
+    return {"tokens": t}
+
+
+def _dist_reference_run(builder, mesh_shape, stages, device_type,
+                        n_micro=DIST_REF_MICRO):
+    """granite-8b-reduced in f32 through the builder: the loss, every
+    gradient, the grad norm and every parameter after the step,
+    gathered."""
+    cfg = configs.get_reduced(TRAIN_ARCH)
+    step = _dist_step(builder, cfg, mesh_shape, stages, device_type,
+                      B=DIST_REF_B, S=DIST_REF_S, n_micro=n_micro,
+                      lr=DIST_REF_LR)
+    params = step.shard(lm.init_params(cfg, seed=0, device="cpu").to(
+        torch.float32))
+    opt = step.init_opt(params)
+    toks = SyntheticTokens(cfg.vocab, seed=3).batch(0, 0, DIST_REF_B,
+                                                     DIST_REF_S)
+    loss, grads = step.loss_and_grads(params, _dist_batch(step, toks))
+    full_grads = step.gather(grads)
+    gn = step.apply(params, opt, grads)
+    return {"loss": float(loss), "grads": full_grads, "grad_norm": float(gn),
+            "params": step.gather(dict(params.named_parameters())),
+            "data": step.ranks.data.size}
+
+
+def _zero_counts():
+    for fn in COUNTERS.values():
+        fn.launches = 0
+    bg.burst_gather_bwd.one_block_launches = 0
+    bg.burst_gather_bwd.multi_block_launches = 0
+
+
+def _counts():
+    out = {n: fn.launches for n, fn in COUNTERS.items()}
+    out["burst_gather_bwd/one_block"] = bg.burst_gather_bwd.one_block_launches
+    out["burst_gather_bwd/multi_block"] = \
+        bg.burst_gather_bwd.multi_block_launches
+    return out
+
+
+def _dist_train_run(builder, mesh_shape, stages, device_type):
+    """The main path: granite-8b at ``DIST_DEPTH`` layers, full width,
+    ``DIST_STEPS`` steps of B ``DIST_B`` x S ``DIST_S``.  Returns the
+    losses, norms, step seconds, peak memory and launches of this rank."""
+    cfg = _dist_cfg()
+    step = _dist_step(builder, cfg, mesh_shape, stages, device_type,
+                      B=DIST_B, S=DIST_S, n_micro=DIST_MICRO, lr=DIST_LR)
+    whole = lm.init_params(cfg, seed=0, device="cuda")
+    params = step.shard(whole)
+    del whole
+    torch.cuda.empty_cache()
+    # the peak of training, not of the whole model made to be cut
+    torch.cuda.reset_peak_memory_stats()
+    opt = step.init_opt(params)
+    out = {"losses": [], "grad_norms": [], "step_s": []}
+    _zero_counts()
+    for i in range(DIST_STEPS):
+        toks = SyntheticTokens(cfg.vocab, seed=0).batch(i, 0, DIST_B, DIST_S)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, metrics = step(params, opt, _dist_batch(step, toks))
+        torch.cuda.synchronize()
+        out["step_s"].append(time.perf_counter() - t0)
+        out["losses"].append(float(metrics["loss"]))
+        out["grad_norms"].append(float(metrics["grad_norm"]))
+    out["launches"] = _counts()
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["layout"] = {"stage": step.ranks.stage.size,
+                     "data": step.ranks.data.size,
+                     "tp": step.ranks.tp.size,
+                     "first_layer": step.first_layer,
+                     "layers": len(params.layers)}
+    del params, opt, step
+    torch.cuda.empty_cache()
+    return out
+
+
+def _dist_serve_run(mesh_shape, device_type):
+    """``build_baseline_serve`` on granite-8b-reduced in bf16: prefill
+    then decode, each step's logits of this rank's rows against
+    ``lm.step`` on the CPU (same weights), teacher-forced, within
+    ``REF_ATOL``.  Returns the worst error and the launches."""
+    from repro_torch.distributed.taskgraph import ShapeCell
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_mesh
+    cfg = configs.get_reduced(TRAIN_ARCH)
+    n = DIST_SERVE_PROMPT + DIST_SERVE_STEPS
+    mesh = make_mesh(mesh_shape, ("data", "model"), device_type=device_type)
+    step = steps.build_baseline_serve(
+        cfg, mesh, ShapeCell("dist-serve", n, DIST_SERVE_B, "prefill"))
+    cpu = lm.init_params(cfg, seed=0, device="cpu")
+    params = step.shard(cpu)
+    cache = step.init_cache(params, DIST_SERVE_B, n + 1)
+    want_cache = lm.init_cache(cpu, cfg, DIST_SERVE_B, n + 1, device="cpu")
+    tokens = torch.randint(0, cfg.vocab, (DIST_SERVE_B, n),
+                           generator=torch.Generator().manual_seed(5),
+                           dtype=torch.int32)
+    rows = step.rows(DIST_SERVE_B)
+    feeds = [tokens[:, :DIST_SERVE_PROMPT]] + [
+        tokens[:, i:i + 1] for i in range(DIST_SERVE_PROMPT, n)]
+    worst = 0.0
+    _zero_counts()
+    for t in feeds:
+        got, cache = step(params, cache, t)
+        want, want_cache = lm.step(cpu, cfg, want_cache, t)
+        err = _max_err(got.cpu(), want[rows])
+        if not (err <= REF_ATOL and bool(torch.isfinite(got).all())):
+            raise AssertionError(f"dist serve {mesh_shape}: logits off by "
+                                 f"{err} > {REF_ATOL}")
+        worst = max(worst, err)
+    return {"err": worst, "launches": _counts(), "steps": len(feeds)}
+
+
+def dist_group(name, device_type):
+    """Every run of group ``name`` on this rank (the group is
+    initialised): each train run's f32 check, then its main path; then
+    serving."""
+    spec = DIST_GROUPS[name]
+    out = {"train": {}, "f32_only": {}, "serve": None,
+           "rank": torch.distributed.get_rank()}
+    for run, builder, mesh_shape, stages, n_micro in spec.get("f32_only",
+                                                              ()):
+        out["f32_only"][run] = _dist_reference_run(
+            builder, mesh_shape, stages, device_type, n_micro)
+    for run, builder, mesh_shape, stages in spec["train"]:
+        ref_run = _dist_reference_run(builder, mesh_shape, stages,
+                                      device_type)
+        main = _dist_train_run(builder, mesh_shape, stages, device_type)
+        out["train"][run] = {"ref": ref_run, "main": main}
+        _phase(f"dist {name} rank {out['rank']} {run}: layout "
+               f"{main['layout']}, losses "
+               f"{[round(x, 4) for x in main['losses']]}, step s "
+               f"{[round(x, 4) for x in main['step_s']]}, peak "
+               f"{main['peak_gb']:.2f} GB")
+    out["serve"] = _dist_serve_run(spec["serve"], device_type)
+    return out
+
+
+def dist_child(argv):
+    """One rank of the gloo group sharing the card: ``chip_smoke.py
+    --dist-child DIR RANK WORLD``."""
+    tmp, rank, world = Path(argv[0]), int(argv[1]), int(argv[2])
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    torch.distributed.init_process_group(
+        "gloo", init_method=f"file://{tmp}/store", rank=rank,
+        world_size=world)
+    out = dist_group("gloo-2", "cpu")
+    torch.save(out, tmp / f"out{rank}.pt")
+    torch.distributed.barrier()
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def _dist_children(tmp, world):
+    """Run the gloo group's ranks as processes of this script, each under
+    ``DIST_TIMEOUT``; a rank that fails or hangs ends them all.  Returns
+    each rank's output; their logs are printed."""
+    env = dict(os.environ, GLOO_SOCKET_IFNAME="lo")
+    logs = [tmp / f"rank{r}.log" for r in range(world)]
+    procs = []
+    for r in range(world):
+        with open(logs[r], "wb") as log:
+            procs.append(subprocess.Popen(
+                [sys.executable, str(Path(__file__).resolve()),
+                 "--dist-child", str(tmp), str(r), str(world)],
+                env=env, stdout=log, stderr=subprocess.STDOUT))
+    deadline = time.monotonic() + DIST_TIMEOUT
+    try:
+        while any(p.poll() is None for p in procs):
+            if any(p.poll() not in (None, 0) for p in procs) or \
+                    time.monotonic() > deadline:
+                break
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    for log in logs:
+        for line in log.read_text(errors="replace").splitlines():
+            print(f"[{log.stem}] {line}", flush=True)
+    if any(p.returncode for p in procs):
+        raise AssertionError(f"dist: the gloo group's ranks exited "
+                             f"{[p.returncode for p in procs]} (timeout "
+                             f"{DIST_TIMEOUT} s)")
+    return [torch.load(tmp / f"out{r}.pt", weights_only=False)
+            for r in range(world)]
+
+
+def check_dist_attention(gen):
+    """``flash_attention`` and its backward at granite-8b's heads under tp
+    2 (16 query, 4 KV heads, D 128) on one microbatch row (S 1024), against
+    the plain version (bf16 2e-2)."""
+    q, do = (_rand((1, DIST_S, 16, 128), gen) for _ in range(2))
+    k, v = (_rand((1, DIST_S, 4, 128), gen) for _ in range(2))
+    err = _assert_close("flash_attention[dist tp 2: 16 / 4 heads]",
+                        fa.flash_attention(q, k, v, causal=True),
+                        ref.attention_ref(q, k, v, causal=True), BF16_TOL)
+    got = _attn_grads(fa.flash_attention, q, k, v, do, causal=True)
+    want = _attn_grads(ref.attention_ref, q, k, v, do, causal=True)
+    for g, a, w in zip(("dq", "dk", "dv"), got, want):
+        err = max(err, _assert_close(
+            f"flash_attention_bwd[dist tp 2: 16 / 4 heads] {g}", a, w,
+            BF16_TOL))
+    return err
+
+
+def _dist_train_want(main):
+    """The launches a rank's train run must make: an attention a layer and
+    microbatch, twice with the group's recomputation, its backward once;
+    the embedding's gather and its backward (one block: 1,025 ids) a
+    microbatch on the first stage."""
+    want = dict.fromkeys(_counts(), 0)
+    n = DIST_STEPS * DIST_MICRO
+    lay = main["layout"]
+    first = n if lay["first_layer"] == 0 else 0
+    want.update({"flash_attention": 2 * n * lay["layers"],
+                 "flash_attention_bwd": n * lay["layers"],
+                 "burst_gather": first, "burst_gather_bwd": first,
+                 "burst_gather_bwd/one_block": first})
+    return want
+
+
+def _dist_serve_want(steps):
+    """A rank's serving: an attention a layer for the prefill, a decode
+    attention a layer a decode step, a gather a step."""
+    cfg = configs.get_reduced(TRAIN_ARCH)
+    want = dict.fromkeys(_counts(), 0)
+    want.update(flash_attention=cfg.n_layers,
+                decode_attention=cfg.n_layers * (steps - 1),
+                burst_gather=steps)
+    return want
+
+
+def _grad_norm(grads):
+    return math.sqrt(sum(float(g.double().pow(2).sum())
+                         for g in grads.values()))
+
+
+def _first_step_bound(grad, gn, lr):
+    """Per entry: how far one AdamW step (after the clip to norm 1) of a
+    run may land from the reference's, given that its gradient is within
+    ``check_train_reference``'s bound of ``grad`` and its norm within
+    ``DIST_F32_NORM_REL`` of ``gn``.  At step 1 AdamW moves an entry by
+    lr (f(c g) + wd p), c the clip's scale and f(x) = x / (|x| + eps); the
+    two runs' c g differ by at most d = c (tol + rel (|g| + tol)), so their
+    updates by at most lr d eps / (max(c |g| - d, 0) + eps)^2 (the slope
+    of f over the interval), and never more than 2 lr; 1e-6 more for the
+    f32 roundings.  Far below lr wherever a gradient stands clear of its
+    tolerance."""
+    c = min(1.0, 1.0 / max(gn, 1e-9))
+    g = grad.double()
+    tol = TRAIN_REF_GRAD_REL * float(g.abs().max()) + TRAIN_REF_GRAD_ABS
+    d = c * (tol + DIST_F32_NORM_REL * (g.abs() + tol))
+    slope = d * ADAM_EPS / ((c * g.abs() - d).clamp(min=0) + ADAM_EPS) ** 2
+    return lr * slope.clamp(max=2.0) + 1e-6
+
+
+def _check_dist_ref(label, got, want, start, lr):
+    """An f32 run's loss, gradients, grad norm and params after one step
+    against ``want``'s, at ``check_train_reference``'s bounds for the loss
+    and gradients, ``DIST_F32_NORM_REL`` for the norm, and each parameter
+    entry within ``_first_step_bound`` both of ``want``'s and of AdamW's
+    first step written out from ``start`` (so each entry moved from where
+    it started by its lr (f + wd p)), with at least 90 % of each
+    parameter's entries held within lr / 10 (granite-8b-reduced: over
+    99 %), so that no slice of ZeRO-1 can be skipped unseen."""
+    if not abs(got["loss"] - want["loss"]) <= TRAIN_REF_LOSS_TOL:
+        raise AssertionError(f"{label}: loss {got['loss']} vs "
+                             f"{want['loss']}")
+    if set(got["grads"]) != set(want["grads"]):
+        raise AssertionError(f"{label}: gradients of other parameters")
+    worst = 0.0
+    for n, w in want["grads"].items():
+        err = float((got["grads"][n].float() - w.float()).abs().max())
+        lim = TRAIN_REF_GRAD_REL * float(w.abs().max()) + TRAIN_REF_GRAD_ABS
+        if not err <= lim:
+            raise AssertionError(f"{label}: grad {n} off by {err} > {lim}")
+        worst = max(worst, err / lim)
+    gn = _grad_norm(want["grads"])
+    if not abs(got["grad_norm"] - gn) <= DIST_F32_NORM_REL * gn:
+        raise AssertionError(f"{label}: grad norm {got['grad_norm']} vs "
+                             f"{gn}")
+    c = min(1.0, 1.0 / max(gn, 1e-9))
+    p_worst, held = 0.0, 1.0
+    for n, w in want["params"].items():
+        bound = _first_step_bound(want["grads"][n], gn, lr)
+        p0, g = start[n].double(), want["grads"][n].double()
+        written = p0 - lr * (c * g / (c * g.abs() + ADAM_EPS) + ADAM_WD * p0)
+        p = got["params"][n].double()
+        for ref_p, what in ((w.double(), "the reference's step"),
+                            (written, "AdamW's first step written out")):
+            over = float(((p - ref_p).abs() - bound).max())
+            if over > 0:
+                raise AssertionError(f"{label}: {n} after the step off "
+                                     f"{what} by {over} over its bound")
+        p_worst = max(p_worst, float((p - w.double()).abs().max()))
+        held = min(held, float((bound <= lr / 10).double().mean()))
+    if held < 0.9:
+        raise AssertionError(f"{label}: only {held:.3f} of a parameter's "
+                             f"entries held within lr / 10")
+    _phase(f"check dist {label}: f32 loss {got['loss']:.7f} / "
+           f"{want['loss']:.7f} (<= {TRAIN_REF_LOSS_TOL}); "
+           f"{len(want['grads'])} grads within {TRAIN_REF_GRAD_REL} x "
+           f"largest + {TRAIN_REF_GRAD_ABS} (worst {worst:.3f} of its "
+           f"bound); grad norm {got['grad_norm']:.6f} / {gn:.6f}; params "
+           f"after one step max diff {p_worst:.2e}, each entry within its "
+           f"first-step bound ({held:.4f} of each parameter within lr / "
+           f"10) ok")
+
+
+def dist_phase(tmp, gen):
+    """The distributed runtime on the card: flash attention at tp 2's
+    local heads; a one-rank NCCL group in this process (the baseline and
+    a one-stage pipeline, each first in f32 on granite-8b-reduced against
+    ``train.train_step``'s loss, gradients and update, then 3 full-width
+    steps of granite-8b at 8 layers; serving); then a two-rank gloo group
+    sharing the card (tp 2, 2 stages): the f32 runs against the one-rank
+    runs, step 1's loss and grad norm within ``DIST_BF16_LOSS`` and
+    ``DIST_BF16_NORM_REL`` of theirs; data 2 (ZeRO-1) in f32 alone;
+    serving.
+    Checks each rank's exact launches.  Prints the ``dist`` line; returns
+    the launches of the main path (full-width steps and serving), summed
+    over every rank."""
+    check_dist_attention(gen)
+    # the train path's reference: lm.loss_fn and train.train_step
+    cfg = configs.get_reduced(TRAIN_ARCH)
+    cpu = lm.init_params(cfg, seed=0, device="cpu").to(torch.float32)
+    start = {n: p.detach() for n, p in cpu.named_parameters()}
+    gpu = lm.LM(cfg, "cuda").to(torch.float32)
+    gpu.load_state_dict(cpu.state_dict())
+    toks = torch.from_numpy(SyntheticTokens(cfg.vocab, seed=3).batch(
+        0, 0, DIST_REF_B, DIST_REF_S))
+    loss, grads, _ = _train_ref_step(gpu, cfg, toks, None, "cuda")
+    ref_step = {"loss": loss, "grads": grads,
+                "params": {n: p.detach().cpu() for n, p in
+                           gpu.named_parameters()}}
+    del gpu
+    results = {}
+    torch.distributed.init_process_group(
+        "nccl", init_method=f"file://{tmp}/nccl_store", rank=0,
+        world_size=1)
+    try:
+        results["nccl-1"] = [dist_group("nccl-1", "cuda")]
+    finally:
+        torch.distributed.destroy_process_group()
+    # the two ranks need the card's memory: this process lets go of its own
+    gc.collect()
+    torch.cuda.empty_cache()
+    _phase(f"dist: this process keeps {torch.cuda.memory_reserved() / 1e9:.2f}"
+           f" GB reserved while the gloo group runs")
+    results["gloo-2"] = _dist_children(tmp, DIST_GROUPS["gloo-2"]["world"])
+    one = results["nccl-1"][0]["train"]
+    for run in one:
+        _check_dist_ref(f"nccl-1 {run} vs train.train_step", one[run]["ref"],
+                        ref_step, start, DIST_REF_LR)
+    two = results["gloo-2"][0]
+    for run, base in DIST_PAIRS.items():
+        if run in two["f32_only"]:
+            if two["f32_only"][run]["data"] != 2:
+                raise AssertionError(f"dist {run}: "
+                                     f"{two['f32_only'][run]['data']} data "
+                                     f"ranks, not 2")
+            _check_dist_ref(f"gloo-2 {run} vs nccl-1 {base}",
+                            two["f32_only"][run], one[base]["ref"], start,
+                            DIST_REF_LR)
+            continue
+        _check_dist_ref(f"gloo-2 {run} vs nccl-1 {base}",
+                        two["train"][run]["ref"], one[base]["ref"], start,
+                        DIST_REF_LR)
+        want = one[base]["main"]
+        for rank_out in results["gloo-2"]:
+            main = rank_out["train"][run]["main"]
+            d = abs(main["losses"][0] - want["losses"][0])
+            rel = abs(main["grad_norms"][0] - want["grad_norms"][0]) / \
+                want["grad_norms"][0]
+            if not (d <= DIST_BF16_LOSS and rel <= DIST_BF16_NORM_REL):
+                raise AssertionError(
+                    f"dist {run}: step-1 loss {main['losses'][0]} and grad "
+                    f"norm {main['grad_norms'][0]} vs one rank's "
+                    f"{want['losses'][0]} and {want['grad_norms'][0]}")
+        main = two["train"][run]["main"]
+        _phase(f"check dist {run}: step-1 bf16 loss "
+               f"{main['losses'][0]:.5f} vs nccl-1 {base} "
+               f"{want['losses'][0]:.5f} (|diff| <= {DIST_BF16_LOSS}), grad "
+               f"norm {main['grad_norms'][0]:.5f} vs "
+               f"{want['grad_norms'][0]:.5f} (relative <= "
+               f"{DIST_BF16_NORM_REL}) ok")
+    launches = dict.fromkeys(_counts(), 0)
+    line = []
+    tokens = DIST_B * DIST_S
+    for group, ranks in results.items():
+        for run in ranks[0]["train"]:
+            mains = [r["train"][run]["main"] for r in ranks]
+            for r, main in zip(ranks, mains):
+                if main["launches"] != _dist_train_want(main):
+                    raise AssertionError(
+                        f"dist {group} {run} rank {r['rank']}: launches "
+                        f"{main['launches']}, want {_dist_train_want(main)}")
+                if not all(math.isfinite(x) for x in main["losses"]
+                           + main["grad_norms"]):
+                    raise AssertionError(f"dist {group} {run}: not finite")
+                for k, v in main["launches"].items():
+                    launches[k] += v
+            steady = statistics.median(
+                max(m["step_s"][i] for m in mains)
+                for i in range(1, DIST_STEPS))
+            line.append({
+                "group": group, "run": run, "layout": mains[0]["layout"],
+                "losses": mains[-1]["losses"],
+                "grad_norms": mains[-1]["grad_norms"],
+                "step_s": [max(m["step_s"][i] for m in mains)
+                           for i in range(DIST_STEPS)],
+                "steady_step_s": steady, "tokens_per_s": tokens / steady,
+                "peak_gb_per_rank": [m["peak_gb"] for m in mains],
+                "launches_per_rank": [
+                    {k: v for k, v in m["launches"].items() if v}
+                    for m in mains]})
+        serves = [r["serve"] for r in ranks]
+        for r, s in zip(ranks, serves):
+            if s["launches"] != _dist_serve_want(s["steps"]):
+                raise AssertionError(
+                    f"dist {group} serve rank {r['rank']}: launches "
+                    f"{s['launches']}, want {_dist_serve_want(s['steps'])}")
+            for k, v in s["launches"].items():
+                launches[k] += v
+        line.append({"group": group, "run": "serve",
+                     "max_abs_err": max(s["err"] for s in serves),
+                     "atol": REF_ATOL,
+                     "launches_per_rank": [
+                         {k: v for k, v in s["launches"].items() if v}
+                         for s in serves]})
+        _phase(f"check dist {group} serve: teacher-forced logits vs "
+               f"lm.step on the CPU, max_abs_err "
+               f"{max(s['err'] for s in serves):.3e} (atol {REF_ATOL}) ok")
+    _phase("dist " + json.dumps({"device": torch.cuda.get_device_name(0),
+                                 "B": DIST_B, "S": DIST_S,
+                                 "n_micro": DIST_MICRO, "runs": line}))
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -3766,18 +4328,24 @@ def main() -> int:
         train_paths = {p: train_paths[p] + paths[p] for p in train_paths}
     kernels += train_rows(train_errs, flush, trgen)
     kernels += moe_bwd_rows(moe_bwd_errs, dispatch_bwd_err, flush, trgen)
-    # each kernel's launches, summed over the serve runs and the train runs
-    # (the gather backward's rows: the train runs' launches on the row's
-    # path; serving takes no gradient)
+    # the distributed runtime: one rank on NCCL, two sharing the card
+    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
+        dist_launches = dist_phase(Path(tmp), trgen)
+    # each kernel's launches, summed over the serve, train and dist runs
+    # (the gather backward's rows: the train and dist runs' launches on the
+    # row's path; serving takes no gradient)
     for row in kernels:
         kernel = row["name"]
         if kernel.startswith("burst_gather_bwd"):
-            row["launches"] = train_paths[row["path"]]
-            continue
-        row["launches"] = launches[kernel] + train_launches[kernel]
-        if launches[kernel] and train_launches[kernel]:
-            row["launches_by_path"] = {"serve": launches[kernel],
-                                       "train": train_launches[kernel]}
+            paths = {"train": train_paths[row["path"]],
+                     "dist": dist_launches[f"burst_gather_bwd/{row['path']}"]}
+        else:
+            paths = {"serve": launches[kernel],
+                     "train": train_launches[kernel],
+                     "dist": dist_launches.get(kernel, 0)}
+        row["launches"] = sum(paths.values())
+        if sum(1 for n in paths.values() if n) > 1:
+            row["launches_by_path"] = {k: n for k, n in paths.items() if n}
     # the sweep's, from its own main path, the co-optimization flow's, the
     # search's and the corpus's
     sim_row["launches_by_path"] = {"simulate_batch": sim_row["launches"],
@@ -3794,4 +4362,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dist-child"]:
+        sys.exit(dist_child(sys.argv[2:]))
     sys.exit(main())

@@ -1,13 +1,15 @@
-"""Floorplan -> TPU execution plan, the planning half.
+"""Floorplan -> execution plan.
 
-The port's copy of ``repro/distributed/sharding.py`` without
-``refined_mesh``, which builds a device mesh and belongs to the
-distributed runtime.  The production mesh is viewed as a TAPA slot grid:
-rows = pods (DCN boundaries, expensive), cols = model-axis subgroups (ICI
-boundaries).  The same autobridge co-optimization that floorplans FPGA
-designs assigns layer-group tasks to slots; the result is a stage order
-over the slots and per-stage-boundary buffer depths (pipelining + latency
-balancing) that become skew slots in the pipeline schedule.
+Counterpart of ``repro/distributed/sharding.py``.  The production mesh is
+viewed as a TAPA slot grid: rows = pods (DCN boundaries, expensive), cols
+= model-axis subgroups (ICI boundaries).  The same autobridge
+co-optimization that floorplans FPGA designs assigns layer-group tasks to
+slots; the result is a stage order over the slots and per-stage-boundary
+buffer depths (pipelining + latency balancing) that become skew slots in
+the pipeline schedule (``pipeline.build_train_loss``).  ``refined_mesh``
+lays a mesh's ranks out as (stage, data, tp) in the floorplan's slot
+order; the layout itself is ``refined_layout``, a pure function on an
+array of ranks.
 
 Baseline plan (= the "default Vivado flow"): no floorplan — every layer
 sharded over the full model axis (max-TP "packed" GSPMD) with ZeRO-1 DP.
@@ -16,8 +18,11 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
+
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import Boundary, InfeasibleError, SlotGrid, autobridge
+from repro_torch.launch.mesh import mesh_from_ranks
 from .taskgraph import SHAPES, ShapeCell, arch_taskgraph
 
 HBM_PER_CHIP = 16e9          # v5e
@@ -126,3 +131,62 @@ def plan_cell(cfg: ArchConfig, cell_name: str, mesh_shape: tuple[int, ...],
     if mode == "baseline":
         return baseline_plan(cfg, pods=pods, data=data, model=model)
     return plan_arch(cfg, cell, pods=pods, data=data, model=model, seed=seed)
+
+
+def refined_layout(ranks, plan: TpuPlan, *, col_slots: int = 4):
+    """(array, axis names) of ``refined_mesh`` for an array of ranks of
+    shape (data, model) or (pod, data, model), with the reference's rules:
+    the baseline plan merges (pod, data) into one "data" axis beside
+    "model"; a TAPA plan gives each stage the ranks of its slot, (data,
+    tp), in chain order, the unused slots joining the stages round-robin
+    as extra data rows, and falls back to uniform slabs in stage order
+    where the stages' shapes differ."""
+    devs = np.asarray(ranks)
+    if devs.ndim == 2:                         # (data, model)
+        pods, data, model = 1, devs.shape[0], devs.shape[1]
+        devs = devs[None]
+    else:                                      # (pod, data, model)
+        pods, data, model = devs.shape
+    if plan.mode == "baseline":
+        return devs.reshape(pods * data, model), ("data", "model")
+    if plan.tp:
+        col_slots = max(model // plan.tp, 1)
+    tp = model // col_slots
+    slot_devs = {(r, c): devs[r, :, c * tp:(c + 1) * tp]
+                 for r in range(pods) for c in range(col_slots)}
+    used = [tuple(s) for s in plan.stage_slots]
+    stage_arrays = [slot_devs[s] for s in used]
+    free = [s for s in slot_devs if s not in used]
+    for i, s in enumerate(free):
+        tgt = i % len(stage_arrays)
+        stage_arrays[tgt] = np.concatenate(
+            [stage_arrays[tgt], slot_devs[s]], axis=0)
+    if len({a.shape for a in stage_arrays}) != 1:
+        n = plan.n_stages
+        flat = devs.reshape(-1)
+        per = flat.size // n
+        stage_arrays = [flat[i * per:(i + 1) * per].reshape(data, -1)
+                        for i in range(n)]
+    return np.stack(stage_arrays), ("stage", "data", "tp")
+
+
+def check_layout(layout) -> None:
+    """Raise ``ValueError`` where a layout holds a rank more than once: a
+    plan that visits a slot twice (granite-8b's ``plan_cell`` plans do)
+    gives its ranks to two stages, which the reference's mesh of devices
+    allows and a rank, one process, cannot be."""
+    flat = np.asarray(layout).reshape(-1)
+    if len(set(flat.tolist())) < flat.size:
+        raise ValueError(f"the refined layout holds ranks more than once "
+                         f"({flat.size} places, {len(set(flat.tolist()))} "
+                         f"ranks): the plan visits a slot twice")
+
+
+def refined_mesh(mesh, plan: TpuPlan, *, col_slots: int = 4):
+    """``mesh`` (a ``DeviceMesh`` over (data, model) or (pod, data,
+    model)) re-laid as ``refined_layout`` says, as a ``DeviceMesh`` over
+    the same ranks.  Every rank of the group must call it."""
+    layout, axes = refined_layout(mesh.mesh.cpu().numpy(), plan,
+                                  col_slots=col_slots)
+    check_layout(layout)
+    return mesh_from_ranks(layout, axes, device_type=mesh.device_type)

@@ -33,18 +33,22 @@ def route(router: torch.Tensor, cfg: ArchConfig, xf: torch.Tensor):
     return probs, top_p, top_i
 
 
+def expert_counts(top_i: torch.Tensor, E: int) -> torch.Tensor:
+    """(E,) int64: the (token, k) pairs routed to each expert.  An integer
+    scatter-add, exact in any order; ``torch.bincount`` would wait for the
+    card to size its output."""
+    flat = top_i.reshape(-1)
+    counts = torch.zeros(E, dtype=torch.int64, device=flat.device)
+    return counts.scatter_add_(0, flat, torch.ones_like(flat))
+
+
 def aux_loss(probs: torch.Tensor, top_i: torch.Tensor, E: int,
              dtype: torch.dtype) -> torch.Tensor:
     """Switch load-balance loss, E * sum_e (fraction routed to e * mean
     probability of e), f32.  The fraction is rounded to the activation
-    dtype, as the JAX package's one-hot mean is.  The counts are an
-    integer scatter-add, exact in any order; ``torch.bincount`` would
-    wait for the card to size its output."""
+    dtype, as the JAX package's one-hot mean is."""
     T = top_i.shape[0]
-    flat = top_i.reshape(-1)
-    counts = torch.zeros(E, dtype=torch.int64, device=flat.device)
-    counts.scatter_add_(0, flat, torch.ones_like(flat))
-    frac = (counts.float() / max(T, 1)).to(dtype).float()
+    frac = (expert_counts(top_i, E).float() / max(T, 1)).to(dtype).float()
     return E * torch.sum(frac * probs.mean(0))
 
 
@@ -58,8 +62,10 @@ class MoE(nn.Module):
         if cfg.gated_mlp:
             self.w_gate = _weight((e, d, f), device)
 
-    def forward(self, x, cfg: ArchConfig):
-        """x: (B, S, d) -> (y (B, S, d) in x.dtype, aux loss f32)."""
+    def forward(self, x, cfg: ArchConfig, aux_fn=None):
+        """x: (B, S, d) -> (y (B, S, d) in x.dtype, aux loss f32).
+        ``aux_fn`` takes ``aux_loss``'s place (the distributed runtime's
+        takes it over every data-parallel rank's tokens)."""
         B, S, d = x.shape
         k = cfg.top_k
         xf = x.reshape(B * S, d)
@@ -88,5 +94,5 @@ class MoE(nn.Module):
         ye = ys.index_select(0, inv).view(B * S, k, d)
         p = top_p.to(x.dtype).float()
         y = (ye.float() * p[..., None]).sum(1).to(x.dtype)
-        return y.view(B, S, d), aux_loss(probs, top_i, cfg.n_experts,
-                                         x.dtype)
+        aux = (aux_fn or aux_loss)(probs, top_i, cfg.n_experts, x.dtype)
+        return y.view(B, S, d), aux

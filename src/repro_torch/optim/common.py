@@ -1,5 +1,6 @@
-"""Shared optimizer utilities: global-norm clipping and the cosine
-schedule, as ``repro/optim/common.py`` computes them."""
+"""Shared optimizer utilities: global-norm clipping, the cosine schedule
+and ZeRO-1's optimizer-state placement, as ``repro/optim/common.py``
+computes them."""
 from __future__ import annotations
 
 import ctypes
@@ -57,3 +58,45 @@ def cosine_schedule(step, *, peak: float, warmup: int, total: int,
     cos = f32(1) + f32(_cosf()(f32(math.pi) * prog))
     return float(f32(peak) * (f32(floor_frac)
                               + f32((1 - floor_frac) * 0.5) * cos))
+
+
+def zero1_dim(spec, shape=None, data_size: int = 1):
+    """The dim of a leaf that ZeRO-1 shards over the data axes: of the dims
+    whose placement in ``spec`` is None, the largest divisible by
+    ``data_size`` (the first of equals); with no ``shape``, the first such
+    dim.  None where no dim qualifies."""
+    parts = list(spec)
+    if shape is not None:
+        parts += [None] * (len(shape) - len(parts))
+    best, best_size = None, -1
+    for i, p in enumerate(parts):
+        if p is not None:
+            continue
+        if shape is None:
+            return i
+        if shape[i] % max(data_size, 1) == 0 and shape[i] > best_size:
+            best, best_size = i, shape[i]
+    return best
+
+
+def zero1_specs(param_specs, param_shapes=None, *,
+                data_axes=("pod", "data"), data_size: int = 1):
+    """ZeRO-1: each optimizer-state leaf placed as its parameter, and
+    besides sharded over ``data_axes`` on ``zero1_dim``.  ``param_specs``
+    maps a name to its placement, a tuple with an axis name (or a tuple of
+    them) or None a dim; ``param_shapes`` maps a name to its shape (or a
+    tensor).  Returns the new placements by name."""
+    out = {}
+    for name, spec in param_specs.items():
+        shape = None
+        if param_shapes is not None:
+            leaf = param_shapes[name]
+            shape = tuple(getattr(leaf, "shape", leaf))
+        parts = list(spec)
+        if shape is not None:
+            parts += [None] * (len(shape) - len(parts))
+        dim = zero1_dim(spec, shape, data_size)
+        if dim is not None:
+            parts[dim] = tuple(data_axes)
+        out[name] = tuple(parts)
+    return out
