@@ -6,9 +6,9 @@ sharding (``repro_torch.launch.steps``).
 Counterpart of ``repro/distributed/baseline.py``, where GSPMD places the
 arrays; here a rank holds its shards (``placements``) and runs the layers
 of ``tensor_parallel`` on them.  Serving runs data-parallel for every
-family and head-parallel for the G and L layers; the context-parallel
-cache split (the KV cache's length over the model axis) waits for ROADMAP
-item 8c.
+family and tensor-parallel for the G, L, M, H and R layers, each KV cache
+split by heads or by its length over the model axis (context
+parallelism, ``kv_mode``; ``tensor_parallel.context_attention``).
 """
 from __future__ import annotations
 
@@ -93,6 +93,18 @@ def build_serve_step(cfg: ArchConfig, tp: Axis):
     return serve_step
 
 
+def kv_mode(n_kv_heads: int, W: int, tp: int, kv_shard: str = "heads"):
+    """How a KV cache of W slots and ``n_kv_heads`` heads splits over
+    ``tp`` ranks, by the reference's rule: "context" (its length) where
+    asked and W divides, else "heads" where the KV heads divide, else
+    "context" where W divides, else None (every rank the whole cache)."""
+    if kv_shard == "context" and W % tp == 0:
+        return "context"
+    if n_kv_heads % tp == 0:
+        return "heads"
+    return "context" if W % tp == 0 else None
+
+
 def cache_shardings(cfg: ArchConfig, cache, mesh, *, kv_shard: str = "heads"):
     """The placement of each leaf of a cache (``lm.init_cache``'s
     structure: one dict a layer, no stack dim), the reference's rules: KV
@@ -122,13 +134,9 @@ def cache_shardings(cfg: ArchConfig, cache, mesh, *, kv_shard: str = "heads"):
         if nd == 0:
             return ()
         if name in ("k", "v"):            # (B, W, Hkv, D)
-            if kv_shard == "context" and shape[1] % tp == 0:
-                return cut((daxes, "model", None, None), nd)
-            if shape[2] % tp == 0:
-                return cut((daxes, None, "model", None), nd)
-            if shape[1] % tp == 0:       # context parallelism fallback
-                return cut((daxes, "model", None, None), nd)
-            return cut((daxes, None, None, None), nd)
+            mode = kv_mode(shape[2], shape[1], tp, kv_shard)
+            return cut((daxes, "model" if mode == "context" else None,
+                        "model" if mode == "heads" else None, None), nd)
         if name in ("ssd", "wkv"):        # (B, H, P, N) / (B, H, D, D)
             if shape[1] % tp == 0:
                 return cut((daxes, "model", None, None), nd)
@@ -158,16 +166,3 @@ def cache_shardings(cfg: ArchConfig, cache, mesh, *, kv_shard: str = "heads"):
         return fit(spec(name, shape), shape)
 
     return walk(cache, "")
-
-
-def check_cache_split(cfg: ArchConfig, cache_specs) -> None:
-    """Raise ``NotImplementedError`` (naming 8c) where a placement splits
-    a KV cache's length over the model axis: serving runs head-parallel
-    only."""
-    for layer in cache_specs["layers"]:
-        for part in (layer, layer.get("attn")):
-            if isinstance(part, dict) and "k" in part and \
-                    len(part["k"]) > 1 and part["k"][1] == "model":
-                raise NotImplementedError(
-                    f"{cfg.name}: a context-parallel KV cache (its length "
-                    f"over the model axis) waits for {tpar.ITEM_8C}")

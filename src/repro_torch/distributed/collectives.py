@@ -10,6 +10,14 @@ refuses) moves each tensor through host memory and back; ``_staged``
 decides that by the group's backend, once, and nothing is retried another
 way when a collective fails.
 
+Every collective of the runtime is issued here (and the one object
+gather, ``all_gather_object``).  While a ``recording()`` is open each one
+is recorded, in the JAX package's vocabulary of HLO collectives
+(``launch.collective_analysis`` sums them as ``repro/launch/
+hlo_analysis.py`` sums the compiled HLO's); with none open nothing is
+recorded.  Meta or fake tensors (a dry run's stand-ins) are recorded and
+given results of the right shapes, with no message sent.
+
 Compression: before the data-parallel gradient reduction, quantize each
 leaf to int8 with a per-leaf scale; the quantization residual is carried
 in an error-feedback buffer and added back next step (Karimireddy et al.).
@@ -18,11 +26,15 @@ package, no step builder calls it.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import pickle
 
 import numpy as np
 import torch
 import torch.distributed as dist
+
+from repro_torch.kernels import shape_only
 
 #: most elements in one flat buffer of ``all_reduce_``
 BUCKET = 1 << 26
@@ -48,8 +60,9 @@ class Axis:
         return dist.get_process_group_ranks(self.group)
 
 
-#: (id of a mesh, axis names) -> (the mesh, its Axis), so each flattened
-#: group is made once (the mesh is kept so that its id is not reused)
+#: (id of a mesh, axis names[, block]) -> (the mesh, its Axis), so each
+#: flattened group is made once (the mesh is kept so that its id is not
+#: reused)
 _AXES: dict = {}
 
 
@@ -85,6 +98,88 @@ def axis(mesh, names) -> Axis:
     return out
 
 
+def clear_axes() -> None:
+    """Forget the axes made so far: their process group is gone."""
+    _AXES.clear()
+
+
+def sub_axis(mesh, name: str, size: int) -> Axis:
+    """The group of ``size`` consecutive ranks along ``mesh``'s axis
+    ``name`` that holds this rank (``size`` divides the axis): the tp
+    ranks that hold one KV head when there are fewer heads than ranks.
+    Every rank makes every such group, in the same order."""
+    key = (id(mesh), (name,), size)
+    if key in _AXES:
+        return _AXES[key][1]
+    ranks = mesh.mesh.cpu().numpy()
+    dim = mesh.mesh_dim_names.index(name)
+    n = ranks.shape[dim]
+    if n % size:
+        raise ValueError(f"blocks of {size} ranks do not split the "
+                         f"{name!r} axis of {n}")
+    me = dist.get_rank()
+    out = Axis(None, 1, 0)
+    if size > 1:
+        rows = np.moveaxis(ranks, dim, -1).reshape(-1, n)
+        for row in rows:
+            for b in range(0, n, size):
+                block = [int(r) for r in row[b:b + size]]
+                group = dist.new_group(block)
+                if me in block:
+                    out = Axis(group, size, block.index(me))
+    _AXES[key] = (mesh, out)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the record of collectives
+# ---------------------------------------------------------------------------
+
+#: the records of the open ``recording``, or None
+_RECORD: list | None = None
+
+
+@contextlib.contextmanager
+def recording():
+    """Record every collective this process issues inside the block:
+    yields the list, which gains {"op", "bytes", "groups"} (the HLO op
+    name, its result's bytes, the group's global ranks) or, for a send,
+    {"op": "collective-permute", "bytes", "pairs": [[source, target]]}."""
+    global _RECORD
+    prev, _RECORD = _RECORD, []
+    try:
+        yield _RECORD
+    finally:
+        _RECORD = prev
+
+
+def _record(op: str, nbytes: int, ax: Axis | None = None, pairs=None):
+    if _RECORD is None:
+        return
+    rec = {"op": op, "bytes": int(nbytes)}
+    if pairs is not None:
+        rec["pairs"] = [list(p) for p in pairs]
+    else:
+        rec["groups"] = [list(ax.ranks)]
+    _RECORD.append(rec)
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+def all_gather_object(obj, ax: Axis) -> list:
+    """``dist.all_gather_object`` over ``ax``: every rank's ``obj``, in
+    axis order, recorded as an all-gather of the pickled objects."""
+    if ax.size == 1:
+        return [obj]
+    if _RECORD is not None:
+        _record("all-gather", ax.size * len(pickle.dumps(obj)), ax)
+    parts = [None] * ax.size
+    dist.all_gather_object(parts, obj, group=ax.group)
+    return parts
+
+
 def _staged(group, t: torch.Tensor) -> bool:
     """Whether a collective over ``group`` takes ``t`` through host
     memory: a gloo group given a tensor on the card."""
@@ -96,6 +191,9 @@ def all_reduce(t: torch.Tensor, ax: Axis, op=dist.ReduceOp.SUM):
     rank)."""
     if ax.size == 1:
         return t
+    _record("all-reduce", _nbytes(t), ax)
+    if shape_only.active(t):
+        return t.detach().clone()
     if _staged(ax.group, t):
         host = t.detach().cpu()
         dist.all_reduce(host, op=op, group=ax.group)
@@ -132,10 +230,12 @@ def all_gather(t: torch.Tensor, ax: Axis, dim: int):
     ``dim`` in axis order."""
     if ax.size == 1:
         return t
+    _record("all-gather", ax.size * _nbytes(t), ax)
     staged = _staged(ax.group, t)
     src = t.detach().cpu() if staged else t.detach().contiguous()
     parts = [torch.empty_like(src) for _ in range(ax.size)]
-    dist.all_gather(parts, src, group=ax.group)
+    if not shape_only.active(src):
+        dist.all_gather(parts, src, group=ax.group)
     out = torch.cat(parts, dim)
     return out.to(t.device) if staged else out
 
@@ -169,6 +269,67 @@ class _ReduceFromGroup(torch.autograd.Function):
         return g, None
 
 
+class _GatherFromGroup(torch.autograd.Function):
+    """All-gather along a dim forward; the gradient's own slice back
+    (the downstream gradient is the same on every rank)."""
+
+    @staticmethod
+    def forward(ctx, x, ax, dim):
+        ctx.ax, ctx.dim, ctx.n = ax, dim, x.shape[dim]
+        return all_gather(x, ax, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(ctx.dim, ctx.ax.rank * ctx.n, ctx.n), None, None
+
+
+class _ScatterToGroup(torch.autograd.Function):
+    """This rank's slice along a dim forward; the slices' gradients
+    all-gathered back."""
+
+    @staticmethod
+    def forward(ctx, x, ax, dim):
+        ctx.ax, ctx.dim = ax, dim
+        n = x.shape[dim] // ax.size
+        return x.narrow(dim, ax.rank * n, n).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather(g, ctx.ax, ctx.dim), None, None
+
+
+class _SumOverGroup(torch.autograd.Function):
+    """All-reduce forward and backward: a sum over the ranks whose every
+    term reaches every rank's result (a norm's sum of squares)."""
+
+    @staticmethod
+    def forward(ctx, x, ax):
+        ctx.ax = ax
+        return all_reduce(x, ax)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g, ctx.ax), None
+
+
+def sum_over(x, ax: Axis):
+    """The sum of ``x`` over the ranks of ``ax``, differentiable: each
+    rank's gradient of its term is the sum of every rank's."""
+    return x if ax.size == 1 else _SumOverGroup.apply(x, ax)
+
+
+def gather_from(x, ax: Axis, dim: int):
+    """The ranks' pieces of a column-parallel product concatenated along
+    ``dim``, for a replicated consumer."""
+    return x if ax.size == 1 else _GatherFromGroup.apply(x, ax, dim)
+
+
+def scatter_to(x, ax: Axis, dim: int):
+    """This rank's slice of a replicated ``x`` along ``dim``, the input of
+    a row-parallel product."""
+    return x if ax.size == 1 else _ScatterToGroup.apply(x, ax, dim)
+
+
 def copy_to(x, ax: Axis):
     """Megatron's f: the input of a column-parallel product."""
     return x if ax.size == 1 else _CopyToGroup.apply(x, ax)
@@ -195,11 +356,13 @@ def _send_recv(send, recv_like, ax: Axis, forward: bool):
     recv = torch.zeros_like(recv_like, device="cpu" if staged else None)
     ops = []
     if 0 <= dst < ax.size:
+        _record("collective-permute", _nbytes(send),
+                pairs=[(ranks[s], ranks[dst])])
         out = send.detach().cpu() if staged else send.detach().contiguous()
         ops.append(dist.P2POp(dist.isend, out, ranks[dst], ax.group))
     if 0 <= src < ax.size:
         ops.append(dist.P2POp(dist.irecv, recv, ranks[src], ax.group))
-    if ops:
+    if ops and not shape_only.active(recv):
         for work in dist.batch_isend_irecv(ops):
             work.wait()
     return recv.to(recv_like.device) if staged else recv

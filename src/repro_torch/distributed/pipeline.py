@@ -6,7 +6,9 @@ realization of "pipeline every cross-slot stream, then balance", paper
 Counterpart of ``repro/distributed/pipeline.py``.
 
 Layout (``param_specs``, ``to_pipeline_params``): which dim of each of the
-port's parameters (by name, per layer) is sharded over the tp axis, and
+port's parameters (by name, per layer) is sharded over the tp axis (the
+reference's rules, but for the mamba2 and rwkv6 leaves that the port cuts
+by head, ``_BY_HEAD``; ``tensor_parallel.shard`` says how a dim is cut), and
 which layers a stage holds: stage s the layer groups [s Gs, (s + 1) Gs),
 i.e. layers [s Gs P, (s + 1) Gs P) of ``params.layers`` with P =
 ``len(cfg.layer_pattern)``.  Every other parameter (the embedding, the
@@ -56,11 +58,37 @@ _COL = ("wq", "wk", "wv", "w_up", "w_gate", "w_in", "wr", "wg", "w_A",
 _ROW = ("wo", "w_down", "w_out", "w_B", "w_shared_out")
 
 
+#: the port's own placements, where its mamba2 and rwkv6 layers split by
+#: head (``tensor_parallel``'s docstring) and the reference's flat column
+#: and row cuts would split a head's arithmetic across ranks: (module,
+#: the name's tail) -> the dim cut over tp, or None for a whole tensor
+_BY_HEAD = {("mamba", "conv_w"): 1, ("mamba", "A_log"): 0,
+            ("mamba", "dt_bias"): 0, ("mamba", "D"): 0,
+            ("mamba", "norm.w"): 0,
+            ("time_mix", "w_A"): None, ("time_mix", "w_B"): 1,
+            ("time_mix", "w_base"): 0, ("time_mix", "u"): 0,
+            ("time_mix", "ln_x.w"): 0, ("chan_mix", "wv"): 0}
+
+
+def _by_head(name: str):
+    """(found, dim) of ``_BY_HEAD`` for a parameter name."""
+    parts = name.split(".")
+    for i, part in enumerate(parts):
+        key = (part, ".".join(parts[i + 1:]))
+        if key in _BY_HEAD:
+            return True, _BY_HEAD[key]
+    return False, None
+
+
 def _leaf_spec(name: str, shape, *, tp_axis: str, tp_size: int) -> tuple:
     """The placement of one parameter (a per-layer tensor, no stack
-    dims): one entry a dim, ``tp_axis`` or None."""
+    dims): one entry a dim, ``tp_axis`` or None.  The reference's rules,
+    but for ``_BY_HEAD``'s parameters."""
     leaf = name.rsplit(".", 1)[-1]
     nd = len(shape)
+    found, dim = _by_head(name)
+    if found:
+        return tuple(tp_axis if i == dim else None for i in range(nd))
     if leaf == "embed":
         return (tp_axis, None)
     if leaf == "lm_head":
@@ -160,10 +188,12 @@ def from_pipeline_params(stages: list, cfg: ArchConfig) -> dict:
 
 @dataclasses.dataclass(frozen=True)
 class Ranks:
-    """One rank's place on the mesh: its stage, data and tp axes."""
+    """One rank's place on the mesh: its stage, data and tp axes, and the
+    tp ranks that share its KV head (``tensor_parallel.kv_share``)."""
     stage: Axis
     data: Axis
     tp: Axis
+    kv: Axis = Axis(None, 1, 0)
 
 
 def offsets(plan: TpuPlan) -> list[int]:

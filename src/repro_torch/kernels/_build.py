@@ -36,14 +36,14 @@ _ATTN = [_P, _P, _P, _P, _P, _I, _P, _I]
 _SIGNATURES = {
     "flash_attention": {
         "flash_attention_fwd": _ATTN + [_I] * 11 + [_F, _F, _P, _P],
-        "decode_attention_fwd": _ATTN + [_I] * 10 + [_F, _F, _P, _I, _I, _P],
+        "decode_attention_fwd": _ATTN + [_I] * 10 + [_F, _F, _P, _I, _I, _P,
+                                                   _P],
         "flash_attention_bwd": [_P] * 10 + [_I] * 11 + [_F, _F, _P],
     },
     "burst_gather": {
         "burst_gather_fwd": [_P, _P, _P, _LL, _LL, _LL, _P, _P],
         "burst_gather_bwd": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _I,
                              _P],
-        "burst_gather_bwd_scratch": [_I, _I, _I],
     },
     "mamba2_scan": {
         "mamba2_scan_fwd": [_P] * 8 + [_I] * 5 + [_LL] * 7 + [_I, _I, _P],

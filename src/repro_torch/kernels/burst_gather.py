@@ -8,13 +8,14 @@ adds one to ``burst_gather.launches``.  When a gradient is wanted (grad
 mode on and a table that requires grad) the CUDA call goes through
 ``_Gather``, whose backward is the hand-written ``burst_gather_bwd``
 (one more in ``burst_gather_bwd.launches`` a call, and in the count of
-the path ``bwd_path`` picks).
+the path ``bwd_path`` picks).  Meta or fake tensors take the shape-only path
+(``shape_only.launch``), counted alike.
 """
 from __future__ import annotations
 
 import torch
 
-from . import ref
+from . import costs, ref, shape_only
 from .flash_attention import _sm_count
 
 
@@ -26,6 +27,8 @@ _BWD_DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 #: in shared memory (``SORT_MAX`` in csrc/burst_gather.cu); more take the
 #: multi-block path, chunks of this many ids
 SORT_MAX = 16384
+#: ints of the backward writer's state (``STATE`` in csrc/burst_gather.cu)
+WRITER_STATE = 5
 
 
 def bwd_path(N: int) -> str:
@@ -35,10 +38,30 @@ def bwd_path(N: int) -> str:
     return "one_block" if N <= SORT_MAX else "multi_block"
 
 
-def _forward(table, idx, bursts):
-    from . import _build
+def bwd_scratch_ints(R: int, N: int, multi: bool) -> int:
+    """Ints of ``burst_gather_bwd``'s scratch for N ids into R rows on the
+    one-block or the multi-block (``multi``) path: the taken rows'
+    segments (4 ints each, at most min(N, R)), the sorted positions (N),
+    the bitmap of taken rows, the writer's state; on the multi-block path
+    also the chunks' counts (a chunk of ``SORT_MAX`` ids x (R + 1) rows)
+    and each sorted id's row, position and rank (3 N).  The one rule, for
+    the card and the shape-only path; the library checks the size it is
+    given against its own layout (``scratch_ints`` in
+    csrc/burst_gather.cu).  Raises ``ValueError`` where an offset would
+    not fit an int32, as the library would refuse the launch."""
+    n = 4 * min(N, R) + N + (R + 31) // 32 + WRITER_STATE
+    if multi:
+        n += -(-N // SORT_MAX) * (R + 1) + 3 * N
+    if n > 2 ** 31 - 1:
+        path = "multi_block" if multi else "one_block"
+        raise ValueError(f"burst_gather_bwd: {N} ids into {R} rows do not "
+                         f"fit the {path} sort's int32 counts and offsets")
+    return n
 
-    if table.device.type != "cuda" or idx.device != table.device:
+
+def _forward(table, idx, bursts):
+    if table.device.type not in ("cuda", "meta") or \
+            idx.device != table.device:
         raise ValueError(f"burst_gather: table and idx must lie on one "
                          f"CUDA device, got {table.device}, {idx.device}")
     if table.dim() != 2 or idx.dim() != 1:
@@ -56,6 +79,12 @@ def _forward(table, idx, bursts):
                          "table's device")
     R, D = table.shape
     idx32 = idx.to(torch.int32).contiguous()
+    if shape_only.active(table, idx):
+        burst_gather.launches += 1
+        return shape_only.launch("burst_gather", (table, idx32),
+                                 [((idx.shape[0], D), table.dtype)])[0]
+    from . import _build
+
     out = torch.empty((idx.shape[0], D), dtype=table.dtype,
                       device=table.device)
     lib = _build.load("burst_gather")
@@ -124,9 +153,9 @@ def burst_gather_bwd(dout: torch.Tensor, idx: torch.Tensor,
     bit for bit.  On CUDA: bf16 or f32, ids in [0, rows) (others add to no
     row); a stable sort of the ids by row (one block up to ``SORT_MAX``
     ids, else chunks and a merge: ``bwd_path``), then a writer that sums
-    the taken rows while it zeroes the rest.  The scratch is sized by the
-    library's own rule (``burst_gather_bwd_scratch``), which raises here
-    where the ids' counts would not fit an int.  Adds one to
+    the taken rows while it zeroes the rest.  The scratch is sized by
+    ``bwd_scratch_ints``, which raises where the ids' counts would not
+    fit an int.  Adds one to
     ``burst_gather_bwd.launches`` and to the path's
     ``.one_block_launches`` or ``.multi_block_launches``.
     """
@@ -137,8 +166,6 @@ def burst_gather_bwd(dout: torch.Tensor, idx: torch.Tensor,
             (grad,) = torch.autograd.grad(ref.burst_gather_ref(table, idx),
                                           table, dout)
         return grad
-    from . import _build
-
     if dout.dim() != 2 or idx.dim() != 1 or idx.shape[0] != dout.shape[0]:
         raise ValueError(f"burst_gather_bwd: want dout (N, D) and idx (N,), "
                          f"got {tuple(dout.shape)}, {tuple(idx.shape)}")
@@ -149,13 +176,18 @@ def burst_gather_bwd(dout: torch.Tensor, idx: torch.Tensor,
         raise ValueError(f"burst_gather_bwd: dout and idx lie on "
                          f"{dout.device} and {idx.device}")
     N, D = dout.shape
-    path = bwd_path(N)
-    multi = int(path == "multi_block")
+    multi = int(bwd_path(N) == "multi_block")
+    size = bwd_scratch_ints(rows, N, multi)
+    if shape_only.active(dout, idx):
+        dtable, _ = shape_only.launch(
+            "burst_gather_bwd", (dout, idx),
+            [((rows, D), dout.dtype), ((size,), torch.int32)],
+            costs.gather_bwd_flops(dout.numel()))
+        _count_bwd(multi)
+        return dtable
+    from . import _build
+
     lib = _build.load("burst_gather")
-    size = lib.burst_gather_bwd_scratch(rows, N, multi)
-    if size < 0:
-        raise ValueError(f"burst_gather_bwd: {N} ids into {rows} rows do not "
-                         f"fit the {path} sort's int32 counts and offsets")
     dout = dout.contiguous()
     idx32 = idx.to(torch.int32).contiguous()
     dtable = torch.empty((rows, D), dtype=dout.dtype, device=dout.device)
@@ -167,12 +199,16 @@ def burst_gather_bwd(dout: torch.Tensor, idx: torch.Tensor,
             _sm_count(dout.device.index),
             torch.cuda.current_stream().cuda_stream)
     _build.check(err, "burst_gather_bwd")
+    _count_bwd(multi)
+    return dtable
+
+
+def _count_bwd(multi):
     burst_gather_bwd.launches += 1
     if multi:
         burst_gather_bwd.multi_block_launches += 1
     else:
         burst_gather_bwd.one_block_launches += 1
-    return dtable
 
 
 burst_gather_bwd.launches = 0

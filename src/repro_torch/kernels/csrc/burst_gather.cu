@@ -696,7 +696,9 @@ int launch_sort(const int* idx, int N, int R, int* perm, int4* segs,
 // taken rows, the writer's state; past SORT_MAX ids (multi) also the
 // chunks' counts (a chunk of SORT_MAX ids x (R + 1) rows) and each
 // sorted id's row, position and rank (3 N).  -1 where an offset would not
-// fit an int.  The one rule, used by the wrapper and checked here.
+// fit an int.  The wrapper sizes the scratch by the same rule
+// (bwd_scratch_ints in burst_gather.py); burst_gather_bwd checks the size
+// it is given against it.
 long long scratch_ints(int R, int N, int multi) {
   long long n = 4LL * min(N, R) + N + (R + 31) / 32 + STATE;
   if (multi) {
@@ -789,27 +791,22 @@ int launch_bwd(const void* dout, const int* idx, void* dtable, int R, int N,
 
 }  // namespace
 
-// Ints of burst_gather_bwd's scratch for N ids into R rows on the
-// one-block (multi 0) or the multi-block path (multi 1), or -1 where the
-// path cannot take them (the one-block path past SORT_MAX ids, the
-// multi-block path no id) or an offset would not fit an int.
-extern "C" int burst_gather_bwd_scratch(int R, int N, int multi) {
-  if (R <= 0 || N < 0 || (multi ? N == 0 : N > SORT_MAX)) return -1;
-  return (int)scratch_ints(R, N, multi);
-}
-
 // dout: (N, D) of dtype (0 = bfloat16, 1 = float32); idx: (N,) int32 on
 // the device; dtable: (R, D) of the same dtype, every row written; multi:
 // 0 for the one-block sort (N <= SORT_MAX), 1 for the chunks' sort and
-// merge; scratch: at least burst_gather_bwd_scratch(R, N, multi) ints
-// (scratch_n), 16-byte aligned; n_sm: the device's SMs.  Ids outside
-// [0, R) add to no row.  Returns the CUDA error of the launches (0 on
-// success).
+// merge; scratch: scratch_n ints, 16-byte aligned, at least
+// scratch_ints(R, N, multi); n_sm: the device's SMs.  Ids outside [0, R)
+// add to no row.  Refuses (cudaErrorInvalidValue, before any launch) a
+// path that cannot take N ids (the one-block path past SORT_MAX ids, the
+// multi-block path no id), a scratch too small, or offsets that would not
+// fit an int.  Returns the CUDA error of the launches (0 on success).
 extern "C" int burst_gather_bwd(const void* dout, const int* idx,
                                 void* dtable, int R, int N, int D, int dtype,
                                 int multi, int* scratch, int scratch_n,
                                 int n_sm, void* stream) {
-  const int need = burst_gather_bwd_scratch(R, N, multi);
+  if (R <= 0 || N < 0 || (multi ? N == 0 : N > SORT_MAX))
+    return (int)cudaErrorInvalidValue;
+  const long long need = scratch_ints(R, N, multi);
   if (D <= 0 || need < 0 || scratch_n < need || n_sm <= 0 ||
       reinterpret_cast<uintptr_t>(scratch) % 16 != 0)
     return (int)cudaErrorInvalidValue;

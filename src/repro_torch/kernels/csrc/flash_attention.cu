@@ -849,12 +849,14 @@ decode_partial(const T* __restrict__ q, const T* __restrict__ k,
 
 // Merge the splits of one (KV head, batch) in split order; o (B, 1, Hq, D).
 // First one warp per head finds the splits' weights exp(m_s - M) / L in
-// shared memory (n_split x g floats), then each thread sums its outputs
-// over the splits.
+// shared memory (n_split x g floats), and writes M + log L to lse (B, Hq)
+// f32 where lse is given; then each thread sums its outputs over the
+// splits.
 template <typename T>
 __global__ void __launch_bounds__(CNT)
 decode_combine(const float* __restrict__ scratch, T* __restrict__ o,
-               int n_split, int Hq, int Hkv, int D) {
+               float* __restrict__ lse, int n_split, int Hq, int Hkv,
+               int D) {
   // launched early (programmatic dependent launch): wait until the
   // partials are written
   asm volatile("griddepcontrol.wait;\n" ::: "memory");
@@ -883,6 +885,10 @@ decode_combine(const float* __restrict__ scratch, T* __restrict__ o,
     }
     L = warp_sum(L);
     const float inv = L > 0.f ? 1.f / L : 0.f;
+    // the row's log-sum-exp, -inf where no split had a valid key
+    if (lse != nullptr && lane == 0)
+      lse[(long long)b * Hq + (long long)hk * g + h] =
+          L > 0.f ? M + logf(L) : -INFINITY;
     __syncwarp();
     for (int s = lane; s < n_split; s += 32) sW[s * g + h] *= inv;
   }
@@ -1772,7 +1778,7 @@ int launch_decode(const void* q, const void* k, const void* v, void* o,
                   int q_off_all, int B, int Skv, int Hq, int Hkv, int D,
                   int causal, int has_window, int window, int has_softcap,
                   float softcap, float scale, float* scratch, int n_split,
-                  int chunk, cudaStream_t stream) {
+                  int chunk, float* lse, cudaStream_t stream) {
   static bool configured = false;
   const size_t smem = decode_smem_bytes<T>(Hq / Hkv, D);
   const size_t combine_smem = sizeof(float) * (size_t)n_split * (Hq / Hkv);
@@ -1807,7 +1813,8 @@ int launch_decode(const void* q, const void* k, const void* v, void* o,
   cfg.numAttrs = 1;
   return (int)cudaLaunchKernelEx(&cfg, decode_combine<T>,
                                  static_cast<const float*>(scratch),
-                                 static_cast<T*>(o), n_split, Hq, Hkv, D);
+                                 static_cast<T*>(o), lse, n_split, Hq, Hkv,
+                                 D);
 }
 
 
@@ -1955,12 +1962,14 @@ extern "C" int flash_attention_fwd(
 // q: (B, 1, Hq, D); k, v: (B, Skv, Hkv, D).  Same conventions as above.
 // scratch: (B * Hq * n_split * (D + 2)) f32 from the caller; the keys are
 // cut into n_split chunks of `chunk` (a multiple of 32) that cover Skv.
+// lse: (B, Hq) f32, each row's log-sum-exp over its valid keys (-inf where
+// it has none), or null.
 extern "C" int decode_attention_fwd(
     const void* q, const void* k, const void* v, void* o, const int* kv_len,
     int kv_len_all, const int* q_off, int q_off_all, int B, int Skv, int Hq,
     int Hkv, int D, int dtype, int causal, int has_window, int window,
     int has_softcap, float softcap, float scale, void* scratch, int n_split,
-    int chunk, void* stream) {
+    int chunk, float* lse, void* stream) {
   if (D % 8 != 0 || D > 256 || Hkv <= 0 || Hq % Hkv != 0 ||
       Hq / Hkv > 4 * DHW || n_split < 1 ||
       chunk < DK || chunk % DK != 0 || (long long)n_split * chunk < Skv)
@@ -1971,7 +1980,7 @@ extern "C" int decode_attention_fwd(
 #define DECODE_ARGS                                                       \
   q, k, v, o, kv_len, kv_len_all, q_off, q_off_all, B, Skv, Hq, Hkv, D,     \
       causal, has_window, window, has_softcap, softcap, scale, sc, n_split, \
-      chunk, s
+      chunk, lse, s
   if (dtype == 0) return launch_decode<__nv_bfloat16>(DECODE_ARGS);
   if (dtype == 1) return launch_decode<float>(DECODE_ARGS);
 #undef DECODE_ARGS

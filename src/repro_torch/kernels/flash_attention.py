@@ -14,7 +14,13 @@ A CUDA ``flash_attention`` whose q, k or v requires grad (in grad mode)
 goes through ``_Flash``: its forward also writes each row's log-sum-exp,
 and its backward is ``flash_attention_bwd``.  It raises for ``kv_len`` or
 ``q_offset``, which no training path passes.  ``decode_attention`` has no
-backward kernel and raises when a gradient is wanted of a CUDA input.
+backward kernel and raises when a gradient is wanted of a CUDA input; it
+can also return each row's log-sum-exp (``return_lse``), which a
+context-parallel cache needs to merge the ranks' slices.
+
+Meta or fake tensors take the shape-only path (``shape_only.launch``):
+the outputs' shapes and the scratch a launch would allocate, counted by
+the kernel's operations (``costs``), and one more in ``launches``.
 """
 from __future__ import annotations
 
@@ -22,7 +28,7 @@ import functools
 
 import torch
 
-from . import ref
+from . import costs, ref, shape_only
 from ._grad import refuse_grad
 
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
@@ -57,7 +63,8 @@ def _sm_count(index: int) -> int:
 
 
 def _check(q, k, v, name):
-    if not (q.device.type == k.device.type == v.device.type == "cuda"):
+    if not (q.device.type == k.device.type == v.device.type
+            and q.device.type in ("cuda", "meta")):
         raise ValueError(f"{name}: q, k, v must all lie on the CPU or all "
                          f"on a CUDA device, got {q.device}, {k.device}, "
                          f"{v.device}")
@@ -80,7 +87,8 @@ def _check(q, k, v, name):
                          f"and at most 256")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError(f"{name}: q, k, v must be contiguous")
-    if any(t.data_ptr() % 16 for t in (q, k, v)):
+    if not shape_only.active(q, k, v) and \
+            any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError(f"{name}: q, k, v must start 16-byte aligned")
 
 
@@ -95,14 +103,31 @@ def _per_batch(value, B, device):
     return None, int(value)
 
 
+def _pairs(q, k, causal, window, q_offset, kv_len):
+    B, Sq, Hq, _ = q.shape
+    return costs.attention_pairs(B, Sq, k.shape[1], Hq, causal=causal,
+                                 window=window, q_offset=q_offset,
+                                 kv_len=kv_len)
+
+
 def _launch(fn_name, q, k, v, *, causal, window, softcap, scale, q_offset,
             kv_len, lse=None):
-    """Launch a forward kernel; ``lse``, a (B, Hq, Sq) f32 tensor or None,
-    takes the prefill's log-sum-exp of each row."""
-    from . import _build
-
+    """Launch a forward kernel; ``lse``, a f32 tensor or None, takes each
+    row's log-sum-exp: (B, Hq, Sq) of the prefill, (B, Hq) of the
+    decode."""
     B, Sq, Hq, D = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
+    if shape_only.active(q, k, v):
+        outs = [(q.shape, q.dtype)]
+        if fn_name == "decode_attention_fwd":
+            n_split, _ = decode_splits(B, Hkv, Skv, costs.H100_SMS)
+            outs.append(((B * Hq * n_split * (D + 2),), torch.float32))
+        flops = costs.attention_flops(
+            _pairs(q, k, causal, window, q_offset, kv_len), D)
+        name = fn_name.removesuffix("_fwd")
+        return shape_only.launch(name, (q, k, v), outs, flops)[0]
+    from . import _build
+
     scale = (D ** -0.5) if scale is None else scale
     kl, kl_all = _per_batch(Skv if kv_len is None else kv_len, B, q.device)
     qo, qo_all = _per_batch(q_offset, B, q.device)
@@ -117,7 +142,8 @@ def _launch(fn_name, q, k, v, *, causal, window, softcap, scale, q_offset,
         # per (batch, query head, split): an f32 partial acc (D), m and l
         scratch = torch.empty(B * Hq * n_split * (D + 2),
                               dtype=torch.float32, device=q.device)
-        plan = (scratch.data_ptr(), n_split, chunk)
+        plan = (scratch.data_ptr(), n_split, chunk,
+                None if lse is None else lse.data_ptr())
     with torch.cuda.device(q.device):
         err = getattr(lib, fn_name)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
@@ -213,11 +239,21 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal=True, window=None,
             out = ref.attention_ref(*args, causal=causal, window=window,
                                     softcap=softcap, scale=scale)
             return torch.autograd.grad(out, args, do)
-    from . import _build
-
     _check(q, k, v, "flash_attention_bwd")
     B, Sq, Hq, D = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
+    sqp = -(-Sq // BWD_ROW_PAD) * BWD_ROW_PAD
+    if shape_only.active(q, k, v, do):
+        dq, dk, dv, _ = shape_only.launch(
+            "flash_attention_bwd", (q, k, v, o, lse, do),
+            [(t.shape, t.dtype) for t in (q, k, v)]
+            + [((2 * B * Hq * sqp,), torch.float32)],
+            costs.attention_bwd_flops(_pairs(q, k, causal, window, 0, None),
+                                      D))
+        flash_attention_bwd.launches += 1
+        return dq, dk, dv
+    from . import _build
+
     do = do.contiguous()
     if do.shape != q.shape or o.shape != q.shape or do.dtype != q.dtype \
             or o.dtype != q.dtype or not o.is_contiguous():
@@ -231,7 +267,6 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal=True, window=None,
     scale = (D ** -0.5) if scale is None else scale
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     # delta and the padded copy of lse, B * Hq rows of Sq rounded up each
-    sqp = -(-Sq // BWD_ROW_PAD) * BWD_ROW_PAD
     scratch = torch.empty(2 * B * Hq * sqp, dtype=torch.float32,
                           device=q.device)
     lib = _build.load("flash_attention")
@@ -253,32 +288,39 @@ flash_attention_bwd.launches = 0
 
 
 def decode_attention(q, k, v, *, causal=False, window=None, softcap=None,
-                     scale=None, q_offset=0, kv_len=None):
+                     scale=None, q_offset=0, kv_len=None, return_lse=False):
     """Single-token decode: q (B, 1, Hq, D) against a (possibly ring-
-    buffered) KV cache k, v (B, max_seq, Hkv, D) -> (B, 1, Hq, D).
+    buffered) KV cache k, v (B, max_seq, Hkv, D) -> (B, 1, Hq, D), or with
+    ``return_lse`` (that, lse (B, Hq) f32): each row's log-sum-exp of its
+    scaled (and softcapped) scores over its valid keys, -inf where it has
+    none (its output row is then zeros).
 
     Held to ``ref.attention_ref`` with the same arguments, ``window``
-    included.  Causality at decode comes through ``kv_len`` (every cached
-    key up to it is valid), hence ``causal=False`` by default.
+    included, and the lse to ``ref.attention_lse``.  Causality at decode
+    comes through ``kv_len`` (every cached key up to it is valid), hence
+    ``causal=False`` by default.
     """
     if q.shape[1] != 1:
         raise ValueError(f"decode_attention: want one query token, got "
                          f"q {tuple(q.shape)}")
     if q.device.type == "cpu":
-        return ref.attention_ref(q, k, v, causal=causal, window=window,
-                                 softcap=softcap, scale=scale,
-                                 q_offset=q_offset, kv_len=kv_len)
+        kw = dict(causal=causal, window=window, softcap=softcap,
+                  scale=scale, q_offset=q_offset, kv_len=kv_len)
+        o = ref.attention_ref(q, k, v, **kw)
+        return (o, ref.attention_lse(q, k, **kw)[:, 0]) if return_lse else o
     _check(q, k, v, "decode_attention")
     refuse_grad("decode_attention", q, k, v)
     if q.shape[2] // k.shape[2] > DECODE_MAX_GROUP:
         raise ValueError(f"decode_attention: at most {DECODE_MAX_GROUP} "
                          f"query heads per KV head on CUDA, got "
                          f"{q.shape[2]} / {k.shape[2]}")
+    lse = torch.empty((q.shape[0], q.shape[2]), dtype=torch.float32,
+                      device=q.device) if return_lse else None
     o = _launch("decode_attention_fwd", q, k, v, causal=causal,
                 window=window, softcap=softcap, scale=scale,
-                q_offset=q_offset, kv_len=kv_len)
+                q_offset=q_offset, kv_len=kv_len, lse=lse)
     decode_attention.launches += 1
-    return o
+    return (o, lse) if return_lse else o
 
 
 decode_attention.launches = 0

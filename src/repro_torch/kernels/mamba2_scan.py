@@ -15,13 +15,15 @@ tensor cores for bf16 with at least ``CHUNK`` steps (a states pass of
 the sequential f32 kernels ``mamba2_bwd_scan`` and ``mamba2_bwd_sum``
 otherwise, all of ``csrc/mamba2_scan.cu``.  A CUDA call whose inputs want
 a gradient (in grad mode) goes through ``_Mamba2``, whose backward is
-``mamba2_scan_bwd``.
+``mamba2_scan_bwd``.  Meta or fake tensors take the shape-only path
+(``shape_only.launch``): the outputs and scratch of the launch, counted
+by its operations (``costs``), one more in ``launches``.
 """
 from __future__ import annotations
 
 import torch
 
-from . import _scan_bwd, ref
+from . import _scan_bwd, costs, ref, shape_only
 
 #: largest head size P and state size N the kernel takes
 MAX_DIM = 128
@@ -80,7 +82,8 @@ def _check(x, dt, A, B_, C, state):
         raise ValueError(f"mamba2_scan: the kernel takes P and N up to "
                          f"{MAX_DIM}, got P={P}, N={N}")
     tensors = [x, dt, A, B_, C] + ([] if state is None else [state])
-    if any(t.device != x.device for t in tensors) or x.device.type != "cuda":
+    if any(t.device != x.device for t in tensors) or \
+            x.device.type not in ("cuda", "meta"):
         raise ValueError(f"mamba2_scan: all tensors must lie on the CPU or "
                          f"all on one CUDA device, got "
                          f"{[str(t.device) for t in tensors]}")
@@ -96,14 +99,20 @@ def _last_dense(t):
 
 def _launch(x, dt, A, B_, C, state):
     """The forward kernel of ``schedule(x.dtype, S)``."""
-    from . import _build
-
     Bsz, S, H, P = x.shape
     N = B_.shape[-1]
     x, B_, C = (_last_dense(t) for t in (x, B_, C))
     dt = dt.float().contiguous()
     A = A.float().contiguous()
     h0 = None if state is None else state.float().contiguous()
+    if shape_only.active(x, dt, B_, C):
+        y, hout = shape_only.launch(
+            "mamba2_scan", (x, dt, A, B_, C, h0),
+            [((Bsz, S, H, P), x.dtype), ((Bsz, H, P, N), torch.float32)],
+            costs.mamba2_flops(x.numel(), N))
+        return y, hout
+    from . import _build
+
     y = torch.empty((Bsz, S, H, P), dtype=x.dtype, device=x.device)
     hout = torch.empty((Bsz, H, P, N), dtype=torch.float32, device=x.device)
     lib = _build.load("mamba2_scan")
@@ -212,8 +221,6 @@ def mamba2_scan_bwd(x, dt, A, B_, C, state, dy, dstate=None):
             if state is None else state
         return _scan_bwd.plain_vjp(ref.mamba2_scan_ref,
                                    (x, dt, A, B_, C, h0), (dy, dstate))
-    from . import _build
-
     _check(x, dt, A, B_, C, state)
     if tuple(dy.shape) != (Bsz, S, H, P) or dy.dtype != x.dtype \
             or dy.device != x.device:
@@ -231,13 +238,25 @@ def mamba2_scan_bwd(x, dt, A, B_, C, state, dy, dstate=None):
     dhT = None if dstate is None else dstate.float().contiguous()
     dy = dy.contiguous()
     dev = x.device
+    path = bwd_schedule(x.dtype, S)
+    if shape_only.active(x, dt, B_, C, dy):
+        dx, dB, dC, ddt, dA, ds0, _ = shape_only.launch(
+            "mamba2_scan_bwd", (xk, dtk, Ak, Bk, Ck, h0, dy, dhT),
+            [((Bsz, S, H, P), x.dtype), ((Bsz, S, N), x.dtype),
+             ((Bsz, S, N), x.dtype), ((Bsz, S, H), torch.float32),
+             ((H,), torch.float32), ((Bsz, H, P, N), torch.float32),
+             ((bwd_scratch_floats(Bsz, S, H, P, N, path),), torch.float32)],
+            costs.mamba2_flops(x.numel(), N, backward=True))
+        _count_bwd(path)
+        return dx, ddt.to(dt.dtype), dA.to(A.dtype), dB, dC, ds0
+    from . import _build
+
     dx = torch.empty((Bsz, S, H, P), dtype=x.dtype, device=dev)
     dB, dC = (torch.empty((Bsz, S, N), dtype=x.dtype, device=dev)
               for _ in range(2))
     ddt = torch.empty((Bsz, S, H), dtype=torch.float32, device=dev)
     dA = torch.empty((H,), dtype=torch.float32, device=dev)
     ds0 = torch.empty((Bsz, H, P, N), dtype=torch.float32, device=dev)
-    path = bwd_schedule(x.dtype, S)
     cl = bwd_cluster(H * -(-P // CHUNK_ROWS)) if path == "chunked" else 1
     scratch = torch.empty(bwd_scratch_floats(Bsz, S, H, P, N, path),
                           dtype=torch.float32, device=dev)
@@ -254,12 +273,16 @@ def mamba2_scan_bwd(x, dt, A, B_, C, state, dy, dstate=None):
             int(path == "chunked"), cl,
             torch.cuda.current_stream().cuda_stream)
     _build.check(err, "mamba2_scan_bwd")
+    _count_bwd(path)
+    return dx, ddt.to(dt.dtype), dA.to(A.dtype), dB, dC, ds0
+
+
+def _count_bwd(path):
     mamba2_scan_bwd.launches += 1
     if path == "chunked":
         mamba2_scan_bwd.chunked_launches += 1
     else:
         mamba2_scan_bwd.sequential_launches += 1
-    return dx, ddt.to(dt.dtype), dA.to(A.dtype), dB, dC, ds0
 
 
 mamba2_scan_bwd.launches = 0

@@ -24,6 +24,10 @@ dX over (row tile, column tile) items, dW over (expert, K tile, N tile)
 items, experts with the most rows first, in clusters of two blocks along
 K that share dY's TMA loads, each walking its expert's rows.  Each
 backward call adds one to ``moe_gmm_bwd.launches``.
+
+Meta or fake tensors take the shape-only path (``shape_only.launch``):
+the plan's buffer, the products' outputs, counted by their operations
+(``costs``) and in the same counters.
 """
 from __future__ import annotations
 
@@ -31,7 +35,7 @@ from typing import NamedTuple
 
 import torch
 
-from . import ref
+from . import costs, ref, shape_only
 
 #: largest number of experts the kernel takes
 MAX_EXPERTS = 1024
@@ -188,16 +192,23 @@ def plan(group_ids: torch.Tensor, E: int) -> Plan:
     T = group_ids.shape[0]
     if group_ids.device.type == "cpu":
         return plan_ref(group_ids, E)
-    if group_ids.device.type != "cuda":
+    if group_ids.device.type not in ("cuda", "meta"):
         raise ValueError(f"moe_gmm.plan: ids must lie on the CPU or a CUDA "
                          f"device, got {group_ids.device}")
-    from . import _build
-
     ids = group_ids.to(torch.int32).contiguous()
     bm, bound = row_tile(T, E), tile_bound(T, E)
+    size = 4 * bound + T + 2 * (E + 2)
+    if shape_only.active(ids):
+        (buf,) = shape_only.launch("moe_plan", (ids,),
+                                   [((size,), torch.int32)])
+        plan.launches += 1
+        tiles, perm, off, toff = torch.split(buf, [4 * bound, T, E + 2,
+                                                   E + 2])
+        return Plan(perm, off, toff, tiles.view(bound, 4), bm)
+    from . import _build
+
     # the tiles first: 16-byte aligned for the kernels' one load a tile
-    buf = torch.empty(4 * bound + T + 2 * (E + 2), dtype=torch.int32,
-                      device=ids.device)
+    buf = torch.empty(size, dtype=torch.int32, device=ids.device)
     tiles, perm, off, toff = torch.split(buf, [4 * bound, T, E + 2, E + 2])
     lib = _build.load("moe_gmm")
     with torch.cuda.device(ids.device):
@@ -235,7 +246,8 @@ def _check(x, w, group_ids):
         raise TypeError(f"moe_gmm: group_ids must be integer, got "
                         f"{group_ids.dtype}")
     tensors = (x, w, group_ids)
-    if any(t.device != x.device for t in tensors) or x.device.type != "cuda":
+    if any(t.device != x.device for t in tensors) or \
+            x.device.type not in ("cuda", "meta"):
         raise ValueError(f"moe_gmm: all tensors must lie on the CPU or all "
                          f"on one CUDA device, got "
                          f"{[str(t.device) for t in tensors]}")
@@ -254,10 +266,15 @@ def _check_plan(p: Plan, T: int, E: int, device) -> None:
 def _forward(x, w, ids, plan):
     """The card's product on contiguous x, w and int32 ids, with their
     plan: one launch."""
-    from . import _build
-
     T, K = x.shape
     E, _, N = w.shape
+    if shape_only.active(x, w, ids):
+        moe_gmm.launches += 1
+        return shape_only.launch("moe_gmm", (x, w, ids, *plan[:4]),
+                                 [((T, N), x.dtype)],
+                                 costs.gmm_flops(T, K, N))[0]
+    from . import _build
+
     s = schedule(T, K, N, E, x.dtype)
     out = torch.empty((T, N), dtype=x.dtype, device=x.device)
     lib = _build.load("moe_gmm")
@@ -352,8 +369,6 @@ def moe_gmm_bwd(dy: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
                 if want else ())
         return tuple(next(grads) if t.requires_grad else None
                      for t in leaves)
-    from . import _build
-
     _check(x, w, group_ids)
     T, K = x.shape
     E, _, N = w.shape
@@ -367,6 +382,17 @@ def moe_gmm_bwd(dy: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
     if plan is None:
         plan = _plan(ids, E)
     _check_plan(plan, T, E, x.device)
+    if shape_only.active(x, w, dy, ids):
+        moe_gmm_bwd.launches += 1
+        outs = ([((T, K), x.dtype)] if need_x else []) + \
+            ([((E, K, N), x.dtype)] if need_w else [])
+        got = iter(shape_only.launch(
+            "moe_gmm_bwd", (x, w, dy, ids, *plan[:4]), outs,
+            costs.gmm_flops(T, K, N) * (int(need_x) + int(need_w))))
+        return (next(got) if need_x else None,
+                next(got) if need_w else None)
+    from . import _build
+
     s = bwd_schedule(T, K, N, E, x.dtype)
     dx = torch.empty((T, K), dtype=x.dtype, device=x.device) \
         if need_x else None

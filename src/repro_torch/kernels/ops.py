@@ -15,12 +15,14 @@ from . import rwkv6_scan as _r6
 
 
 def attention(q, k, v, *, causal=True, window=None, softcap=None, scale=None,
-              q_offset=0, kv_len=None):
+              q_offset=0, kv_len=None, return_lse=False):
     """Prefill (Sq > 1) through ``flash_attention``, a single query token
-    through ``decode_attention``."""
-    fn = _fa.flash_attention if q.shape[1] > 1 else _fa.decode_attention
-    return fn(q, k, v, causal=causal, window=window, softcap=softcap,
-              scale=scale, q_offset=q_offset, kv_len=kv_len)
+    through ``decode_attention`` (which alone takes ``return_lse``)."""
+    kw = dict(causal=causal, window=window, softcap=softcap, scale=scale,
+              q_offset=q_offset, kv_len=kv_len)
+    if q.shape[1] > 1:
+        return _fa.flash_attention(q, k, v, **kw)
+    return _fa.decode_attention(q, k, v, return_lse=return_lse, **kw)
 
 
 def mamba2_scan(x, dt, A, B, C, state=None):

@@ -65,6 +65,37 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out.to(q.dtype)
 
 
+def attention_lse(q: torch.Tensor, k: torch.Tensor, *, causal: bool = True,
+                  window: int | None = None, softcap: float | None = None,
+                  scale: float | None = None,
+                  q_offset: int | torch.Tensor = 0,
+                  kv_len: int | torch.Tensor | None = None) -> torch.Tensor:
+    """The log-sum-exp over the valid keys of each row of
+    ``attention_ref``'s scores (scaled, softcapped, masked alike): (B, Sq,
+    Hq) f32, -inf for a row with no valid key.  The port's own (the JAX
+    package's ref returns no lse); a context-parallel cache merges the
+    ranks' slices of the keys by it."""
+    B, Sq, Hq, D = q.shape
+    _, Skv, Hkv, _ = k.shape
+    scale = (D ** -0.5) if scale is None else scale
+    kf = k.float().repeat_interleave(Hq // Hkv, dim=2)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float() * scale, kf)
+    if softcap is not None:
+        logits = torch.tanh(logits / softcap) * softcap
+    qpos = (_per_batch(q_offset, B, q.device)[:, None]
+            + torch.arange(Sq, device=q.device)[None, :])[:, :, None]
+    kpos = torch.arange(Skv, device=q.device)[None, None, :]
+    mask = torch.ones((B, Sq, Skv), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos <= qpos
+    if window is not None:
+        mask &= kpos > qpos - window
+    if kv_len is not None:
+        mask &= kpos < _per_batch(kv_len, B, q.device)[:, None, None]
+    logits = logits.masked_fill(~mask[:, None], -torch.inf)
+    return torch.logsumexp(logits, dim=-1).transpose(1, 2)
+
+
 def mamba2_scan_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                     B_: torch.Tensor, C: torch.Tensor,
                     state: torch.Tensor | None = None

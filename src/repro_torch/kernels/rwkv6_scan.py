@@ -12,13 +12,15 @@ plain version, on CUDA the f32 per-step walk ``rwkv6_bwd_scan`` (inputs
 staged by cp.async, checkpoints every 8 steps) and ``rwkv6_bwd_sum`` of
 ``csrc/rwkv6_scan.cu``, for both dtypes.  A CUDA call whose inputs
 want a gradient (in grad mode) goes through ``_Rwkv6``, whose backward is
-``rwkv6_scan_bwd``.
+``rwkv6_scan_bwd``.  Meta or fake tensors take the shape-only path
+(``shape_only.launch``): the outputs and scratch of the launch, counted
+by its operations (``costs``), one more in ``launches``.
 """
 from __future__ import annotations
 
 import torch
 
-from . import _scan_bwd, ref
+from . import _scan_bwd, costs, ref, shape_only
 
 #: largest head size D the kernel takes
 MAX_DIM = 128
@@ -52,7 +54,8 @@ def _check(r, k, v, w, u, state):
         raise ValueError(f"rwkv6_scan: the kernel takes head sizes up to "
                          f"{MAX_DIM}, got D={D}")
     tensors = [r, k, v, w, u] + ([] if state is None else [state])
-    if any(t.device != r.device for t in tensors) or r.device.type != "cuda":
+    if any(t.device != r.device for t in tensors) or \
+            r.device.type not in ("cuda", "meta"):
         raise ValueError(f"rwkv6_scan: all tensors must lie on the CPU or "
                          f"all on one CUDA device, got "
                          f"{[str(t.device) for t in tensors]}")
@@ -65,12 +68,18 @@ def _check(r, k, v, w, u, state):
 
 def _launch(r, k, v, w, u, state):
     """The forward kernel of ``schedule(r.dtype, S)``."""
-    from . import _build
-
     B, S, H, D = r.shape
     r, k, v, w = (t.contiguous() for t in (r, k, v, w))
     u = u.float().contiguous()
     s0 = None if state is None else state.float().contiguous()
+    if shape_only.active(r, k, v, w):
+        y, sout = shape_only.launch(
+            "rwkv6_scan", (r, k, v, w, u, s0),
+            [((B, S, H, D), r.dtype), ((B, H, D, D), torch.float32)],
+            costs.rwkv6_flops(r.numel(), D))
+        return y, sout
+    from . import _build
+
     y = torch.empty((B, S, H, D), dtype=r.dtype, device=r.device)
     sout = torch.empty((B, H, D, D), dtype=torch.float32, device=r.device)
     lib = _build.load("rwkv6_scan")
@@ -159,8 +168,6 @@ def rwkv6_scan_bwd(r, k, v, w, u, state, dy, dstate=None):
             if state is None else state
         return _scan_bwd.plain_vjp(ref.rwkv6_scan_ref, (r, k, v, w, u, s0),
                                    (dy, dstate))
-    from . import _build
-
     _check(r, k, v, w, u, state)
     if tuple(dy.shape) != (B, S, H, D) or dy.dtype != r.dtype \
             or dy.device != r.device:
@@ -177,6 +184,17 @@ def rwkv6_scan_bwd(r, k, v, w, u, state, dy, dstate=None):
     dsT = None if dstate is None else dstate.float().contiguous()
     dy = dy.contiguous()
     dev = r.device
+    if shape_only.active(r, k, v, w, dy):
+        dr, dk, dv, dw, du, ds0, _ = shape_only.launch(
+            "rwkv6_scan_bwd", (rk, kk, vk, wk, uk, s0, dy, dsT),
+            [((B, S, H, D), r.dtype)] * 4
+            + [((H, D), torch.float32), ((B, H, D, D), torch.float32),
+               ((bwd_scratch_floats(B, S, H, D),), torch.float32)],
+            costs.rwkv6_flops(r.numel(), D, backward=True))
+        rwkv6_scan_bwd.launches += 1
+        return dr, dk, dv, dw, du.to(u.dtype), ds0
+    from . import _build
+
     dr, dk, dv, dw = (torch.empty((B, S, H, D), dtype=r.dtype, device=dev)
                       for _ in range(4))
     du = torch.empty((H, D), dtype=torch.float32, device=dev)

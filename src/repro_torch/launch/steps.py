@@ -17,7 +17,8 @@ global batch; each takes its own rows and shards.
     (``distributed.pipeline``) on ``refined_mesh`` of a ``TpuPlan``, the
     same clip and optimizer;
   * ``build_baseline_serve``: prefill and decode through ``lm.step``'s
-    arithmetic on a rank's rows and heads.
+    arithmetic on a rank's rows and heads, the KV cache split by heads or
+    by its length (``baseline.kv_mode``).
 
 A step's ``args`` are meta-device stand-ins (``param_structs``,
 ``input_specs``), so that a step can be traced without memory.  Adafactor
@@ -30,7 +31,6 @@ from __future__ import annotations
 import dataclasses
 
 import torch
-import torch.distributed as dist
 from torch import nn
 
 from repro_torch.configs.base import ArchConfig
@@ -38,8 +38,9 @@ from repro_torch.distributed import baseline as bl
 from repro_torch.distributed import pipeline as pp
 from repro_torch.distributed import tensor_parallel as tpar
 from repro_torch.distributed.collectives import (Axis, all_gather,
+                                                 all_gather_object,
                                                  all_reduce, all_reduce_,
-                                                 axis)
+                                                 axis, sub_axis)
 from repro_torch.distributed.sharding import TpuPlan, plan_cell, refined_mesh
 from repro_torch.distributed.taskgraph import ShapeCell
 from repro_torch.model import lm
@@ -149,7 +150,8 @@ def shard_params(params, cfg: ArchConfig, *, stage: int = 0,
     """A rank's ``LM`` from the whole model's parameters (an ``LM`` or a
     dict of named tensors, on any device): the layers of stage ``stage``
     (renumbered from 0) and every parameter outside the layers, each cut
-    to this tp rank's shard, copied to ``device``."""
+    to this tp rank's shard (``tensor_parallel.shard``), copied to
+    ``device``."""
     device = lm.resolve_device(device)
     mine = pp.to_pipeline_params(_named(params), cfg, n_stages)[stage]
     specs = pp.param_specs(cfg, mine, tp_axis=tp_axis, tp_size=tp.size)
@@ -162,7 +164,7 @@ def shard_params(params, cfg: ArchConfig, *, stage: int = 0,
     for name, t in mine.items():
         dim = _shard_dim(specs[name], tp_axis)
         if dim is not None and tp.size > 1:
-            t = t.chunk(tp.size, dim)[tp.rank]
+            t = tpar.shard(cfg, name, t, dim, tp)
         prefix, _, leaf = name.rpartition(".")
         mod = local.get_submodule(prefix) if prefix else local
         setattr(mod, leaf, nn.Parameter(
@@ -204,23 +206,25 @@ class _Rank:
     def gather(self, tensors: dict) -> dict:
         """The whole model's tensors (on the CPU, by the model's names)
         from every rank's ``tensors`` (by its ``LM``'s names, shaped as
-        its parameters): gathered over tp along each one's split dim, the
-        stages' layers merged.  Every rank of the mesh calls it together
-        and gets the same dict."""
+        its parameters): gathered over tp along each one's split dim and
+        put together (``tensor_parallel.unshard``), the stages' layers
+        merged.  Every rank of the mesh calls it together and gets the
+        same dict."""
+        tp = self.ranks.tp
         specs = pp.param_specs(self.cfg, tensors, tp_axis=self.tp_axis,
-                               tp_size=self.ranks.tp.size)
+                               tp_size=tp.size)
         out = {}
         for name, t in tensors.items():
             dim = _shard_dim(specs[name], self.tp_axis)
-            if dim is not None:
-                t = all_gather(t, self.ranks.tp, dim)
+            if dim is not None and tp.size > 1:
+                t = tpar.unshard(self.cfg, name,
+                                 all_gather(t, tp, dim).chunk(tp.size, dim),
+                                 dim)
             out[_global_name(name, self.first_layer)] = t.detach().to(
                 "cpu", copy=True)
         stage = self.ranks.stage
         if stage.size > 1:
-            parts = [None] * stage.size
-            dist.all_gather_object(parts, out, group=stage.group)
-            for part in parts:
+            for part in all_gather_object(out, stage):
                 out.update(part)
         return out
 
@@ -263,6 +267,8 @@ class TrainStep(_Rank):
             loss, grads = self._pipeline_grads(params, named, batch)
         else:
             loss, grads = self._accumulated_grads(params, named, batch)
+        tpar.sum_shared_grads(self.cfg, grads, self.ranks.kv,
+                              self.ranks.tp.size)
         data = self.ranks.data
         if data.size > 1:
             all_reduce_(list(grads.values()), data)
@@ -320,15 +326,23 @@ class TrainStep(_Rank):
 
     def global_norm(self, grads: dict):
         """The f32 norm of the whole model's gradient, each entry counted
-        once: tp-split leaves summed over tp and replicated ones taken
-        once; each stage's layers summed over the stages, the shared
-        parameters (equal on every stage) once."""
+        once: tp-split runs summed over tp (a KV head's, held by
+        ``kv_share`` ranks, divided by their count) and replicated leaves
+        and runs taken once; each stage's layers summed over the stages,
+        the shared parameters (equal on every stage) once."""
         specs = self.specs(grads)
+        tp = self.ranks.tp.size
         sums = torch.zeros(4, dtype=torch.float32, device=self.device)
         for n, g in grads.items():
-            split = _shard_dim(specs[n], self.tp_axis) is not None
             layer = pp._layer_index(n) is not None
-            sums[2 * (not layer) + (not split)] += torch.sum(g.float() ** 2)
+            dim = _shard_dim(specs[n], self.tp_axis)
+            runs = [(g, tp)] if dim is None or tp == 1 else \
+                tpar.local_runs(self.cfg, n, g, dim, tp)
+            for piece, held in runs:
+                sq = torch.sum(piece.float() ** 2)
+                whole = held == tp
+                sums[2 * (not layer) + whole] += sq if whole or held == 1 \
+                    else sq / held
         tp_part = all_reduce(sums[[0, 2]], self.ranks.tp)
         layers = all_reduce(tp_part[0] + sums[1], self.ranks.stage)
         return torch.sqrt(layers + tp_part[1] + sums[3])
@@ -400,6 +414,17 @@ def _check_optimizer(cfg: ArchConfig, ranks: pp.Ranks) -> None:
             f"the sharded dims and the stacked layers)")
 
 
+def _ranks(cfg: ArchConfig, mesh, stage: Axis, data: Axis,
+           tp_name: str) -> pp.Ranks:
+    """This rank's axes, after ``check_tp``: the KV-sharing blocks of the
+    tp axis made (on every rank) where there are fewer KV heads than tp
+    ranks."""
+    tp = axis(mesh, tp_name)
+    tpar.check_tp(cfg, tp.size)
+    return pp.Ranks(stage=stage, data=data, tp=tp, kv=sub_axis(
+        mesh, tp_name, tpar.kv_share(cfg, tp.size)))
+
+
 def _state_structs(cfg: ArchConfig, p_structs) -> dict:
     return _opt_fns(cfg)[0](dict(p_structs.named_parameters()))
 
@@ -411,9 +436,7 @@ def build_baseline_train(cfg: ArchConfig, mesh, cell: ShapeCell, *,
     model)) for this rank."""
     n_micro = n_micro or n_micro_for(cfg)
     daxes = bl.data_axes(mesh)
-    ranks = pp.Ranks(stage=Axis(None, 1, 0), data=axis(mesh, daxes),
-                     tp=axis(mesh, "model"))
-    tpar.check_tp(cfg, ranks.tp.size)
+    ranks = _ranks(cfg, mesh, Axis(None, 1, 0), axis(mesh, daxes), "model")
     _check_optimizer(cfg, ranks)
     p_structs = param_structs(cfg)
     specs = bl.placements(cfg, p_structs, mesh)
@@ -440,9 +463,8 @@ def build_tapa_train(cfg: ArchConfig, mesh, cell: ShapeCell, *,
         plan = plan_cell(cfg, cell.name, tuple(mesh.mesh.shape),
                          mode="tapa")
     rmesh = refined_mesh(mesh, plan)
-    ranks = pp.Ranks(stage=axis(rmesh, "stage"), data=axis(rmesh, "data"),
-                     tp=axis(rmesh, "tp"))
-    tpar.check_tp(cfg, ranks.tp.size)
+    ranks = _ranks(cfg, rmesh, axis(rmesh, "stage"), axis(rmesh, "data"),
+                   "tp")
     _check_optimizer(cfg, ranks)
     p_structs = param_structs(cfg)
     specs = pp.param_specs(cfg, p_structs, tp_axis="tp",
@@ -479,6 +501,7 @@ class ServeStep(_Rank):
     the whole padded vocab.  ``args``, ``param_specs``, ``cache_specs``,
     ``logits_spec``: the stand-ins and placements."""
     serve_fn: object
+    kv_shard: str
     args: tuple
     param_specs: dict
     cache_specs: dict
@@ -491,13 +514,35 @@ class ServeStep(_Rank):
         return super().shard(params, requires_grad)
 
     def init_cache(self, params, batch: int, max_seq: int, extra=None):
-        """This rank's cache for a global batch of ``batch`` rows."""
+        """This rank's cache for a global batch of ``batch`` rows, each
+        attention layer's KV cache split over tp as ``baseline.kv_mode``
+        says (``tensor_parallel.init_cache``)."""
         rows = self.rows(batch)
-        if extra:
-            extra = {k: v[rows].to(self.device) for k, v in extra.items()}
-        return lm.init_cache(params, tpar.local_config(
-            self.cfg, self.ranks.tp.size), len(range(batch)[rows]), max_seq,
-            device=self.device, extra=extra)
+        n = len(range(batch)[rows])
+        tp = self.ranks.tp
+        if tp.size == 1:
+            if extra:
+                extra = {k: v[rows].to(self.device)
+                         for k, v in extra.items()}
+            return lm.init_cache(params, self.cfg, n, max_seq,
+                                 device=self.device, extra=extra)
+        cfg = self.cfg
+        specs = lm.build_specs(cfg)
+        P = len(cfg.layer_pattern)
+        modes = []
+        for i in range(cfg.n_layers):
+            spec = specs[i % P] if cfg.layer_pattern[i % P] != "H" \
+                else specs[0]
+            W = max_seq if spec.window is None else min(spec.window,
+                                                        max_seq)
+            mode = bl.kv_mode(cfg.n_kv_heads, W, tp.size, self.kv_shard)
+            if mode is None:
+                raise ValueError(f"{cfg.name}: a KV cache of {W} slots and "
+                                 f"{cfg.n_kv_heads} heads splits over tp "
+                                 f"{tp.size} by neither")
+            modes.append(mode)
+        return tpar.init_cache(cfg, tp, n, max_seq, kv_modes=modes,
+                               device=self.device, dtype=params.embed.dtype)
 
     def __call__(self, params, cache, tokens):
         tokens = tokens[self.rows(tokens.shape[0])].to(self.device)
@@ -507,22 +552,20 @@ class ServeStep(_Rank):
 def build_baseline_serve(cfg: ArchConfig, mesh, cell: ShapeCell, *,
                          device="cuda", kv_shard: str = "heads") -> ServeStep:
     """The baseline's serving for this rank on ``mesh``: data-parallel
-    rows, head-parallel G and L layers over "model"."""
+    rows, the layers split over "model" (``tensor_parallel``), each KV
+    cache by heads or by its length (``kv_shard``, ``baseline.kv_mode``)."""
     daxes = bl.data_axes(mesh)
-    ranks = pp.Ranks(stage=Axis(None, 1, 0), data=axis(mesh, daxes),
-                     tp=axis(mesh, "model"))
-    tpar.check_tp(cfg, ranks.tp.size)
+    ranks = _ranks(cfg, mesh, Axis(None, 1, 0), axis(mesh, daxes), "model")
     p_structs = param_structs(cfg)
     B = cell.global_batch
     cache_structs = lm.init_cache(p_structs, cfg, B, cell.seq_len,
                                   device="meta")
     cspecs = bl.cache_shardings(cfg, cache_structs, mesh, kv_shard=kv_shard)
-    bl.check_cache_split(cfg, cspecs)
     bspec = daxes if B % max(ranks.data.size, 1) == 0 else None
     return ServeStep(
         cfg=cfg, ranks=ranks, n_stages=1, tp_axis="model",
         device=lm.resolve_device(device),
-        serve_fn=bl.build_serve_step(cfg, ranks.tp),
+        serve_fn=bl.build_serve_step(cfg, ranks.tp), kv_shard=kv_shard,
         args=(p_structs, cache_structs, input_specs(cfg, cell)["tokens"]),
         param_specs=bl.placements(cfg, p_structs, mesh),
         cache_specs=cspecs, logits_spec=(bspec, "model"))

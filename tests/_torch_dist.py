@@ -111,6 +111,36 @@ def assert_first_step(got, want, start, grad, grad_norm, *, lr, grad_rel,
     return float((bound <= lr / 10).mean())
 
 
+#: AdamW's first step written out from a run's own gradient and norm:
+#: each entry within OWN_LR lr + OWN_REL |p| of it (the f32 roundings of
+#: the moments' bias corrections, about 5e-7 of the update, and of
+#: p - lr u, 6e-8 |p|, with 10x to spare)
+OWN_LR, OWN_REL = 1e-5, 1e-6
+
+
+def assert_own_step(got, start, grad, grad_norm, *, lr, name):
+    """Hold a parameter after one AdamW step against the step written out
+    from ``start`` with the run's own gradient ``grad`` and norm (the clip
+    to norm 1 first), entry by entry, at ``OWN_LR`` lr + ``OWN_REL`` |p|.
+    The bound leaves room for f32's roundings only, so a shard whose step
+    was left undone, or taken with another gradient than the one
+    reported, fails wherever its move lr |f(c g) + wd p| passes it.
+    Returns the share of entries where the move is over twice the
+    bound."""
+    c = min(1.0, 1.0 / max(grad_norm, 1e-9))
+    g = c * grad.astype(np.float64)
+    p0 = start.astype(np.float64)
+    move = lr * (g / (np.abs(g) + ADAM_EPS) + WEIGHT_DECAY * p0)
+    bound = OWN_LR * lr + OWN_REL * np.abs(p0)
+    err = np.abs(got.astype(np.float64) - (p0 - move))
+    bad = err > bound
+    assert not bad.any(), (
+        f"{name}: {int(bad.sum())} of {bad.size} entries off AdamW's step "
+        f"from the run's own gradient, worst "
+        f"{float((err - bound).max())} over the bound")
+    return float((np.abs(move) > 2 * bound).mean())
+
+
 def _tails(logs):
     return "\n".join(f"--- {log.name}\n"
                      f"{log.read_text(errors='replace')[-3000:]}"
@@ -166,6 +196,7 @@ def train(run):
 
 
 def _train(run):
+    from repro_torch.distributed.collectives import recording
     from repro_torch.distributed.sharding import TpuPlan
     from repro_torch.launch import steps
     cfg = _config(run)
@@ -183,12 +214,15 @@ def _train(run):
     if run.get("extra") is not None:
         batch["extra"] = {k: torch.from_numpy(v)
                           for k, v in run["extra"].items()}
-    loss, grads = step.loss_and_grads(params, batch)
+    with recording() as schedule:
+        loss, grads = step.loss_and_grads(params, batch)
     full_grads = step.gather(grads)
-    gn = step.apply(params, opt, grads)
+    with recording() as applied:
+        gn = step.apply(params, opt, grads)
     full_params = step.gather(dict(params.named_parameters()))
     return {"loss": float(loss), "grad_norm": float(gn),
             "grads": _numpy(full_grads), "params": _numpy(full_params),
+            "schedule": schedule + applied,
             "layout": {"stage": step.ranks.stage.size,
                        "data": step.ranks.data.size,
                        "tp": step.ranks.tp.size}}
@@ -196,7 +230,8 @@ def _train(run):
 
 def serve(run):
     """Teacher-forced logits of every feed, this rank's rows, gathered
-    over the data ranks in rank order."""
+    over the data ranks in rank order; the cache split as ``kv_shard``
+    asks ("heads" by default)."""
     from repro_torch.distributed.collectives import all_gather
     from repro_torch.launch import steps
     cfg = _config(run)
@@ -204,15 +239,19 @@ def serve(run):
     feeds = [torch.from_numpy(t) for t in run["feeds"]]
     B = feeds[0].shape[0]
     cell = _cell({"tokens": run["feeds"][0], "cell": "prefill"})
-    step = steps.build_baseline_serve(cfg, mesh, cell, device="cpu")
+    step = steps.build_baseline_serve(cfg, mesh, cell, device="cpu",
+                                      kv_shard=run.get("kv_shard", "heads"))
     params = step.shard(_params(run, cfg))
     cache = step.init_cache(params, B, run["max_seq"])
     out = []
     for t in feeds:
         logits, cache = step(params, cache, t)
         out.append(all_gather(logits, step.ranks.data, 0).float().numpy())
+    attn = [layer.attn for layer in params.layers if hasattr(layer, "attn")]
     return {"logits": out, "pos": cache["pos"],
-            "heads": params.layers[0].attn.wk.shape[1] // cfg.head_dim}
+            "heads": attn[0].wk.shape[1] // cfg.head_dim if attn else None,
+            "context": [c["context"] for c in cache["layers"]
+                        if "context" in c]}
 
 
 def refuse(run):

@@ -2,8 +2,10 @@
 a 4-rank gloo group of CPU processes against the JAX package on one
 device: granite-8b-reduced through the baseline (data 2 x model 2; pod 2 x data
 2) and the floorplanned pipeline (2 stages x tp 2, boundary depth 2), sharded
-serving (data 2 x model 2), and the refusals that wait for ROADMAP item
-8c.
+serving (data 2 x model 2), and the refusals that still wait for ROADMAP
+item 8c (X layers, MoE experts and whisper's encoder over tp, Adafactor
+sharded; ``tests/test_torch_dist_tp.py`` holds the cases that item's first
+half lifted).
 
 One group plays every run (``tests/_torch_dist.py``); the JAX package's
 ``lm.init_params(PRNGKey(0))`` weights are carried across by
@@ -72,14 +74,14 @@ AXES = {2: ("data", "model"), 3: ("pod", "data", "model")}
 SERVE_B, PROMPT, STEPS = 4, 8, 4
 SERVE_ATOL = 2e-2
 REFUSE = {
-    "zamba2 M layers over tp 2": dict(arch="zamba2-7b", mesh=(2, 2),
-                                      builder="train"),
+    "llama-vision's X layers over tp 2": dict(
+        arch="llama-3.2-vision-11b", mesh=(2, 2), builder="train"),
     "Adafactor over data 2": dict(arch=ARCH, mesh=(2, 2), builder="train",
                                   overrides={"optimizer": "adafactor"}),
     "arctic's experts over tp 2": dict(arch="arctic-480b", mesh=(2, 2),
                                        builder="train"),
-    "a context-parallel KV cache": dict(arch=ARCH, mesh=(2, 2),
-                                        builder="serve", kv_shard="context",
+    "whisper's encoder over tp 2": dict(arch="whisper-tiny", mesh=(2, 2),
+                                        builder="serve", kv_shard="heads",
                                         cell="prefill"),
 }
 

@@ -205,31 +205,41 @@ def test_burst_gather_ref_raises_out_of_range(bad):
         ref.burst_gather_ref(table, idx)
 
 
-def test_wrappers_do_not_fall_back_off_the_cpu():
-    """Only a CPU tensor takes the plain version: any other device goes to
-    the kernel path, which rejects what it cannot launch on."""
+def test_wrappers_do_not_fall_back_off_the_cpu(monkeypatch):
+    """Only a CPU tensor takes the plain version.  A meta tensor takes the
+    kernel path's shape-only branch (``kernels.shape_only``: the outputs'
+    shapes, one launch counted); tensors on two devices are refused."""
+    def plain(*args, **kwargs):
+        raise AssertionError("a plain version ran off the CPU")
+
+    for name in ("attention_ref", "attention_lse", "mamba2_scan_ref",
+                 "rwkv6_scan_ref", "burst_gather_ref", "moe_gmm_ref"):
+        monkeypatch.setattr(ref, name, plain)
+    wrappers = (fa.flash_attention, fa.decode_attention, bg.burst_gather,
+                m2.mamba2_scan, r6.rwkv6_scan, gmm.moe_gmm)
+    for fn in wrappers:
+        monkeypatch.setattr(fn, "launches", 0)
     q = torch.empty((1, 4, 2, 16), device="meta")
     with pytest.raises(ValueError):
-        fa.flash_attention(q, q, q)
-    with pytest.raises(ValueError):
-        fa.decode_attention(q[:, :1], q, q)
+        fa.flash_attention(q, q, torch.empty((1, 4, 2, 16)))
     with pytest.raises(ValueError):
         bg.burst_gather(torch.empty((8, 4), device="meta"),
                         torch.zeros(3, dtype=torch.int32))
-    with pytest.raises(ValueError):
+    outs = [
+        fa.flash_attention(q, q, q),
+        fa.decode_attention(q[:, :1].contiguous(), q, q),
+        bg.burst_gather(torch.empty((8, 4), device="meta"),
+                        torch.zeros(3, dtype=torch.int32, device="meta")),
         m2.mamba2_scan(q, torch.empty((1, 4, 2), device="meta"),
                        torch.empty((2,), device="meta"),
                        torch.empty((1, 4, 8), device="meta"),
-                       torch.empty((1, 4, 8), device="meta"))
-    with pytest.raises(ValueError):
-        r6.rwkv6_scan(q, q, q, q, torch.empty((2, 16), device="meta"))
-    with pytest.raises(ValueError):
+                       torch.empty((1, 4, 8), device="meta"))[0],
+        r6.rwkv6_scan(q, q, q, q, torch.empty((2, 16), device="meta"))[0],
         gmm.moe_gmm(torch.empty((4, 16), device="meta"),
                     torch.empty((2, 16, 8), device="meta"),
-                    torch.zeros(4, dtype=torch.int32, device="meta"))
-    assert fa.flash_attention.launches == 0
-    assert fa.decode_attention.launches == 0
-    assert bg.burst_gather.launches == 0
-    assert m2.mamba2_scan.launches == 0
-    assert r6.rwkv6_scan.launches == 0
-    assert gmm.moe_gmm.launches == 0
+                    torch.zeros(4, dtype=torch.int32, device="meta"))]
+    shapes = [(1, 4, 2, 16), (1, 1, 2, 16), (3, 4), (1, 4, 2, 16),
+              (1, 4, 2, 16), (4, 8)]
+    for out, shape in zip(outs, shapes):
+        assert out.device.type == "meta" and tuple(out.shape) == shape
+    assert [fn.launches for fn in wrappers] == [1] * len(wrappers)

@@ -50,6 +50,7 @@ from repro.model import moe as jmoe  # noqa: E402
 from repro_torch import configs  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import moe_gmm as gmm  # noqa: E402
+from repro_torch.kernels import shape_only  # noqa: E402
 from repro_torch.model import convert, lm, moe  # noqa: E402
 
 TOL = {"float32": dict(rtol=2e-5, atol=2e-5),
@@ -617,8 +618,11 @@ def faked_card(monkeypatch):
     """The CUDA branches of ``moe_gmm`` and ``moe_gmm_bwd`` up to their
     launches, on meta tensors: the library records each call.  The
     wrappers' launch counts are restored afterwards, so no other test in
-    the process sees the faked launches."""
+    the process sees the faked launches.  The shape-only path, which a
+    meta tensor takes otherwise (``kernels.shape_only``), is turned off
+    so that the CUDA branch runs."""
     calls = []
+    monkeypatch.setattr(shape_only, "active", lambda *tensors: False)
     for fn in (gmm.moe_gmm, gmm.moe_gmm_bwd, gmm.plan):
         monkeypatch.setattr(fn, "launches", fn.launches)
 

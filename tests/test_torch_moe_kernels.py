@@ -109,9 +109,13 @@ def test_pallas_moe_gmm_drops_rows_of_unsorted_ids():
                                **TOL["float32"])
 
 
-def test_moe_gmm_wrapper_raises_on_bad_inputs():
+def test_moe_gmm_wrapper_raises_on_bad_inputs(monkeypatch):
     """Off the CPU (here on the meta device) the wrapper checks what the
-    kernel takes before it would launch, and never falls back."""
+    kernel takes before it would launch, and never falls back: inputs that
+    pass take the shape-only path (``kernels.shape_only``), one launch
+    counted."""
+    monkeypatch.setattr(gmm.moe_gmm, "launches", 0)
+    monkeypatch.setattr(gmm.plan, "launches", 0)
     meta = dict(device="meta")
     x, w = torch.empty((8, 16), **meta), torch.empty((4, 16, 32), **meta)
     ids = torch.empty(8, dtype=torch.int32, **meta)
@@ -121,7 +125,6 @@ def test_moe_gmm_wrapper_raises_on_bad_inputs():
         (ValueError, (x, torch.empty((4, 16), **meta), ids)),     # w 2-D
         (ValueError, (x, torch.empty((1025, 16, 2), **meta), ids)),
         (ValueError, (x, w, torch.zeros(8, dtype=torch.int32))),  # CPU ids
-        (ValueError, (x, w, ids)),                                 # meta
         (TypeError, (x.to(**meta, dtype=torch.bfloat16), w, ids)),
         (TypeError, (x, w, torch.empty(8, **meta))),               # float ids
     ]
@@ -129,6 +132,9 @@ def test_moe_gmm_wrapper_raises_on_bad_inputs():
         with pytest.raises(exc):
             gmm.moe_gmm(*args)
     assert gmm.moe_gmm.launches == 0
+    out = gmm.moe_gmm(x, w, ids)
+    assert out.device.type == "meta" and tuple(out.shape) == (8, 32)
+    assert (gmm.moe_gmm.launches, gmm.plan.launches) == (1, 1)
 
 
 def test_moe_gmm_ref_loops_over_present_experts_only():

@@ -36,6 +36,7 @@ import torch  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
 from repro_torch.kernels import burst_gather as bg  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import shape_only  # noqa: E402
 from repro_torch.kernels._grad import refuse_grad  # noqa: E402
 
 
@@ -367,8 +368,9 @@ def test_gather_bwd_id_limit_is_the_sorts(monkeypatch, N, path):
     """The one-block sort's limit is what its block holds (``SORT_MAX`` of
     csrc/burst_gather.cu: 1024 threads x 16 ids); the wrapper sends more
     ids to the multi-block path (the library's ``multi`` argument), sizes
-    the scratch by the library's own rule, passes that size for the
-    library to check, and counts the launch on its path."""
+    the scratch by ``bwd_scratch_ints`` (the library's layout, its state
+    ``STATE`` ints), passes that size for the library to check, and
+    counts the launch on its path."""
     import contextlib
     import types
 
@@ -376,15 +378,15 @@ def test_gather_bwd_id_limit_is_the_sorts(monkeypatch, N, path):
     assert bg.SORT_MAX == _gather_src_int("SORT_MAX") == \
         _gather_src_int("SORT_T") * 16
     assert bg.bwd_path(N) == path
+    assert bg.WRITER_STATE == _gather_src_int("STATE")
     calls = []
 
     class Lib:
-        def burst_gather_bwd_scratch(self, R, n, multi):
-            return 1000 + 10 * n + multi
-
         def burst_gather_bwd(self, *args):
             calls.append(args)
             return 0
+    # the CUDA branch, not the shape-only path a meta tensor takes
+    monkeypatch.setattr(shape_only, "active", lambda *tensors: False)
     monkeypatch.setattr(_build, "load", lambda name: Lib())
     monkeypatch.setattr(bg, "_sm_count", lambda index: 132)
     monkeypatch.setattr(torch.cuda, "device",
@@ -403,7 +405,11 @@ def test_gather_bwd_id_limit_is_the_sorts(monkeypatch, N, path):
     # rows, N, D, dtype, the path, the scratch and its size, SMs, stream
     args = calls[0]
     assert args[3:8] == (4100, N, 64, 0, int(multi))
-    assert args[9:] == (1000 + 10 * N + multi, 132, 0)
+    size = 4 * min(N, 4100) + N + 129 + 5
+    if multi:
+        size += -(-N // 16384) * 4101 + 3 * N
+    assert args[9:] == (size, 132, 0) == (bg.bwd_scratch_ints(4100, N, multi),
+                                          132, 0)
     assert (bg.burst_gather_bwd.launches,
             bg.burst_gather_bwd.one_block_launches,
             bg.burst_gather_bwd.multi_block_launches) == (
@@ -411,18 +417,28 @@ def test_gather_bwd_id_limit_is_the_sorts(monkeypatch, N, path):
 
 
 def test_gather_bwd_raises_where_the_library_refuses_the_ids(monkeypatch):
-    """Ids whose counts or offsets would not fit an int32 (the library's
-    scratch rule gives -1) raise before any launch."""
+    """Ids whose counts or offsets would not fit an int32 raise before any
+    launch, by the scratch rule the library checks (``bwd_scratch_ints``),
+    on the card's path and on the shape-only path alike: 20,000 ids take
+    two chunks of the multi-block sort, whose counts over 2^30 rows pass
+    2^31 ints, where 10 rows fit."""
     from repro_torch.kernels import _build
 
     class Lib:
-        def burst_gather_bwd_scratch(self, R, n, multi):
-            return -1
+        def burst_gather_bwd(self, *args):
+            raise AssertionError("launched")
     monkeypatch.setattr(_build, "load", lambda name: Lib())
     dout = torch.empty((20000, 8), dtype=torch.float32, device="meta")
     idx = torch.empty(20000, dtype=torch.int32, device="meta")
+    assert bg.bwd_scratch_ints(10, 20000, True) == \
+        4 * 10 + 20000 + 1 + 5 + 2 * 11 + 3 * 20000
     with pytest.raises(ValueError, match="multi_block sort's int32"):
-        bg.burst_gather_bwd(dout, idx, 10)
+        bg.bwd_scratch_ints(2 ** 30, 20000, True)
+    for card in (False, True):
+        monkeypatch.setattr(shape_only, "active",
+                            lambda *tensors, card=card: not card)
+        with pytest.raises(ValueError, match="multi_block sort's int32"):
+            bg.burst_gather_bwd(dout, idx, 2 ** 30)
 
 
 def _one_block_sort(idx, R):
@@ -700,6 +716,7 @@ def test_mamba2_bwd_routes_by_bwd_schedule(monkeypatch, dtype, S, path):
         def mamba2_scan_bwd(self, *args):
             calls.append(args)
             return 0
+    monkeypatch.setattr(shape_only, "active", lambda *tensors: False)
     monkeypatch.setattr(_build, "load", lambda name: Lib())
     monkeypatch.setattr(m2, "_check", lambda *a: None)
     monkeypatch.setattr(torch.cuda, "device",
