@@ -11,7 +11,7 @@ Megatron-style tensor-parallel layers (``tensor_parallel``) and the
 collectives they share (``collectives``).  The step builders are in
 ``repro_torch.launch.steps``.
 
-Counterpart of ``repro/distributed/``.  Tensor parallelism covers the G
-and L layers; the other layer kinds, MoE experts and whisper's encoder
-under tp > 1, the context-parallel cache and Adafactor across data ranks
-or stages raise, naming ROADMAP item 8c."""
+Counterpart of ``repro/distributed/``.  Tensor parallelism covers every
+layer kind, MoE experts (by expert or by the FFN dim) and whisper's
+encoder, and splits an attention whose heads do not divide over a divisor
+of tp; serving keeps the KV cache split by heads or by its length."""

@@ -6,9 +6,9 @@ sharding (``repro_torch.launch.steps``).
 Counterpart of ``repro/distributed/baseline.py``, where GSPMD places the
 arrays; here a rank holds its shards (``placements``) and runs the layers
 of ``tensor_parallel`` on them.  Serving runs data-parallel for every
-family and tensor-parallel for the G, L, M, H and R layers, each KV cache
-split by heads or by its length over the model axis (context
-parallelism, ``kv_mode``; ``tensor_parallel.context_attention``).
+family and tensor-parallel for every layer kind, each KV cache split by
+heads or by its length over the attention's ranks (context parallelism,
+``kv_mode``; ``tensor_parallel.context_attention``).
 """
 from __future__ import annotations
 
@@ -16,10 +16,9 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.launch.mesh import axis_sizes
-from repro_torch.model import lm
 from . import tensor_parallel as tpar
 from .collectives import Axis
-from .pipeline import param_specs
+from .pipeline import Ranks, param_specs
 
 DATA_AXES = ("pod", "data")
 
@@ -48,30 +47,34 @@ def batch_rows(n: int, data: Axis) -> slice:
     return slice(data.rank * per, (data.rank + 1) * per)
 
 
-def build_loss(cfg: ArchConfig, tp: Axis, data: Axis):
+def build_loss(cfg: ArchConfig, ranks: Ranks):
     """``loss_fn(params, batch)``: chunked cross entropy + 0.01 aux over a
     rank's params and its rows of a microbatch (B, S + 1), each layer
     group recomputed in the backward.  Averaged over the
     data ranks, the loss and its gradients are the whole microbatch's."""
+    tp = ranks.tp
+
     def loss_fn(params, batch):
         tokens = batch["tokens"]
         x_tokens, targets = tokens[:, :-1], tokens[:, 1:]
         x = tpar.embed(params, cfg, x_tokens, tp)
         layers = tpar.Layers(
             params, cfg, torch.arange(x_tokens.shape[1], device=x.device),
-            x0=x, memory=lm._memory(params, cfg, batch.get("extra")), tp=tp,
-            data=data)
+            x0=x, memory=tpar.memory(params, cfg, batch.get("extra"), tp,
+                                     ranks.attn), tp=tp,
+            data=ranks.data, attn=ranks.attn)
         x, aux = tpar.apply_layers(layers, len(params.layers), x)
         return tpar.chunked_ce(params, cfg, x, targets, tp) + 0.01 * aux
 
     return loss_fn
 
 
-def build_serve_step(cfg: ArchConfig, tp: Axis):
+def build_serve_step(cfg: ArchConfig, ranks: Ranks):
     """``serve_step(params, cache, tokens)``: ``lm.step`` over a rank's
     params and cache (its rows, its heads) -> (the last position's logits
     over the whole padded vocab, gathered over tp; the cache, updated in
     place)."""
+    tp = ranks.tp
     tpar.check_tp(cfg, tp.size)
     data = Axis(None, 1, 0)
 
@@ -83,7 +86,7 @@ def build_serve_step(cfg: ArchConfig, tp: Axis):
         layers = tpar.Layers(params, cfg,
                              torch.arange(pos, pos + S, device=x.device),
                              x0=x0, memory=cache.get("memory"), tp=tp,
-                             data=data)
+                             data=data, attn=ranks.attn)
         for i in range(len(params.layers)):
             x, _ = layers(i, x, cache=cache["layers"][i], pos=pos)
         out = tpar.logits(params, cfg, x[:, -1:], tp)[:, 0]

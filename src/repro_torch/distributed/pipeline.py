@@ -80,10 +80,13 @@ def _by_head(name: str):
     return False, None
 
 
-def _leaf_spec(name: str, shape, *, tp_axis: str, tp_size: int) -> tuple:
+def _leaf_spec(name: str, shape, *, tp_axis: str, tp_size: int,
+               n_experts: int) -> tuple:
     """The placement of one parameter (a per-layer tensor, no stack
-    dims): one entry a dim, ``tp_axis`` or None.  The reference's rules,
-    but for ``_BY_HEAD``'s parameters."""
+    dims, whole or a rank's shard): one entry a dim, ``tp_axis`` or None.
+    The reference's rules, but for ``_BY_HEAD``'s parameters; the
+    experts' by ``tensor_parallel.moe_placement`` of the model's
+    ``n_experts``."""
     leaf = name.rsplit(".", 1)[-1]
     nd = len(shape)
     found, dim = _by_head(name)
@@ -98,7 +101,7 @@ def _leaf_spec(name: str, shape, *, tp_axis: str, tp_size: int) -> tuple:
     # MoE expert stacks (E, d, f): expert-parallel over tp when E divides,
     # otherwise the FFN dim
     if leaf in ("w_up", "w_down", "w_gate") and nd == 3:
-        if shape[0] % max(tp_size, 1) == 0:
+        if tpar.moe_placement(n_experts, tp_size) == "expert":
             return (tp_axis, None, None)
         if leaf == "w_down":                # (E, f, d): shard f
             return (None, tp_axis, None)
@@ -123,7 +126,8 @@ def param_specs(cfg: ArchConfig, params, *, tp_axis: str = "model",
     """{parameter name: placement} over the port's per-layer names.  The
     layout of the layers over stages is by index (``stage_layers``), so
     the baseline and the pipeline layouts differ only in ``tp_axis``."""
-    return {n: _leaf_spec(n, s, tp_axis=tp_axis, tp_size=tp_size)
+    return {n: _leaf_spec(n, s, tp_axis=tp_axis, tp_size=tp_size,
+                          n_experts=cfg.n_experts or 1)
             for n, s in _named_shapes(params).items()}
 
 
@@ -188,12 +192,16 @@ def from_pipeline_params(stages: list, cfg: ArchConfig) -> dict:
 
 @dataclasses.dataclass(frozen=True)
 class Ranks:
-    """One rank's place on the mesh: its stage, data and tp axes, and the
-    tp ranks that share its KV head (``tensor_parallel.kv_share``)."""
+    """One rank's place on the mesh: its stage, data and tp axes; the tp
+    ranks its attention splits over (``attn``: the rank's block of
+    ``tensor_parallel.attn_split`` ranks, tp itself where the heads split
+    over all of it) and those that share its KV head (``kv``,
+    ``tensor_parallel.kv_share``)."""
     stage: Axis
     data: Axis
     tp: Axis
-    kv: Axis = Axis(None, 1, 0)
+    kv: Axis
+    attn: Axis
 
 
 def offsets(plan: TpuPlan) -> list[int]:
@@ -233,7 +241,8 @@ def build_train_loss(cfg: ArchConfig, plan: TpuPlan, ranks: Ranks, *,
         mb, seq = tokens.shape[1], tokens.shape[2] - 1
         dev = params.embed.device
         dtype = params.embed.dtype
-        memory = lm._memory(params, cfg, batch.get("extra"))
+        memory = tpar.memory(params, cfg, batch.get("extra"), ranks.tp,
+                             ranks.attn)
         positions = torch.arange(seq, device=dev)
         payload = ((2,) if two else ()) + (mb, seq, cfg.d_model)
         order = torch.zeros((), device=dev, requires_grad=True)
@@ -254,7 +263,7 @@ def build_train_loss(cfg: ArchConfig, plan: TpuPlan, ranks: Ranks, *,
                 # the backward reads this microbatch's x0
                 layers = tpar.Layers(params, cfg, positions, x0=x0,
                                      memory=memory, tp=ranks.tp,
-                                     data=ranks.data)
+                                     data=ranks.data, attn=ranks.attn)
                 x, a = tpar.apply_layers(layers, n_local, x)
                 aux = aux + a
                 if last:

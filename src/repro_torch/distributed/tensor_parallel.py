@@ -2,13 +2,24 @@
 for the JAX package when a layer's weights are sharded over the model
 axis (``pipeline.param_specs`` says which dim of each, ``cut`` how).
 
-  * attention: wq, wk, wv column-parallel, wo row-parallel.  A rank holds
-    n_heads / tp query heads and the n_kv_heads / tp KV heads they read;
-    with fewer KV heads than ranks (tp a multiple of them) it holds the one
-    KV head its query heads read, the same columns of wk and wv as the
-    tp / n_kv_heads ranks beside it (``kv_share``), whose gradients the
-    step sums over those ranks (``sum_shared_grads``);
+  * attention (self-, an X layer's cross-attention, whisper's encoder's):
+    wq, wk, wv column-parallel, wo row-parallel, over t ranks, the largest
+    divisor of tp its heads split over (``attn_split``; tp where they
+    divide).  A rank holds n_heads / t query heads and the n_kv_heads / t
+    KV heads they read; with fewer KV heads than t it holds the one KV
+    head its query heads read, the same columns of wk and wv as the t /
+    n_kv_heads ranks beside it (``kv_share``), whose gradients the step
+    sums over those ranks (``sum_shared_grads``).  With t < tp each block
+    of t consecutive ranks holds every head once and the blocks are
+    copies: the attention's ``copy_to`` and ``reduce_from`` run over the
+    rank's block (``collectives.sub_axis``), so every copy's gradient is
+    whole, and the step counts a copy once.  A cross-attention's memory
+    is whole on every rank and enters its K/V products through
+    ``copy_to``; its gate is whole;
   * the gated MLP: w_up, w_gate column-parallel, w_down row-parallel;
+  * MoE experts (``moe_layer``) by ``moe_placement``: whole experts a
+    rank where E divides tp, else every expert's FFN dim; the router
+    whole on every rank;
   * mamba2 (M, and the mamba2 of H): by head.  The fused ``w_in`` [z, x,
     B, C, dt] is cut segment by segment, z, x and dt by head, B and C
     whole on every rank, as are their conv taps; ``conv_w`` by x's
@@ -49,9 +60,10 @@ Serving keeps a KV cache split by heads or, where the heads do not divide
 of every head's keys, the ranks' partial outputs merge by their
 log-sum-exp).
 
-X layers, MoE experts and whisper's encoder raise ``NotImplementedError``
-naming ROADMAP item 8c under tp > 1; with tp = 1 every layer runs as
-``repro_torch.model.lm`` runs it.  The MoE load-balance loss is taken
+Whisper's encoder runs as G layers over tp (``encode``).  With tp = 1
+every layer runs as ``repro_torch.model.lm`` runs it.  ``check_tp``
+raises ``ValueError`` where an FFN, the padded vocab or the SSM heads do
+not divide.  The MoE load-balance loss is taken
 over the data-parallel ranks' tokens together (``data_parallel_aux``), as
 GSPMD takes it over the whole batch.
 """
@@ -67,44 +79,32 @@ from torch.utils import checkpoint
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops
 from repro_torch.model import lm, moe
-from repro_torch.model.layers import _rounded, apply_rope, sigmoid, silu
+from repro_torch.model.layers import (AttnSpec, _rounded, apply_rope,
+                                     rope_dim, rope_tables, sigmoid, silu)
 from repro_torch.model.mamba2 import _causal_conv
 from repro_torch.model.rwkv6 import _mix, _token_shift
 from .collectives import (Axis, all_gather, all_reduce, all_reduce_,
                           copy_to, gather_from, reduce_from, scatter_to,
                           sum_over)
 
-ITEM_8C = "ROADMAP item 8c"
 #: chunks of tokens in ``chunked_ce``, as ``lm.chunked_ce``'s default
 CE_CHUNKS = 8
+#: the leaves of an attention's heads
+_ATTN_LEAVES = ("wq", "wk", "wv", "wo")
 
 
 def check_tp(cfg: ArchConfig, tp: int) -> None:
-    """Raise where ``cfg`` cannot run with its layers split over ``tp``
-    ranks: ``NotImplementedError`` (naming 8c) for X layers, MoE experts or
-    an encoder; ``ValueError`` where the query heads, the FFN, the padded
-    vocab, the mamba2 or rwkv6 heads do not divide, or the KV heads
-    neither divide tp nor are divided by it."""
+    """Raise ``ValueError`` where ``cfg`` cannot run with its layers split
+    over ``tp`` ranks: the dense FFN, the padded vocab, the experts' FFN
+    (where they split by it, ``moe_placement``), or the mamba2 or rwkv6
+    heads do not divide.  Attention heads always split, over
+    ``attn_split``'s divisor of tp."""
     if tp == 1:
         return
-    if cfg.n_enc_layers:
-        raise NotImplementedError(
-            f"{cfg.name}: whisper's encoder over tp {tp} waits for "
-            f"{ITEM_8C}")
-    if cfg.n_experts:
-        raise NotImplementedError(
-            f"{cfg.name}: MoE experts over tp {tp} wait for {ITEM_8C}")
-    if "X" in cfg.layer_pattern:
-        raise NotImplementedError(
-            f"{cfg.name}: tensor parallelism (tp {tp}) over X layers "
-            f"(cross-attention) waits for {ITEM_8C}")
     kinds = set(cfg.layer_pattern)
     sizes = [("d_ff", cfg.d_ff), ("vocab_padded", cfg.vocab_padded)]
-    if kinds & set("GLH"):
-        sizes.append(("n_heads", cfg.n_heads))
-        if cfg.n_kv_heads % tp and tp % cfg.n_kv_heads:
-            raise ValueError(f"{cfg.name}: n_kv_heads {cfg.n_kv_heads} "
-                             f"neither divides over tp {tp} nor divides it")
+    if cfg.n_experts and moe_placement(cfg.n_experts, tp) == "ffn":
+        sizes.append(("moe_d_ff", cfg.moe_d_ff))
     if kinds & set("MH"):
         sizes.append(("mamba2 heads", _ssm_heads(cfg)))
     if "R" in kinds:
@@ -119,21 +119,44 @@ def _ssm_heads(cfg: ArchConfig) -> int:
     return cfg.ssm_expand * cfg.d_model // cfg.ssm_head_dim
 
 
+def attn_split(cfg: ArchConfig, tp: int) -> int:
+    """t, the tp ranks an attention's heads split over: the largest
+    divisor of tp that the query heads split into and whose KV heads
+    split into it or are shared (``kv_share``).  The other tp / t ranks
+    hold copies: blocks of t consecutive ranks (``collectives.sub_axis``)
+    each hold every head once.  tp where the heads split over all of it;
+    1 (the whole attention on every rank) at worst."""
+    for t in range(tp, 0, -1):
+        if tp % t == 0 and cfg.n_heads % t == 0 and (
+                cfg.n_kv_heads % t == 0 or t % cfg.n_kv_heads == 0):
+            return t
+    return 1
+
+
 def kv_share(cfg: ArchConfig, tp: int) -> int:
-    """tp ranks that hold one KV head: tp / n_kv_heads where there are
-    fewer KV heads than ranks, else 1."""
-    return tp // cfg.n_kv_heads if cfg.n_kv_heads < tp else 1
+    """Ranks of an attention's block (``attn_split``'s t) that hold one KV
+    head: t / n_kv_heads where there are fewer KV heads than t, else 1."""
+    t = attn_split(cfg, tp)
+    return t // cfg.n_kv_heads if cfg.n_kv_heads < t else 1
+
+
+def moe_placement(n_experts: int, tp: int) -> str:
+    """The reference's rule (``repro/distributed/pipeline.py:78-84``):
+    "expert" (each tp rank E / tp whole experts) where the experts split
+    over tp, else "ffn" (every expert's FFN dim cut over tp)."""
+    return "expert" if n_experts % max(tp, 1) == 0 else "ffn"
 
 
 def local_config(cfg: ArchConfig, tp: int) -> ArchConfig:
-    """``cfg`` as one tp rank's attention and MLP see it: n_heads / tp,
-    n_kv_heads / tp (1 with fewer KV heads than ranks) and d_ff / tp
-    (head_dim and everything else unchanged)."""
+    """``cfg`` as one tp rank's attention and MLP see it: n_heads / t,
+    n_kv_heads / t (1 with fewer KV heads than t), t = ``attn_split``,
+    and d_ff / tp (head_dim and everything else unchanged)."""
     check_tp(cfg, tp)
     if tp == 1:
         return cfg
-    return dataclasses.replace(cfg, n_heads=cfg.n_heads // tp,
-                               n_kv_heads=max(cfg.n_kv_heads // tp, 1),
+    t = attn_split(cfg, tp)
+    return dataclasses.replace(cfg, n_heads=cfg.n_heads // t,
+                               n_kv_heads=max(cfg.n_kv_heads // t, 1),
                                d_ff=cfg.d_ff // tp)
 
 
@@ -157,25 +180,46 @@ def segments(cfg: ArchConfig, name: str, size: int) -> tuple:
     return ((size, True),)
 
 
-def share(cfg: ArchConfig, name: str, tp: int) -> int:
-    """tp ranks that hold each piece of ``name``'s split runs: the KV
-    projections' ``kv_share``, else 1."""
+def _attn_leaf(name: str) -> str | None:
+    """"q" for an attention's wq or wo, "kv" for its wk or wv, else
+    None."""
     parts = name.rsplit(".", 2)
-    if parts[-1] in ("wk", "wv") and len(parts) > 1 and \
-            parts[-2] in ("attn", "xattn"):
-        return kv_share(cfg, tp)
-    return 1
+    if len(parts) < 2 or parts[-2] not in ("attn", "xattn") or \
+            parts[-1] not in _ATTN_LEAVES:
+        return None
+    return "kv" if parts[-1] in ("wk", "wv") else "q"
+
+
+def _cut(cfg: ArchConfig, name: str, tp: int):
+    """(the pieces a split run of ``name`` is cut into, the piece tp rank
+    r holds).  An attention's query leaves: t pieces (``attn_split``),
+    rank r the (r mod t)-th, so that each block of t consecutive ranks
+    holds every head; its KV leaves: t / ``kv_share`` pieces, shared by
+    consecutive ranks of the block.  Every other leaf: tp pieces, rank r
+    the r-th."""
+    kind = _attn_leaf(name)
+    if kind is None:
+        return tp, lambda r: r
+    t = attn_split(cfg, tp)
+    step = kv_share(cfg, tp) if kind == "kv" else 1
+    return t // step, lambda r: (r % t) // step
+
+
+def share(cfg: ArchConfig, name: str, tp: int) -> int:
+    """tp ranks that hold each piece of ``name``'s split runs: the copies
+    of an attention's heads (tp / t) times its KV heads' ``kv_share``,
+    else 1."""
+    return tp // _cut(cfg, name, tp)[0]
 
 
 def shard(cfg: ArchConfig, name: str, t, dim: int, tp: Axis):
     """The whole parameter ``t``'s shard on this tp rank, cut along
     ``dim``."""
-    n = tp.size // share(cfg, name, tp.size)
+    n, piece = _cut(cfg, name, tp.size)
     pieces, off = [], 0
     for size, split in segments(cfg, name, t.shape[dim]):
         run = t.narrow(dim, off, size)
-        pieces.append(run.chunk(n, dim)[tp.rank // (tp.size // n)]
-                      if split else run)
+        pieces.append(run.chunk(n, dim)[piece(tp.rank)] if split else run)
         off += size
     return pieces[0] if len(pieces) == 1 else torch.cat(pieces, dim)
 
@@ -183,12 +227,11 @@ def shard(cfg: ArchConfig, name: str, t, dim: int, tp: Axis):
 def local_runs(cfg: ArchConfig, name: str, t, dim: int, tp: int):
     """[(piece of the shard ``t`` along ``dim``, tp ranks that hold it)]:
     its split runs (``share`` ranks each) and its whole runs (all tp)."""
-    step = share(cfg, name, tp)
-    n = tp // step
+    n = _cut(cfg, name, tp)[0]
     out, off = [], 0
     for length, split in segments(cfg, name, t.shape[dim] * n):
         local = length // n if split else length
-        out.append((t.narrow(dim, off, local), step if split else tp))
+        out.append((t.narrow(dim, off, local), tp // n if split else tp))
         off += local
     return out
 
@@ -197,23 +240,23 @@ def unshard(cfg: ArchConfig, name: str, parts: list, dim: int):
     """The whole parameter from every tp rank's shard ``parts``, in rank
     order (the inverse of ``shard``)."""
     tp = len(parts)
-    step = share(cfg, name, tp)
+    n, piece = _cut(cfg, name, tp)
+    holders = [min(r for r in range(tp) if piece(r) == j) for j in range(n)]
     runs = [local_runs(cfg, name, p, dim, tp) for p in parts]
     whole = []
     for i, (_, held) in enumerate(runs[0]):
-        whole += [r[i][0] for r in runs[::step]] if held < tp else \
+        whole += [runs[r][i][0] for r in holders] if held < tp else \
             [runs[0][i][0]]
     return whole[0] if len(whole) == 1 else torch.cat(whole, dim)
 
 
-def sum_shared_grads(cfg: ArchConfig, grads: dict, kv: Axis,
-                     tp: int) -> None:
+def sum_shared_grads(cfg: ArchConfig, grads: dict, kv: Axis) -> None:
     """Sum over the ranks that share a KV head (``kv``, ``kv_share`` of
     them) each one's gradient of that head's wk and wv columns, in place:
     each rank's is the gradient through its own query heads."""
     if kv.size > 1:
         all_reduce_([g for n, g in grads.items()
-                     if share(cfg, n, tp) > 1], kv)
+                     if _attn_leaf(n) == "kv"], kv)
 
 
 def vocab_range(cfg: ArchConfig, tp: Axis) -> tuple[int, int]:
@@ -350,14 +393,21 @@ def _rms(x, w, tp: Axis, width: int, eps: float = 1e-6):
 
 
 def attention(attn, x, cfg: ArchConfig, local: ArchConfig, spec, rope,
-              tp: Axis, *, cache=None, pos: int = 0):
-    """``layers.Attention`` over this rank's heads: its partial output
-    (B, S, d), summed over tp by the caller.  A cache split by its length
-    (one with a "context" entry) takes ``context_attention``."""
+              ax: Axis, *, cache=None, pos: int = 0, memory=None):
+    """``layers.Attention`` over this rank's heads of its block of
+    ``attn_split`` ranks (``ax``): its partial output (B, S, d), summed
+    over ``ax`` by the caller.  A cache split by its length (one with a
+    "context" entry) takes ``context_attention``.  With ``memory``, a
+    cross-attention: K and V from the memory (whole on every rank),
+    which enters the rank's K/V products through ``copy_to`` so that its
+    gradient is whole."""
+    if memory is not None:
+        return attn(copy_to(x, ax), local, spec, None,
+                    kv_from=copy_to(memory, ax))
     if cache is not None and "context" in cache:
-        return context_attention(attn, x, cfg, local, spec, rope, tp, cache,
+        return context_attention(attn, x, cfg, local, spec, rope, ax, cache,
                                  pos)
-    return attn(copy_to(x, tp), local, spec, rope, cache=cache, pos=pos)
+    return attn(copy_to(x, ax), local, spec, rope, cache=cache, pos=pos)
 
 
 def _ring_tokens(lo: int, n: int, S: int, W: int, device):
@@ -428,26 +478,78 @@ def context_attention(attn, x, cfg: ArchConfig, local: ArchConfig, spec,
     return mine.reshape(B, S, Hl * D) @ attn.wo
 
 
-def block(layer, x, cfg: ArchConfig, local: ArchConfig, spec, rope,
-          tp: Axis, *, cache=None, pos: int = 0, aux_fn=None):
-    """A G or L layer (``lm.Block``) with its attention and MLP split over
-    tp: -> (x, aux)."""
-    a = attention(layer.attn, layer.ln_attn(x), cfg, local, spec, rope, tp,
-                  cache=cache, pos=pos)
-    a = reduce_from(a, tp)
-    if cfg.post_norms:
-        a = layer.ln_attn_post(a)
-    x = x + a
+def moe_layer(m, x, cfg: ArchConfig, tp: Axis, placement: str, *,
+              aux_fn=None):
+    """``moe.MoE`` with its experts over tp: -> (y, aux).  Activations
+    are replicated over tp, so every rank routes the same tokens (the
+    router whole on every rank) and gathers all T k sorted rows.
+    "expert": the rank runs its E / tp experts, ids shifted by its first
+    (the rows of other experts come out zero and cost their zero writes
+    only, ``moe_gmm``); "ffn": every expert's FFN dim is cut over tp and
+    every rank runs every row.  The weighted combine's f32 partial sums
+    meet in one ``reduce_from``, rounded once to x's dtype.  The rows and
+    the combine weights enter through ``copy_to``, so x's and the
+    router's gradients are whole: the sum of the ranks' parts.  The aux
+    loss is taken once, the same on every rank (``aux_fn``, over the data
+    ranks' tokens).  No host sync: the shapes are static, and the
+    shape-only FLOPs of an expert-parallel product count the expected
+    T k E_local / E rows."""
+    B, S, d = x.shape
+    xf = x.reshape(B * S, d)
+    probs, top_p, top_i = moe.route(m.router, cfg, xf)
+    first, rows = 0, None
+    if placement == "expert" and tp.size > 1:
+        n_local = m.w_up.shape[0]
+        first = tp.rank * n_local
+        rows = top_i.numel() * n_local // cfg.n_experts
+    y = moe.experts(m, cfg, copy_to(xf, tp), copy_to(top_p, tp), top_i,
+                    first=first, rows=rows)
+    y = reduce_from(y, tp).to(x.dtype)
+    aux = (aux_fn or moe.aux_loss)(probs, top_i, cfg.n_experts, x.dtype)
+    return y.view(B, S, d), aux
+
+
+def _ffn(layer, x, cfg: ArchConfig, local: ArchConfig, tp: Axis,
+         placement: str, aux_fn):
+    """A block's FFN sublayer over tp (``lm.Block.feed_forward``): the MLP
+    column- then row-parallel, or the MoE (``moe_layer``) plus arctic's
+    dense residual MLP split as the MLP is.  -> (x, aux)."""
     h = layer.ln_mlp(x)
-    if cfg.n_experts:                      # tp == 1 (check_tp)
-        f, aux = layer.moe(h, cfg, aux_fn=aux_fn)
+    if cfg.n_experts:
+        if tp.size == 1:
+            f, aux = layer.moe(h, cfg, aux_fn=aux_fn)
+        else:
+            f, aux = moe_layer(layer.moe, h, cfg, tp, placement,
+                               aux_fn=aux_fn)
         if cfg.dense_residual:
-            f = f + layer.mlp(h, cfg)
+            f = f + reduce_from(layer.mlp(copy_to(h, tp), local), tp)
     else:
         f, aux = reduce_from(layer.mlp(copy_to(h, tp), local), tp), 0.0
     if cfg.post_norms:
         f = layer.ln_mlp_post(f)
     return x + f, aux
+
+
+def block(layer, x, cfg: ArchConfig, local: ArchConfig, spec, rope,
+          tp: Axis, *, attn_ax: Axis | None = None, cache=None, pos: int = 0,
+          aux_fn=None, placement: str = "expert", memory=None):
+    """A G, L or X layer (``lm.Block``, ``lm.CrossBlock``), or an encoder
+    block, with its attention over ``attn_ax`` (the rank's block of
+    ``attn_split`` ranks; tp by default) and its FFN over tp: -> (x,
+    aux).  An X layer's gated cross-attention over ``memory`` splits by
+    heads as the attention does; its gate is whole on every rank."""
+    ax = tp if attn_ax is None else attn_ax
+    a = attention(layer.attn, layer.ln_attn(x), cfg, local, spec, rope, ax,
+                  cache=cache, pos=pos)
+    a = reduce_from(a, ax)
+    if cfg.post_norms:
+        a = layer.ln_attn_post(a)
+    x = x + a
+    if memory is not None:
+        xa = reduce_from(attention(layer.xattn, layer.ln_xattn(x), cfg,
+                                   local, spec, None, ax, memory=memory), ax)
+        x = x + torch.tanh(layer.xattn_gate).to(x.dtype) * xa
+    return _ffn(layer, x, cfg, local, tp, placement, aux_fn)
 
 
 def mamba(m, x, cfg: ArchConfig, tp: Axis, cache=None):
@@ -483,18 +585,19 @@ def mamba(m, x, cfg: ArchConfig, tp: Axis, cache=None):
 
 
 def hybrid(layer, x, cfg: ArchConfig, local: ArchConfig, spec, rope,
-           tp: Axis, *, shared, x0, cache=None, pos: int = 0):
+           tp: Axis, *, attn_ax: Axis, shared, x0, cache=None, pos: int = 0):
     """``lm.HybridBlock`` over tp: the mamba2 by head, then the shared
     block, its input projection column-parallel and gathered, its
-    attention and MLP as a G layer's, its output projection row-parallel
-    on this rank's slice."""
+    attention (over ``attn_ax``) and MLP as a G layer's, its output
+    projection row-parallel on this rank's slice."""
     x = x + reduce_from(mamba(layer.mamba, layer.ln(x), cfg, tp,
                               None if cache is None else cache["mamba"]), tp)
     hin = layer.ln_shared_in(torch.cat([x, x0], dim=-1))
     h = gather_from(copy_to(hin, tp) @ layer.w_shared_in, tp, -1)
-    a = reduce_from(attention(shared.attn, h, cfg, local, spec, rope, tp,
+    a = reduce_from(attention(shared.attn, h, cfg, local, spec, rope,
+                              attn_ax,
                               cache=None if cache is None else cache["attn"],
-                              pos=pos), tp)
+                              pos=pos), attn_ax)
     a = a + reduce_from(shared.mlp(copy_to(shared.ln_mlp(a), tp), local),
                         tp)
     return x + reduce_from(scatter_to(a, tp, -1) @ layer.w_shared_out, tp)
@@ -544,17 +647,44 @@ def rwkv(layer, x, cfg: ArchConfig, tp: Axis, cache=None):
     return x
 
 
+def encode(params, cfg: ArchConfig, frames, tp: Axis, attn_ax: Axis):
+    """``lm._encode`` over tp: whisper's non-causal encoder blocks as G
+    layers (``block``), then ``ln_enc``; the result whole on every
+    rank."""
+    x = lm._frontend(params, frames)
+    spec = AttnSpec(causal=False, rope_theta=cfg.rope_theta)
+    rope = rope_tables(torch.arange(x.shape[1], device=x.device),
+                       rope_dim(cfg), spec.rope_theta)
+    local = local_config(cfg, tp.size)
+    for b in params.encoder:
+        x, _ = block(b, x, cfg, local, spec, rope, tp, attn_ax=attn_ax)
+    return params.ln_enc(x)
+
+
+def memory(params, cfg: ArchConfig, extra, tp: Axis, attn_ax: Axis):
+    """``lm._memory`` over tp: the encoder's output (``encode``) or the
+    projected vision rows, whole on every rank, or None."""
+    if tp.size > 1 and cfg.n_enc_layers and extra is not None and \
+            "frames" in extra:
+        return encode(params, cfg, extra["frames"], tp, attn_ax)
+    return lm._memory(params, cfg, extra)
+
+
 class Layers(lm._Layers):
     """``lm._Layers`` over one rank's params (a stage's layers, each split
-    over tp): G and L layers through ``block``, M through ``mamba``, H
-    through ``hybrid``, R through ``rwkv``; X layers as the model runs
-    them (tp 1 only, ``check_tp``).  With tp = 1 every kind runs as the
-    model runs it."""
+    over tp): G, L and X layers through ``block`` (their attention over
+    ``attn``, the rank's block of ``attn_split`` ranks, tp by default; the
+    MoE's experts placed by ``moe_placement``), M through ``mamba``, H
+    through ``hybrid``,
+    R through ``rwkv``.  With tp = 1 every kind runs as the model runs
+    it."""
 
     def __init__(self, params, cfg: ArchConfig, positions, *, x0,
-                 memory=None, tp: Axis, data: Axis):
+                 memory=None, tp: Axis, data: Axis, attn: Axis | None = None):
         super().__init__(params, cfg, positions, x0=x0, memory=memory)
         self.tp, self.local = tp, local_config(cfg, tp.size)
+        self.attn = tp if attn is None else attn
+        self.placement = moe_placement(cfg.n_experts or 1, tp.size)
         self.aux_fn = data_parallel_aux(data)
 
     def __call__(self, i: int, x, *, cache=None, pos: int = 0):
@@ -562,31 +692,36 @@ class Layers(lm._Layers):
         j = i % len(cfg.layer_pattern)
         kind, spec, layer = cfg.layer_pattern[j], self.specs[j], \
             self.params.layers[i]
-        if kind in "GL":
+        if kind in "GL" or (kind == "X" and tp.size > 1):
             return block(layer, x, cfg, self.local, spec, self.rope(spec),
-                         tp, cache=cache, pos=pos, aux_fn=self.aux_fn)
-        if tp.size == 1 or kind == "X":
+                         tp, attn_ax=self.attn, cache=cache, pos=pos,
+                         aux_fn=self.aux_fn, placement=self.placement,
+                         memory=self.memory if kind == "X" else None)
+        if tp.size == 1:
             return super().__call__(i, x, cache=cache, pos=pos)
         if kind == "M":
             return x + reduce_from(mamba(layer.mamba, layer.ln(x), cfg, tp,
                                          cache), tp), 0.0
         if kind == "H":
             return hybrid(layer, x, cfg, self.local, spec, self.rope(spec),
-                          tp, shared=self.params.shared[self.shared_idx[j]],
+                          tp, attn_ax=self.attn,
+                          shared=self.params.shared[self.shared_idx[j]],
                           x0=self.x0, cache=cache, pos=pos), 0.0
         return rwkv(layer, x, cfg, tp, cache), 0.0
 
 
 def init_cache(cfg: ArchConfig, tp: Axis, batch: int, max_seq: int,
-               *, kv_modes, device, dtype):
+               *, kv_modes, device, dtype, attn_ax: Axis | None = None):
     """One tp rank's serving cache (``lm.init_cache``'s structure): each
-    attention layer's k and v by ``kv_modes[i]`` ("heads": its KV heads,
-    W slots; "context": every KV head, its W / tp slots, with "context"
-    (lo, W)); mamba2's conv state (its x channels, then B and C) and ssd
-    state (its heads); rwkv6's token shifts whole and wkv state (its
-    heads)."""
+    attention layer's k and v over its block of ``attn_split`` ranks
+    (``attn_ax``, tp by default) by ``kv_modes[i]`` ("heads": its KV
+    heads, W slots; "context": every KV head, its W / t slots, with
+    "context" (lo, W)); mamba2's conv state (its x channels, then B and C)
+    and ssd state (its heads); rwkv6's token shifts whole and wkv state
+    (its heads).  The memory of the X layers is the caller's."""
     specs = lm.build_specs(cfg)
     local = local_config(cfg, tp.size)
+    ax = tp if attn_ax is None else attn_ax
     D, P, N = cfg.head_dim, cfg.ssm_head_dim, cfg.ssm_state
     pattern = cfg.layer_pattern
 
@@ -595,9 +730,9 @@ def init_cache(cfg: ArchConfig, tp: Axis, batch: int, max_seq: int,
         if kv_modes[i] == "heads":
             shape, extra = (batch, W, local.n_kv_heads, D), {}
         else:
-            n = W // tp.size
+            n = W // ax.size
             shape, extra = (batch, n, cfg.n_kv_heads, D), \
-                {"context": (tp.rank * n, W)}
+                {"context": (ax.rank * n, W)}
         return {"k": torch.zeros(shape, dtype=dtype, device=device),
                 "v": torch.zeros(shape, dtype=dtype, device=device),
                 **extra}
@@ -611,7 +746,7 @@ def init_cache(cfg: ArchConfig, tp: Axis, batch: int, max_seq: int,
 
     def one(i):
         kind = pattern[i % len(pattern)]
-        if kind in "GL":
+        if kind in "GLX":
             return attn(i, specs[i % len(pattern)])
         if kind == "M":
             return mamba2()

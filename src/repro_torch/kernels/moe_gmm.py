@@ -263,16 +263,17 @@ def _check_plan(p: Plan, T: int, E: int, device) -> None:
                          f"over {E} experts on {device}")
 
 
-def _forward(x, w, ids, plan):
+def _forward(x, w, ids, plan, rows=None):
     """The card's product on contiguous x, w and int32 ids, with their
-    plan: one launch."""
+    plan: one launch.  ``rows``: the rows the shape-only path counts."""
     T, K = x.shape
     E, _, N = w.shape
     if shape_only.active(x, w, ids):
         moe_gmm.launches += 1
         return shape_only.launch("moe_gmm", (x, w, ids, *plan[:4]),
                                  [((T, N), x.dtype)],
-                                 costs.gmm_flops(T, K, N))[0]
+                                 costs.gmm_flops(T if rows is None else rows,
+                                                 K, N))[0]
     from . import _build
 
     s = schedule(T, K, N, E, x.dtype)
@@ -294,21 +295,22 @@ class _Gmm(torch.autograd.Function):
     the forward's plan (built once a layer for its three products)."""
 
     @staticmethod
-    def forward(ctx, x, w, ids, plan):
+    def forward(ctx, x, w, ids, plan, rows):
         ctx.save_for_backward(x, w, ids)
-        ctx.plan = plan
-        return _forward(x, w, ids, plan)
+        ctx.plan, ctx.rows = plan, rows
+        return _forward(x, w, ids, plan, rows)
 
     @staticmethod
     def backward(ctx, dy):
         x, w, ids = ctx.saved_tensors
         dx, dw = moe_gmm_bwd(dy, x, w, ids, ctx.plan,
-                             need=ctx.needs_input_grad[:2])
-        return dx, dw, None, None
+                             need=ctx.needs_input_grad[:2], rows=ctx.rows)
+        return dx, dw, None, None, None
 
 
 def moe_gmm(x: torch.Tensor, w: torch.Tensor, group_ids: torch.Tensor,
-            plan: Plan | None = None) -> torch.Tensor:
+            plan: Plan | None = None, *,
+            rows: int | None = None) -> torch.Tensor:
     """x: (T, K); w: (E, K, N); group_ids: (T,) integer in any order ->
     (T, N) in x.dtype with row i = ``x[i] @ w[group_ids[i]]``, accumulated
     in f32; a row whose id lies outside [0, E) is zero.  As
@@ -319,7 +321,10 @@ def moe_gmm(x: torch.Tensor, w: torch.Tensor, group_ids: torch.Tensor,
     ``plan`` of these ids, built here when not given.  Non-contiguous
     inputs are copied.  With grad mode on and x or w requiring grad, the
     call goes through ``_Gmm``, whose backward is ``moe_gmm_bwd``.  On the
-    CPU ``plan`` is not used.
+    CPU ``plan`` is not used.  ``rows``: the rows whose products the
+    shape-only path counts in its FLOPs, where the caller knows that only
+    about so many ids lie in [0, E) (an expert-parallel rank's share);
+    all T by default.
     """
     if x.device.type == "cpu":
         return ref.moe_gmm_ref(x, w, group_ids)
@@ -332,8 +337,8 @@ def moe_gmm(x: torch.Tensor, w: torch.Tensor, group_ids: torch.Tensor,
         plan = _plan(ids, E)
     _check_plan(plan, T, E, x.device)
     if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
-        return _Gmm.apply(x, w, ids, plan)
-    return _forward(x, w, ids, plan)
+        return _Gmm.apply(x, w, ids, plan, rows)
+    return _forward(x, w, ids, plan, rows)
 
 
 moe_gmm.launches = 0
@@ -341,7 +346,7 @@ moe_gmm.launches = 0
 
 def moe_gmm_bwd(dy: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
                 group_ids: torch.Tensor, plan: Plan | None = None, *,
-                need=(True, True)):
+                need=(True, True), rows: int | None = None):
     """The gradients of ``moe_gmm(x, w, group_ids)`` for the output
     gradient dy (T, N): ``(dx, dw)``, dx (T, K) and dw (E, K, N) in x's
     dtype, or None where ``need`` (for x, for w) is false.
@@ -388,7 +393,8 @@ def moe_gmm_bwd(dy: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
             ([((E, K, N), x.dtype)] if need_w else [])
         got = iter(shape_only.launch(
             "moe_gmm_bwd", (x, w, dy, ids, *plan[:4]), outs,
-            costs.gmm_flops(T, K, N) * (int(need_x) + int(need_w))))
+            costs.gmm_flops(T if rows is None else rows, K, N)
+            * (int(need_x) + int(need_w))))
         return (next(got) if need_x else None,
                 next(got) if need_w else None)
     from . import _build

@@ -45,5 +45,5 @@ def moe_plan(group_ids, n_experts):
     return _gmm.plan(group_ids, n_experts)
 
 
-def moe_gmm(x, w, group_ids, plan=None):
-    return _gmm.moe_gmm(x, w, group_ids, plan)
+def moe_gmm(x, w, group_ids, plan=None, *, rows=None):
+    return _gmm.moe_gmm(x, w, group_ids, plan, rows=rows)

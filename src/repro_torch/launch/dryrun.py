@@ -33,6 +33,11 @@ the reference's JSON keys to ``--out``:
     peak = arg + out + temp - alias, the reference's identity;
   * ``collectives``: ``collective_analysis.collective_summary`` of the
     recorded collectives (ICI against DCN by pod);
+  * ``beyond_ref_bytes``: the bytes of parameters and optimizer state
+    this rank holds beyond the reference's flat-column sharding: the
+    attention leaves whose heads split over fewer ranks than tp
+    (``tensor_parallel.attn_split``, ``kv_share``) hold a piece on
+    ``share`` ranks where the reference cuts their columns over all tp;
   * ``plan`` (tapa mode), and ``trace_s`` in place of ``lower_s`` and
     ``compile_s``.
 
@@ -65,6 +70,7 @@ from torch.utils.flop_counter import flop_registry
 
 from repro_torch import configs
 from repro_torch.distributed import collectives
+from repro_torch.distributed import tensor_parallel as tpar
 from repro_torch.distributed.sharding import plan_cell, refined_layout
 from repro_torch.distributed.taskgraph import SHAPES, ShapeCell
 from repro_torch.kernels import shape_only
@@ -257,6 +263,32 @@ def stand_ins(step, cell: ShapeCell):
     return params, cache, step.args[2].to("meta")
 
 
+def beyond_reference(step, params, opt=None) -> int:
+    """Bytes of ``params`` (a rank's ``LM``) and of their optimizer state
+    ``opt`` held beyond the reference's flat-column sharding: a tp-split
+    attention leaf's piece is held by ``share`` ranks, so (1 - 1 / share)
+    of its bytes and of its state's are more than the reference's 1 /
+    tp."""
+    tp = step.ranks.tp.size
+    if tp == 1:
+        return 0
+    named = dict(params.named_parameters())
+    specs = step.specs(named)
+    states = opt["v"] if opt else {}
+    if opt and "m" in opt:
+        states = {n: {"m": opt["m"][n], "v": opt["v"][n]} for n in opt["m"]}
+    total = 0.0
+    for n, p in named.items():
+        if tpar._attn_leaf(n) is None or \
+                steps_mod._shard_dim(specs[n], step.tp_axis) is None:
+            continue
+        share = tpar.share(step.cfg, n, tp)
+        held = _nbytes(p) + sum(_nbytes(t) for t in tree_leaves(
+            states.get(n, {})) if isinstance(t, torch.Tensor))
+        total += held * (1 - 1 / share)
+    return int(total)
+
+
 def run_cell(arch: str, shape: str, mesh_kind: str, mode: str,
              out_dir: str | None = None, seed: int = 0) -> dict:
     """Trace one cell (see the module's docstring); prints the
@@ -293,8 +325,12 @@ def run_cell(arch: str, shape: str, mesh_kind: str, mode: str,
             else:
                 step = steps_mod.build_baseline_train(cfg, mesh, cell,
                                                       device="meta")
-            got = trace(step, stand_ins(step, cell))
+            args = stand_ins(step, cell)
+            beyond = beyond_reference(step, args[0], args[1] if isinstance(
+                step, steps_mod.TrainStep) else None)
+            got = trace(step, args)
         got["rank"] = rank
+        got["beyond_ref_bytes"] = beyond
         if best is None or got["peak_bytes_per_device"] > \
                 best["peak_bytes_per_device"]:
             best = got
@@ -311,6 +347,7 @@ def run_cell(arch: str, shape: str, mesh_kind: str, mode: str,
           f"peakGB={rec['peak_bytes_per_device'] / 1e9:.2f},"
           f"collMB_ici={coll['ici_bytes'] / 1e6:.1f},"
           f"collMB_dcn={coll['dcn_bytes'] / 1e6:.1f},"
+          f"beyondGB={rec['beyond_ref_bytes'] / 1e9:.3f},"
           f"trace={rec['trace_s']:.0f}s", flush=True)
     if out_dir:
         os.makedirs(out_dir, exist_ok=True)

@@ -22,9 +22,11 @@ global batch; each takes its own rows and shards.
 
 A step's ``args`` are meta-device stand-ins (``param_structs``,
 ``input_specs``), so that a step can be traced without memory.  Adafactor
-configs raise with more than one data rank, stage or tp rank (its RMS clip
-and factored means reach across the sharded dims and, in the reference,
-across the stacked layers; ROADMAP item 8c).
+(arctic-480b's) runs as the reference runs it on its stacked layers,
+(G, ...) in the baseline's layout and (S, Gs, ...) in the pipeline's
+(``optim.adafactor.Stacks``), its state sliced over the data ranks as
+AdamW's is (ZeRO-1), each mean and RMS that crosses tp, the data slices
+or the stages summed over the ranks that hold them.
 """
 from __future__ import annotations
 
@@ -43,10 +45,11 @@ from repro_torch.distributed.collectives import (Axis, all_gather,
                                                  axis, sub_axis)
 from repro_torch.distributed.sharding import TpuPlan, plan_cell, refined_mesh
 from repro_torch.distributed.taskgraph import ShapeCell
-from repro_torch.model import lm
+from repro_torch.model import convert, lm
 from repro_torch.model.layers import PDTYPE
 from repro_torch.optim import (adafactor_init, adafactor_update, adamw_init,
                                adamw_update, zero1_dim, zero1_specs)
+from repro_torch.optim.adafactor import Held, Stacks
 
 N_MICRO = 8
 
@@ -95,12 +98,6 @@ def param_structs(cfg: ArchConfig) -> lm.LM:
     return lm.LM(cfg, "meta")
 
 
-def _opt_fns(cfg: ArchConfig):
-    if cfg.optimizer == "adafactor":
-        return adafactor_init, adafactor_update
-    return adamw_init, adamw_update
-
-
 def _opt_spec_tree(o_structs: dict, param_zspecs: dict) -> dict:
     """Optimizer-state placements mirroring its structure."""
     return {k: () if k == "step" else _mirror_specs(v, param_zspecs)
@@ -108,14 +105,28 @@ def _opt_spec_tree(o_structs: dict, param_zspecs: dict) -> dict:
 
 
 def _mirror_specs(tree: dict, pspecs: dict) -> dict:
-    """{name: placement} for a state dict by parameter name; Adafactor's
-    factored {vr, vc} take the parameter's placement cut to their rank, as
-    the reference cuts it (both drop the last entry)."""
+    """{name: placement} for a state dict by parameter name.  Adafactor's
+    factored {vr, vc} take the placements of the parameter's dims they
+    keep: vr its rows', vc its columns' (a stacked per-layer vector's vc
+    the vector's; 0-d entries none).  (The reference's ``_mirror_specs``
+    gives both the rows' placement, parts[:-1], which GSPMD then applies
+    to vc's columns; the values do not depend on it.)"""
     out = {}
     for name, v in tree.items():
         parts = tuple(pspecs[name])
-        out[name] = {k: parts if k == "v" else parts[:len(parts) - 1]
-                     for k in v} if isinstance(v, dict) else parts
+        if not isinstance(v, dict):
+            out[name] = parts
+            continue
+        out[name] = {}
+        for k, t in v.items():
+            if k == "v" or (k == "vc" and t.dim() == len(parts)):
+                out[name][k] = parts
+            elif t.dim() == 0:
+                out[name][k] = ()
+            elif k == "vr":
+                out[name][k] = parts[:-1]
+            else:
+                out[name][k] = parts[:-2] + parts[-1:]
     return out
 
 
@@ -211,8 +222,7 @@ class _Rank:
         merged.  Every rank of the mesh calls it together and gets the
         same dict."""
         tp = self.ranks.tp
-        specs = pp.param_specs(self.cfg, tensors, tp_axis=self.tp_axis,
-                               tp_size=tp.size)
+        specs = self.specs(tensors)
         out = {}
         for name, t in tensors.items():
             dim = _shard_dim(specs[name], self.tp_axis)
@@ -267,8 +277,7 @@ class TrainStep(_Rank):
             loss, grads = self._pipeline_grads(params, named, batch)
         else:
             loss, grads = self._accumulated_grads(params, named, batch)
-        tpar.sum_shared_grads(self.cfg, grads, self.ranks.kv,
-                              self.ranks.tp.size)
+        tpar.sum_shared_grads(self.cfg, grads, self.ranks.kv)
         data = self.ranks.data
         if data.size > 1:
             all_reduce_(list(grads.values()), data)
@@ -348,13 +357,41 @@ class TrainStep(_Rank):
         return torch.sqrt(layers + tp_part[1] + sums[3])
 
     def init_opt(self, params) -> dict:
-        """The optimizer state of this rank's params: AdamW's moments of
-        its ZeRO-1 slice of each (``zero1_dim`` over the data ranks), or
-        Adafactor's state whole."""
-        named = dict(params.named_parameters())
+        """The optimizer state of this rank's params, of its ZeRO-1 slice
+        of each (``zero1_dim`` over the data ranks): AdamW's moments, or
+        Adafactor's factored moments on the reference's stacks."""
+        named = self._slices(dict(params.named_parameters()))
         if self.cfg.optimizer == "adafactor":
-            return adafactor_init(named)
-        return adamw_init(self._slices(named))
+            return adafactor_init(named, self.stacks(named))
+        return adamw_init(named)
+
+    def stacks(self, names) -> Stacks:
+        """The layers of this rank's stage that form the reference's
+        stacked leaves (``_stacks``)."""
+        return _stacks(self.cfg, names, self.mode)
+
+    def held(self, tensors: dict) -> dict:
+        """{name: ``optim.adafactor.Held``}: each tensor's tp-split dim
+        with its entries' weights (1 / the tp ranks that hold each,
+        ``tensor_parallel.local_runs``) and its ZeRO-1 slice dim."""
+        specs = self.specs(tensors)
+        tp, data = self.ranks.tp.size, self.ranks.data.size
+        out = {}
+        for n, t in tensors.items():
+            dim = _shard_dim(specs[n], self.tp_axis) if tp > 1 else None
+            weight = None if dim is None else torch.cat([
+                torch.full((piece.shape[dim],), 1.0 / held,
+                           dtype=torch.float32, device=t.device)
+                for piece, held in tpar.local_runs(self.cfg, n, t, dim, tp)])
+            out[n] = Held(dim, weight, zero1_dim(specs[n], tuple(t.shape),
+                                                 data) if data > 1 else None)
+        return out
+
+    def _reduce(self, tensors: list, axes) -> None:
+        """Sum ``tensors`` in place over the named axes of this rank."""
+        for name in ("tp", "data", "stage"):
+            if name in axes:
+                all_reduce_(tensors, getattr(self.ranks, name))
 
     def _slices(self, tensors: dict) -> dict:
         """Each tensor's ZeRO-1 slice on this data rank (a view)."""
@@ -380,11 +417,13 @@ class TrainStep(_Rank):
         scale = torch.clamp(1.0 / torch.clamp(gn, min=1e-9), max=1.0)
         named = dict(params.named_parameters())
         clipped = {n: g.float().mul_(scale) for n, g in grads.items()}
+        mine = self._slices(named)
         if self.cfg.optimizer == "adafactor":
-            adafactor_update(named, clipped, opt, lr=self.lr)
-            return gn
-        adamw_update(self._slices(named), self._slices(clipped), opt,
-                     lr=self.lr)
+            adafactor_update(mine, self._slices(clipped), opt, lr=self.lr,
+                             stacks=self.stacks(mine),
+                             held=self.held(named), reduce=self._reduce)
+        else:
+            adamw_update(mine, self._slices(clipped), opt, lr=self.lr)
         data = self.ranks.data
         if data.size > 1:
             specs = self.specs(named)
@@ -404,29 +443,34 @@ def _to(batch: dict, device) -> dict:
     return out
 
 
-def _check_optimizer(cfg: ArchConfig, ranks: pp.Ranks) -> None:
-    if cfg.optimizer == "adafactor" and max(
-            ranks.data.size, ranks.stage.size, ranks.tp.size) > 1:
-        raise NotImplementedError(
-            f"{cfg.name}: Adafactor over {ranks.data.size} data ranks, "
-            f"{ranks.stage.size} stages and tp {ranks.tp.size} waits for "
-            f"{tpar.ITEM_8C} (its RMS clip and factored means reach across "
-            f"the sharded dims and the stacked layers)")
-
-
 def _ranks(cfg: ArchConfig, mesh, stage: Axis, data: Axis,
            tp_name: str) -> pp.Ranks:
-    """This rank's axes, after ``check_tp``: the KV-sharing blocks of the
-    tp axis made (on every rank) where there are fewer KV heads than tp
-    ranks."""
+    """This rank's axes, after ``check_tp``: the attention's blocks of the
+    tp axis (``attn_split``) and its KV-sharing blocks made (on every
+    rank) where the heads split over fewer than tp ranks or there are
+    fewer KV heads than they."""
     tp = axis(mesh, tp_name)
     tpar.check_tp(cfg, tp.size)
-    return pp.Ranks(stage=stage, data=data, tp=tp, kv=sub_axis(
-        mesh, tp_name, tpar.kv_share(cfg, tp.size)))
+    t = tpar.attn_split(cfg, tp.size)
+    return pp.Ranks(
+        stage=stage, data=data, tp=tp,
+        kv=sub_axis(mesh, tp_name, tpar.kv_share(cfg, tp.size)),
+        attn=tp if t == tp.size else sub_axis(mesh, tp_name, t))
 
 
-def _state_structs(cfg: ArchConfig, p_structs) -> dict:
-    return _opt_fns(cfg)[0](dict(p_structs.named_parameters()))
+def _stacks(cfg: ArchConfig, names, mode: str) -> Stacks:
+    """The layers among ``names`` that form the reference's stacked
+    leaves, in its layout: (G, ...) for the baseline, (S, Gs, ...) for
+    the pipeline ("tapa")."""
+    return Stacks(tuple(tuple(v) for v in convert.layer_stacks(
+        cfg, names).values()), pipeline=mode == "tapa")
+
+
+def _state_structs(cfg: ArchConfig, p_structs, mode: str) -> dict:
+    named = dict(p_structs.named_parameters())
+    if cfg.optimizer == "adafactor":
+        return adafactor_init(named, _stacks(cfg, named, mode))
+    return adamw_init(named)
 
 
 def build_baseline_train(cfg: ArchConfig, mesh, cell: ShapeCell, *,
@@ -437,16 +481,15 @@ def build_baseline_train(cfg: ArchConfig, mesh, cell: ShapeCell, *,
     n_micro = n_micro or n_micro_for(cfg)
     daxes = bl.data_axes(mesh)
     ranks = _ranks(cfg, mesh, Axis(None, 1, 0), axis(mesh, daxes), "model")
-    _check_optimizer(cfg, ranks)
     p_structs = param_structs(cfg)
     specs = bl.placements(cfg, p_structs, mesh)
     zspecs = zero1_specs(specs, _named(p_structs), data_axes=daxes,
                          data_size=ranks.data.size)
-    o_structs = _state_structs(cfg, p_structs)
+    o_structs = _state_structs(cfg, p_structs, "baseline")
     return TrainStep(
         cfg=cfg, ranks=ranks, n_stages=1, tp_axis="model",
         device=lm.resolve_device(device), mode="baseline", n_micro=n_micro,
-        lr=lr, loss_fn=bl.build_loss(cfg, ranks.tp, ranks.data),
+        lr=lr, loss_fn=bl.build_loss(cfg, ranks),
         plan=None, args=(p_structs, o_structs, input_specs(cfg, cell)),
         param_specs=specs, opt_specs=_opt_spec_tree(o_structs, zspecs),
         batch_specs=_batch_specs(cfg, cell, daxes, mode="baseline"))
@@ -465,13 +508,12 @@ def build_tapa_train(cfg: ArchConfig, mesh, cell: ShapeCell, *,
     rmesh = refined_mesh(mesh, plan)
     ranks = _ranks(cfg, rmesh, axis(rmesh, "stage"), axis(rmesh, "data"),
                    "tp")
-    _check_optimizer(cfg, ranks)
     p_structs = param_structs(cfg)
     specs = pp.param_specs(cfg, p_structs, tp_axis="tp",
                            tp_size=ranks.tp.size)
     zspecs = zero1_specs(specs, _named(p_structs), data_axes=("data",),
                          data_size=ranks.data.size)
-    o_structs = _state_structs(cfg, p_structs)
+    o_structs = _state_structs(cfg, p_structs, "tapa")
     bspecs = _batch_specs(cfg, cell, ("data",), mode="tapa")
     if max(cell.global_batch // n_micro, 1) % ranks.data.size:
         # small microbatches: every data rank takes all of their rows
@@ -515,15 +557,17 @@ class ServeStep(_Rank):
 
     def init_cache(self, params, batch: int, max_seq: int, extra=None):
         """This rank's cache for a global batch of ``batch`` rows, each
-        attention layer's KV cache split over tp as ``baseline.kv_mode``
-        says (``tensor_parallel.init_cache``)."""
+        attention layer's KV cache split over the attention's ranks (tp,
+        or the rank's block of ``attn_split`` ranks) as
+        ``baseline.kv_mode`` says (``tensor_parallel.init_cache``); with
+        the stub frontend's inputs ``extra``, the memory of the X layers
+        made once, whole on every rank (``tensor_parallel.memory``)."""
         rows = self.rows(batch)
         n = len(range(batch)[rows])
-        tp = self.ranks.tp
+        if extra:
+            extra = {k: v[rows].to(self.device) for k, v in extra.items()}
+        tp, attn = self.ranks.tp, self.ranks.attn
         if tp.size == 1:
-            if extra:
-                extra = {k: v[rows].to(self.device)
-                         for k, v in extra.items()}
             return lm.init_cache(params, self.cfg, n, max_seq,
                                  device=self.device, extra=extra)
         cfg = self.cfg
@@ -535,14 +579,19 @@ class ServeStep(_Rank):
                 else specs[0]
             W = max_seq if spec.window is None else min(spec.window,
                                                         max_seq)
-            mode = bl.kv_mode(cfg.n_kv_heads, W, tp.size, self.kv_shard)
+            mode = bl.kv_mode(cfg.n_kv_heads, W, attn.size, self.kv_shard)
             if mode is None:
                 raise ValueError(f"{cfg.name}: a KV cache of {W} slots and "
-                                 f"{cfg.n_kv_heads} heads splits over tp "
-                                 f"{tp.size} by neither")
+                                 f"{cfg.n_kv_heads} heads splits over "
+                                 f"{attn.size} ranks by neither")
             modes.append(mode)
-        return tpar.init_cache(cfg, tp, n, max_seq, kv_modes=modes,
-                               device=self.device, dtype=params.embed.dtype)
+        cache = tpar.init_cache(cfg, tp, n, max_seq, kv_modes=modes,
+                                device=self.device, dtype=params.embed.dtype,
+                                attn_ax=attn)
+        if extra:
+            with torch.no_grad():
+                cache["memory"] = tpar.memory(params, cfg, extra, tp, attn)
+        return cache
 
     def __call__(self, params, cache, tokens):
         tokens = tokens[self.rows(tokens.shape[0])].to(self.device)
@@ -565,7 +614,7 @@ def build_baseline_serve(cfg: ArchConfig, mesh, cell: ShapeCell, *,
     return ServeStep(
         cfg=cfg, ranks=ranks, n_stages=1, tp_axis="model",
         device=lm.resolve_device(device),
-        serve_fn=bl.build_serve_step(cfg, ranks.tp), kv_shard=kv_shard,
+        serve_fn=bl.build_serve_step(cfg, ranks), kv_shard=kv_shard,
         args=(p_structs, cache_structs, input_specs(cfg, cell)["tokens"]),
         param_specs=bl.placements(cfg, p_structs, mesh),
         cache_specs=cspecs, logits_spec=(bspec, "model"))

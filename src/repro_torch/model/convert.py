@@ -24,6 +24,30 @@ def _flatten(tree, prefix: str = ""):
             yield f"{prefix}{key}", value
 
 
+def layer_name(cfg: ArchConfig, pos: int, group: int, rest: str) -> str:
+    """The port's name of the JAX tree's ``groups[pos]`` leaf ``rest``,
+    row ``group``: ``layers.{group * len(pattern) + pos}.{rest}``."""
+    return f"layers.{group * len(cfg.layer_pattern) + pos}.{rest}"
+
+
+def layer_stacks(cfg: ArchConfig, names) -> dict[tuple, list[str]]:
+    """The port's parameter names that form one of the JAX tree's stacked
+    ``groups`` leaves: {(pattern position, name within the layer): names
+    in layer order}, the inverse of ``layer_name``.  Names outside
+    ``layers`` (and a layer index's stage offset) are the caller's: a
+    pipeline stage's layers, renumbered from 0, start at a group
+    boundary, so their stacks are the stage's rows of the reference's."""
+    P = len(cfg.layer_pattern)
+    out: dict[tuple, list[tuple[int, str]]] = {}
+    for name in names:
+        parts = name.split(".", 2)
+        if parts[0] != "layers" or len(parts) < 3:
+            continue
+        i = int(parts[1])
+        out.setdefault((i % P, parts[2]), []).append((i, name))
+    return {k: [n for _, n in sorted(v)] for k, v in out.items()}
+
+
 @torch.no_grad()
 def from_jax_params(tree: dict, cfg: ArchConfig, device="cuda",
                     dtype: torch.dtype | None = None) -> LM:
@@ -48,12 +72,11 @@ def from_jax_params(tree: dict, cfg: ArchConfig, device="cuda",
     params = LM(cfg, resolve_device(device))
     if dtype is not None:
         params.to(dtype)
-    P = len(cfg.layer_pattern)
     state = dict(_flatten({k: v for k, v in tree.items() if k != "groups"}))
     for i, group in enumerate(tree["groups"]):
         for name, leaf in _flatten(group):
             for n in range(leaf.shape[0]):
-                state[f"layers.{n * P + i}.{name}"] = leaf[n]
+                state[layer_name(cfg, i, n, name)] = leaf[n]
     for name, p in params.named_parameters():
         if name not in state:
             raise KeyError(f"the JAX tree has no leaf for {name}")

@@ -67,32 +67,44 @@ class MoE(nn.Module):
         ``aux_fn`` takes ``aux_loss``'s place (the distributed runtime's
         takes it over every data-parallel rank's tokens)."""
         B, S, d = x.shape
-        k = cfg.top_k
         xf = x.reshape(B * S, d)
         probs, top_p, top_i = route(self.router, cfg, xf)
-
-        # dispatch: the (token, k) pairs in expert order; a stable sort
-        # keeps each expert's rows in token order
-        flat = top_i.reshape(-1)
-        order = torch.argsort(flat, stable=True)
-        ids = flat[order]
-        xs = ops.burst_gather(xf, order // k)                 # (T k, d)
-
-        # one stable plan of the ids serves the layer's three products
-        plan = ops.moe_plan(ids, cfg.n_experts)
-        up = ops.moe_gmm(xs, self.w_up, ids, plan)
-        if cfg.gated_mlp:
-            up = silu(ops.moe_gmm(xs, self.w_gate, ids, plan)) * up
-        else:
-            up = silu(up)
-        ys = ops.moe_gmm(up, self.w_down, ids, plan)         # (T k, d)
-
-        # combine: back to (token, k) order through the inverse
-        # permutation (a gather, so no atomics), weighted by the bf16 top_p
-        inv = torch.empty_like(order)
-        inv[order] = torch.arange(order.numel(), device=order.device)
-        ye = ys.index_select(0, inv).view(B * S, k, d)
-        p = top_p.to(x.dtype).float()
-        y = (ye.float() * p[..., None]).sum(1).to(x.dtype)
+        y = experts(self, cfg, xf, top_p, top_i).to(x.dtype)
         aux = (aux_fn or aux_loss)(probs, top_i, cfg.n_experts, x.dtype)
         return y.view(B, S, d), aux
+
+
+def experts(m: MoE, cfg: ArchConfig, xf, top_p, top_i, *, first: int = 0,
+            rows: int | None = None):
+    """The experts' weighted sum for tokens xf (T, d) routed to top_i
+    with weights top_p: (T, d) f32, before its rounding to xf's dtype.
+    ``m``'s experts are experts [first, first + E_m) of the model's (all
+    of them by default): a (token, k) pair routed elsewhere gives a zero
+    row (``moe_gmm``), so the caller sums the ranks' results.  ``rows``:
+    the rows the shape-only path counts in its FLOPs (all T k by
+    default)."""
+    k = cfg.top_k
+    # dispatch: the (token, k) pairs in expert order; a stable sort keeps
+    # each expert's rows in token order
+    flat = top_i.reshape(-1)
+    order = torch.argsort(flat, stable=True)
+    ids = flat[order] - first if first else flat[order]
+    xs = ops.burst_gather(xf, order // k)                     # (T k, d)
+
+    # one stable plan of the ids serves the layer's three products
+    plan = ops.moe_plan(ids, m.w_up.shape[0])
+    kw = {} if rows is None else {"rows": rows}
+    up = ops.moe_gmm(xs, m.w_up, ids, plan, **kw)
+    if cfg.gated_mlp:
+        up = silu(ops.moe_gmm(xs, m.w_gate, ids, plan, **kw)) * up
+    else:
+        up = silu(up)
+    ys = ops.moe_gmm(up, m.w_down, ids, plan, **kw)          # (T k, d)
+
+    # combine: back to (token, k) order through the inverse permutation (a
+    # gather, so no atomics), weighted by the bf16 top_p, summed in f32
+    inv = torch.empty_like(order)
+    inv[order] = torch.arange(order.numel(), device=order.device)
+    ye = ys.index_select(0, inv).view(-1, k, ys.shape[-1])
+    p = top_p.to(xf.dtype).float()
+    return (ye.float() * p[..., None]).sum(1)

@@ -4,9 +4,9 @@ gradient clipping, the cosine schedule.
 Counterpart of ``repro/optim``, over a dict of named tensors (for a model,
 ``dict(params.named_parameters())``) where the JAX package takes a pytree.
 ``zero1_specs`` places the optimizer state of the distributed step
-builders (``repro_torch.launch.steps``): AdamW's moments are sharded over
-the data ranks there; Adafactor under data or pipeline parallelism waits
-for ROADMAP item 8c."""
+builders (``repro_torch.launch.steps``): AdamW's moments and Adafactor's
+factored ones are sharded over the data ranks there, and Adafactor runs
+on the reference's stacked layers (``adafactor.Stacks``)."""
 from .adafactor import adafactor_init, adafactor_update
 from .adamw import adamw_init, adamw_update
 from .common import (clip_by_global_norm, cosine_schedule, zero1_dim,

@@ -12,6 +12,7 @@ rank 0 returns what the run gathered.  This file imports no JAX.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 import pickle
@@ -197,6 +198,7 @@ def train(run):
 
 def _train(run):
     from repro_torch.distributed.collectives import recording
+    from repro_torch.distributed import tensor_parallel as tpar
     from repro_torch.distributed.sharding import TpuPlan
     from repro_torch.launch import steps
     cfg = _config(run)
@@ -214,18 +216,116 @@ def _train(run):
     if run.get("extra") is not None:
         batch["extra"] = {k: torch.from_numpy(v)
                           for k, v in run["extra"].items()}
-    with recording() as schedule:
+    with recording() as schedule, _routes() as routes:
         loss, grads = step.loss_and_grads(params, batch)
     full_grads = step.gather(grads)
     with recording() as applied:
         gn = step.apply(params, opt, grads)
     full_params = step.gather(dict(params.named_parameters()))
-    return {"loss": float(loss), "grad_norm": float(gn),
-            "grads": _numpy(full_grads), "params": _numpy(full_params),
-            "schedule": schedule + applied,
-            "layout": {"stage": step.ranks.stage.size,
-                       "data": step.ranks.data.size,
-                       "tp": step.ranks.tp.size}}
+    out = {"loss": float(loss), "grad_norm": float(gn),
+           "grads": _numpy(full_grads), "params": _numpy(full_params),
+           "schedule": schedule + applied,
+           "routes": _same_routes(routes, step.ranks.tp),
+           "layout": {"stage": step.ranks.stage.size,
+                      "data": step.ranks.data.size,
+                      "tp": step.ranks.tp.size},
+           "attn_ranks": step.ranks.attn.size,
+           "moe": tpar.moe_placement(cfg.n_experts or 1, step.ranks.tp.size)}
+    if run.get("given_grads"):
+        out["given"] = _given_steps(run, step, cfg)
+    return out
+
+
+@contextlib.contextmanager
+def _routes():
+    """Record every ``moe.route``'s top_i while open."""
+    from repro_torch.model import moe
+    got, route = [], moe.route
+
+    def recorded(*a, **k):
+        out = route(*a, **k)
+        got.append(out[2].detach().clone())
+        return out
+    moe.route = recorded
+    try:
+        yield got
+    finally:
+        moe.route = route
+
+
+def _same_routes(routes, tp):
+    """How many routings this rank made, each asserted equal on every tp
+    rank (gathered over tp)."""
+    from repro_torch.distributed.collectives import all_gather
+    for top_i in routes:
+        every = all_gather(top_i[None], tp, 0)
+        assert all(torch.equal(every[r], top_i) for r in range(tp.size)), \
+            "the tp ranks routed the tokens differently"
+    return len(routes)
+
+
+def _given_steps(run, step, cfg):
+    """Optimizer steps from the JAX package's whole gradients
+    (``given_grads``, by the port's names, one dict a step) from fresh
+    params: each step's whole params and optimizer state, gathered."""
+    params = step.shard(_params(run, cfg))
+    opt = step.init_opt(params)
+    out = []
+    for whole in run["given_grads"]:
+        g = step.shard({n: torch.from_numpy(v) for n, v in whole.items()},
+                       requires_grad=False)
+        gn = step.apply(params, opt, {n: t.detach().float() for n, t in
+                                      g.named_parameters()})
+        out.append({"grad_norm": float(gn),
+                    "params": _numpy(step.gather(
+                        dict(params.named_parameters()))),
+                    "state": _gather_state(step, params, opt)})
+    return out
+
+
+def _gather_state(step, params, opt):
+    """Adafactor's state as the whole model's, by parameter name: each
+    entry gathered over the data ranks along its ZeRO-1 slice and over tp
+    along its split dim (``tensor_parallel.unshard``), the stages
+    merged."""
+    from repro_torch.distributed import tensor_parallel as tpar
+    from repro_torch.distributed.collectives import (all_gather,
+                                                     all_gather_object)
+    from repro_torch.launch import steps
+    from repro_torch.optim import zero1_dim
+    named = dict(params.named_parameters())
+    specs = step.specs(named)
+    tp, data = step.ranks.tp, step.ranks.data
+    out = {}
+    for n, st in opt["v"].items():
+        p = named[n]
+        nd = p.dim()
+        tdim = steps._shard_dim(specs[n], step.tp_axis) if tp.size > 1 \
+            else None
+        ddim = zero1_dim(specs[n], tuple(p.shape), data.size) \
+            if data.size > 1 else None
+        whole = {}
+        for k, t in st.items():
+            if t.dim() == 0:
+                dims = []
+            elif t.dim() == nd:
+                dims = list(range(nd))
+            elif k == "vr":
+                dims = list(range(nd - 1))
+            else:
+                dims = list(range(nd - 2)) + [nd - 1]
+            if ddim in dims:
+                t = all_gather(t, data, dims.index(ddim))
+            if tdim in dims:
+                i = dims.index(tdim)
+                t = tpar.unshard(step.cfg, n, list(
+                    all_gather(t, tp, i).chunk(tp.size, i)), i)
+            whole[k] = t.detach().cpu().numpy()
+        out[steps._global_name(n, step.first_layer)] = whole
+    if step.ranks.stage.size > 1:
+        for part in all_gather_object(out, step.ranks.stage):
+            out.update(part)
+    return out
 
 
 def serve(run):
@@ -242,7 +342,9 @@ def serve(run):
     step = steps.build_baseline_serve(cfg, mesh, cell, device="cpu",
                                       kv_shard=run.get("kv_shard", "heads"))
     params = step.shard(_params(run, cfg))
-    cache = step.init_cache(params, B, run["max_seq"])
+    extra = {k: torch.from_numpy(v) for k, v in run["extra"].items()} \
+        if run.get("extra") else None
+    cache = step.init_cache(params, B, run["max_seq"], extra=extra)
     out = []
     for t in feeds:
         logits, cache = step(params, cache, t)
@@ -255,7 +357,8 @@ def serve(run):
 
 
 def refuse(run):
-    """The message of each case that must raise ``NotImplementedError``."""
+    """(type name, message) of the error each case raises, or None."""
+    from repro_torch.distributed.sharding import TpuPlan
     from repro_torch.launch import steps
     got = []
     for case in run["cases"]:
@@ -267,10 +370,13 @@ def refuse(run):
             if case["builder"] == "serve":
                 steps.build_baseline_serve(cfg, mesh, cell, device="cpu",
                                            kv_shard=case["kv_shard"])
+            elif case["builder"] == "tapa":
+                steps.build_tapa_train(cfg, mesh, cell, device="cpu",
+                                       plan=TpuPlan(**case["plan"]))
             else:
                 steps.build_baseline_train(cfg, mesh, cell, device="cpu")
-        except NotImplementedError as e:
-            got.append(str(e))
+        except (NotImplementedError, ValueError) as e:
+            got.append((type(e).__name__, str(e)))
         else:
             got.append(None)
     return {"messages": got}

@@ -2,10 +2,11 @@
 a 4-rank gloo group of CPU processes against the JAX package on one
 device: granite-8b-reduced through the baseline (data 2 x model 2; pod 2 x data
 2) and the floorplanned pipeline (2 stages x tp 2, boundary depth 2), sharded
-serving (data 2 x model 2), and the refusals that still wait for ROADMAP
-item 8c (X layers, MoE experts and whisper's encoder over tp, Adafactor
-sharded; ``tests/test_torch_dist_tp.py`` holds the cases that item's first
-half lifted).
+serving (data 2 x model 2), and what the builders still refuse: an FFN or
+SSM heads that do not divide over tp, and a plan that gives a rank to two
+stages (``sharding.check_layout``).  ``tests/test_torch_dist_tp.py``,
+``test_torch_dist_moe.py`` and ``test_torch_dist_xattn.py`` hold the cases
+that ROADMAP item 8c lifted.
 
 One group plays every run (``tests/_torch_dist.py``); the JAX package's
 ``lm.init_params(PRNGKey(0))`` weights are carried across by
@@ -73,16 +74,29 @@ LAYOUT = {"baseline-bf16": {"stage": 1, "data": 2, "tp": 2},
 AXES = {2: ("data", "model"), 3: ("pod", "data", "model")}
 SERVE_B, PROMPT, STEPS = 4, 8, 4
 SERVE_ATOL = 2e-2
+#: case -> the builder's arguments and a part of its ``ValueError``
 REFUSE = {
-    "llama-vision's X layers over tp 2": dict(
-        arch="llama-3.2-vision-11b", mesh=(2, 2), builder="train"),
-    "Adafactor over data 2": dict(arch=ARCH, mesh=(2, 2), builder="train",
-                                  overrides={"optimizer": "adafactor"}),
-    "arctic's experts over tp 2": dict(arch="arctic-480b", mesh=(2, 2),
-                                       builder="train"),
-    "whisper's encoder over tp 2": dict(arch="whisper-tiny", mesh=(2, 2),
-                                        builder="serve", kv_shard="heads",
-                                        cell="prefill"),
+    "an FFN of 126 over tp 4": dict(
+        arch=ARCH, mesh=(1, 4), builder="train", overrides={"d_ff": 126},
+        want="d_ff 126 does not divide"),
+    "the experts' FFN of 66 over tp 4": dict(
+        arch="granite-moe-3b-a800m", mesh=(1, 4), builder="train",
+        overrides={"n_experts": 6, "moe_d_ff": 66},
+        want="moe_d_ff 66 does not divide"),
+    "2 mamba2 heads over tp 4": dict(
+        arch="zamba2-7b", mesh=(1, 4), builder="serve", kv_shard="heads",
+        cell="prefill", overrides={"ssm_head_dim": 64},
+        want="mamba2 heads 2 does not divide"),
+    "2 rwkv6 heads over tp 4": dict(
+        arch="rwkv6-1.6b", mesh=(1, 4), builder="train",
+        overrides={"ssm_head_dim": 32}, want="rwkv6 heads 2 does not divide"),
+    "a plan that gives a rank to two stages": dict(
+        # five stages on four one-rank slots, the last visited twice
+        arch=ARCH, mesh=(1, 4), builder="tapa", plan=dict(
+            mode="tapa", n_stages=5, groups_per_stage=1,
+            stage_slots=[(0, 0), (0, 1), (0, 2), (0, 3), (0, 3)],
+            boundary_depth=[1] * 4, tp=1, crossing_cost=0.0),
+        want="visits a slot twice"),
 }
 
 
@@ -253,8 +267,10 @@ def test_sharded_serving_matches_jax_step(setup):
 
 
 @pytest.mark.parametrize("case", list(REFUSE))
-def test_refusals_name_item_8c(setup, case):
-    msg = setup["runs"]["refuse"]["messages"][list(REFUSE).index(case)]
-    assert msg is not None, f"{case}: did not raise"
-    assert "ROADMAP item 8c" in msg, msg
+def test_what_the_builders_still_refuse(setup, case):
+    got = setup["runs"]["refuse"]["messages"][list(REFUSE).index(case)]
+    assert got is not None, f"{case}: did not raise"
+    kind, msg = got
+    assert kind == "ValueError", got
+    assert REFUSE[case]["want"] in msg, msg
 

@@ -112,6 +112,15 @@ SMALL = {
     "gemma3-12b decode": ("gemma3-12b", "serve", {"decode_attention"}),
     "granite-8b 2 stages": ("granite-8b", "tapa",
                             {"flash_attention", "flash_attention_bwd"}),
+    # MoE experts over tp 2 (by expert), X layers and whisper's encoder
+    "granite-moe-3b": ("granite-moe-3b-a800m", "baseline",
+                       {"moe_plan", "moe_gmm", "moe_gmm_bwd",
+                        "burst_gather", "burst_gather_bwd"}),
+    "arctic-480b": ("arctic-480b", "baseline",
+                    {"moe_plan", "moe_gmm", "moe_gmm_bwd"}),
+    "llama-vision": ("llama-3.2-vision-11b", "baseline",
+                     {"flash_attention", "flash_attention_bwd"}),
+    "whisper-tiny decode": ("whisper-tiny", "serve", {"decode_attention"}),
 }
 
 
