@@ -322,8 +322,8 @@ from repro_torch.kernels import sim_sweep as ss  # noqa: E402
 from repro_torch.kernels.padded_batch import build_padded_batch  # noqa: E402
 from repro_torch.launch import serve, train  # noqa: E402
 from repro_torch.launch.profile_bwd import (  # noqa: E402
-    embedding_ids, kernel_split, mamba2_bwd_inputs, rwkv6_bwd_inputs,
-    time_ms)
+    BWD_ATTN_SHAPES, attention_bound, attention_inputs, embedding_ids,
+    kernel_split, mamba2_bwd_inputs, rwkv6_bwd_inputs, sdpa_bwd, time_ms)
 from repro_torch.model import lm, moe  # noqa: E402
 
 #: H100 SXM peaks and the bound of a count of operations and bytes: one
@@ -1214,6 +1214,7 @@ def _row(name, replaces, err, ms, plain, lib, bound_ms, bound_by):
 SOURCE = {"moe_plan": "moe_gmm.cu",
           "flash_attention": "flash_attention.cu",
           "flash_attention_bwd": "flash_attention.cu",
+          "flash_attention_bwd_d256": "flash_attention.cu",
           "burst_gather_bwd": "burst_gather.cu",
           "burst_gather_bwd[dispatch]": "burst_gather.cu",
           "decode_attention": "flash_attention.cu",
@@ -2543,9 +2544,14 @@ TRAIN_ARCH = "granite-8b"
 #: the two shared blocks: 2.79 B, ~33 GB, ~70 GB at its peak with the
 #: activations); rwkv6-1.6b all 24 (1.45 B, ~17 GB); granite-moe-3b-a800m
 #: all 32 (3.30 B, ~39.6 GB, with ~0.6-0.8 GB of routed activations a layer
-#: at B 4 x S 1024: 32,800 rows of 1536, the f32 combine among them)
+#: at B 4 x S 1024: 32,800 rows of 1536, the f32 combine among them);
+#: gemma3-12b's 48 need 11.8 B (~142 GB), and two whole layer_patterns,
+#: 12 layers (a tied 262,144 x 3,840 embedding and 12 x 224.1 M: 3.70 B,
+#: ~44.4 GB before activations) peaked at 75.85 GB, the head's B S x
+#: 262,144 logits and their gradients among them, so one pattern, 6
+#: layers (2.35 B, ~28.2 GB), its attention backward at head size 256
 TRAIN_RUNS = (("granite-8b", 8), ("zamba2-7b", 27), ("rwkv6-1.6b", 24),
-              ("granite-moe-3b-a800m", 32))
+              ("granite-moe-3b-a800m", 32), ("gemma3-12b", 6))
 TRAIN_B, TRAIN_S, TRAIN_STEPS = 4, 1024, 5
 #: the backward kernels' f32 cases against autograd through the plain
 #: version: the same f32 arithmetic summed in another order, over up to 1024
@@ -2556,7 +2562,10 @@ F32_BWD_TOL = dict(rtol=1e-4, atol=1e-4)
 #: 1/12, with and without a window that bites; gemma3's D = 256;
 #: chatglm3's g = 16; cross-attention with Sq != Skv; whisper's encoder),
 #: a ragged head size, f32, and rows four times the training length (the
-#: bf16-rounded P and dS of the wgmma kernels summed over 4096 rows)
+#: bf16-rounded P and dS of the wgmma kernels summed over 4096 rows); at
+#: D 256 (bf16: the wgmma passes at DP 256) gemma3's training shape, a
+#: window that bites, the softcap with its scale, Sq != Skv and a ragged
+#: head size between 128 and 256
 BWD_CASES = (
     ("train", (TRAIN_B, TRAIN_S, TRAIN_S, 32, 8, 128), dict(causal=True),
      torch.bfloat16),
@@ -2581,6 +2590,16 @@ BWD_CASES = (
      torch.float32),
     ("s4096", (1, 4096, 4096, 32, 8, 128), dict(causal=True),
      torch.bfloat16),
+    ("gemma3-train", (TRAIN_B, TRAIN_S, TRAIN_S, 16, 8, 256),
+     dict(causal=True), torch.bfloat16),
+    ("gemma3-window-bites-d256", (2, 300, 300, 16, 8, 256),
+     dict(causal=True, window=100), torch.bfloat16),
+    ("softcap-d256", (2, 256, 256, 16, 8, 256), dict(causal=True, **G2),
+     torch.bfloat16),
+    ("cross-d256", (2, 200, 333, 8, 8, 256), dict(causal=False),
+     torch.bfloat16),
+    ("ragged-d200", (1, 150, 150, 4, 2, 200), dict(causal=True),
+     torch.bfloat16),
 )
 
 
@@ -2591,15 +2610,25 @@ def _attn_grads(fn, q, k, v, do, **kw):
         return torch.autograd.grad(fn(q, k, v, **kw), (q, k, v), do)
 
 
+def _bwd_paths_since(before):
+    """The library's ``flash_attention_bwd`` launches by path since
+    ``before`` (a ``fa.bwd_paths()``), the paths with none left out."""
+    return {p: n - before[p] for p, n in fa.bwd_paths().items()
+            if n != before[p]}
+
+
 def check_attention_bwd(gen):
     """``flash_attention_bwd``, reached through autograd from
     ``flash_attention``, against autograd through ``ref.attention_ref`` on
     the same inputs (bf16 at 2e-2, f32 at ``F32_BWD_TOL``), and run twice
-    for the same bits.  Returns the worst error at the training shape."""
+    for the same bits; both runs on the kernels ``fa.bwd_path`` names, as
+    the library counts its launches.  Returns the worst error at the
+    training shapes, granite-8b's (D 128) and gemma3-12b's (D 256)."""
     errs = {}
     for name, (b, sq, skv, hq, hkv, d), kw, dtype in BWD_CASES:
         q, do = (_rand((b, sq, hq, d), gen, dtype) for _ in range(2))
         k, v = (_rand((b, skv, hkv, d), gen, dtype) for _ in range(2))
+        before = fa.bwd_paths()
         got = _attn_grads(fa.flash_attention, q, k, v, do, **kw)
         want = _attn_grads(ref.attention_ref, q, k, v, do, **kw)
         tol = F32_BWD_TOL if dtype == torch.float32 else BF16_TOL
@@ -2610,8 +2639,14 @@ def check_attention_bwd(gen):
         if not all(torch.equal(a, w) for a, w in zip(got, again)):
             raise AssertionError(f"flash_attention_bwd[{name}]: two runs "
                                  f"differ")
-        _phase(f"check flash_attention_bwd[{name}]: two runs, same bits ok")
-    return errs["train"]
+        paths = _bwd_paths_since(before)
+        if paths != {fa.bwd_path(dtype, d): 2}:
+            raise AssertionError(f"flash_attention_bwd[{name}]: launches by "
+                                 f"path {paths}, want 2 on "
+                                 f"{fa.bwd_path(dtype, d)}")
+        _phase(f"check flash_attention_bwd[{name}]: two runs, same bits, "
+               f"both on {fa.bwd_path(dtype, d)} ok")
+    return errs["train"], errs["gemma3-train"]
 
 
 #: the MoE dispatch of the train phase: B 4 x (S + 1) tokens, each
@@ -3360,7 +3395,11 @@ def train_phase(arch, depth):
     embedding's gather backward on the one-block sort, the dispatch's
     32,800 ids on the multi-block one), and finite losses and norms;
     prints each step's loss, grad norm and seconds, tokens/s and the peak
-    memory.  Returns its launches, and the gather backward's by path."""
+    memory.  The attention backward's launches all go to the kernels
+    ``fa.bwd_path`` names for the model's head size in bf16, as the
+    library counts them.  Returns its launches, the gather backward's by
+    path and the attention backward's by path (the paths with none left
+    out)."""
     full = configs.get(arch)
     cfg = full if depth == full.n_layers else dataclasses.replace(
         full, name=f"{arch} at {depth} of {full.n_layers} layers",
@@ -3372,6 +3411,7 @@ def train_phase(arch, depth):
     m2.mamba2_scan_bwd.chunked_launches = 0
     bg.burst_gather_bwd.one_block_launches = 0
     bg.burst_gather_bwd.multi_block_launches = 0
+    before = fa.bwd_paths()
     t0 = time.perf_counter()
     run = train.train(cfg, steps=TRAIN_STEPS, batch=TRAIN_B, seq=TRAIN_S,
                       device="cuda", log_every=1)
@@ -3379,6 +3419,7 @@ def train_phase(arch, depth):
     launches = {n: fn.launches for n, fn in COUNTERS.items()}
     paths = {"one_block": bg.burst_gather_bwd.one_block_launches,
              "multi_block": bg.burst_gather_bwd.multi_block_launches}
+    attn_paths = _bwd_paths_since(before)
     chunked = m2.mamba2_scan_bwd.chunked_launches
     pattern = cfg.layer_pattern
     kinds = [pattern[i % len(pattern)] for i in range(cfg.n_layers)]
@@ -3411,10 +3452,17 @@ def train_phase(arch, depth):
            f"{[round(x, 4) for x in run.step_s]} (first with the build and "
            f"warm-up); steady {steady:.4f} s a step, {tokens / steady:.0f} "
            f"tokens/s; max_memory_allocated {peak:.2f} GB; launches "
-           f"{launches}; burst_gather_bwd by path {paths}")
+           f"{launches}; burst_gather_bwd by path {paths}; "
+           f"flash_attention_bwd by path {attn_paths}")
     if launches != want or paths != want_paths:
         raise AssertionError(f"train {cfg.name}: launch counts {launches}, "
                              f"{paths}, want {want}, {want_paths}")
+    n_attn = want["flash_attention_bwd"]
+    want_attn = {fa.bwd_path(torch.bfloat16, cfg.head_dim): n_attn} \
+        if n_attn else {}
+    if attn_paths != want_attn:
+        raise AssertionError(f"train {cfg.name}: flash_attention_bwd by "
+                             f"path {attn_paths}, want {want_attn}")
     # bf16 at S 1024: every SSD backward on the chunked path
     if chunked != launches["mamba2_scan_bwd"]:
         raise AssertionError(f"train {cfg.name}: {chunked} of "
@@ -3428,7 +3476,7 @@ def train_phase(arch, depth):
                              f"finite")
     del run
     torch.cuda.empty_cache()
-    return launches, paths
+    return launches, paths, attn_paths
 
 
 #: the batch whose 16,400 embedding ids (B 16 x S 1024) exceed the
@@ -3464,55 +3512,45 @@ def check_train_big_batch():
 
 def train_rows(errs, flush, gen):
     """The kernels line's rows of the two backward kernels at the train
-    phase's shapes.  flash_attention_bwd: B 4, S 1024, Hq 32, Hkv 8, D 128,
-    causal, bf16; plain: autograd through ``ref.attention_ref`` (its
-    forward included, which autograd needs); library: the backward of
-    ``scaled_dot_product_attention`` (cuDNN/flash, enable_gqa).  Bound: the
-    five products of the causal backward, 2 x 5 D flops a (query, key)
-    pair; bytes q, k, v, o, dO, lse read and dq, dk, dv written once.
-    Each line also gives the device time of every kernel the call launched
+    phase's shapes.  flash_attention_bwd at granite-8b's (B 4, S 1024, Hq
+    32, Hkv 8, D 128) and, as ``flash_attention_bwd_d256``, gemma3-12b's
+    (Hq 16, D 256), causal, bf16 (``BWD_ATTN_SHAPES``); plain: autograd
+    through ``ref.attention_ref`` (its forward included, which autograd
+    needs); library: the backward of ``scaled_dot_product_attention``
+    (cuDNN/flash, enable_gqa).  Bound: the five products of the causal
+    backward, 2 x 5 D flops a (query, key) pair; bytes q, k, v, o, dO, lse
+    read and dq, dk, dv written once (``attention_bound``).  Each line
+    also gives the device time of every kernel the call launched
     (``kernel_split``), and the row keeps them as ``kernels_ms``.
     burst_gather_bwd: the train batch's 4,100 ids into the (49152, 4096)
     bf16 embedding gradient; plain: autograd through
     ``ref.burst_gather_ref``; library: ``index_add_`` into a zero f32
     table.  Bound: bytes, dout and ids read and the whole table written."""
-    b, s, hq, hkv, d = TRAIN_B, TRAIN_S, 32, 8, 128
-    q, do = (_rand((b, s, hq, d), gen) for _ in range(2))
-    k, v = (_rand((b, s, hkv, d), gen) for _ in range(2))
-    lse = torch.empty((b, hq, s), dtype=torch.float32, device="cuda")
-    o = fa._launch("flash_attention_fwd", q, k, v, causal=True, window=None,
-                   softcap=None, scale=None, q_offset=0, kv_len=None,
-                   lse=lse)
-    def bwd():
-        return fa.flash_attention_bwd(q, k, v, o, lse, do, causal=True)
-    ms = time_ms(bwd, flush)
-    split = kernel_split(bwd)
-    plain = time_ms(lambda: _attn_grads(ref.attention_ref, q, k, v, do,
-                                        causal=True), flush, reps=5)
-    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_(True)
-                  for t in (q, k, v))
-    with torch.enable_grad():
-        out = torch.nn.functional.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True)
-    dot = do.transpose(1, 2).contiguous()
-    lib = time_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), dot,
-                                              retain_graph=True), flush)
-    pairs = costs.attention_pairs(b, s, s, hq)
-    flops = costs.attention_bwd_flops(pairs, d)
-    nbytes = 2 * (3 * q.numel() + 2 * do.numel() + 4 * k.numel()) + \
-        4 * lse.numel()
-    b_ms, b_by = bound(flops, nbytes)
-    _phase(f"time flash_attention_bwd[train] (B, S, Hq, Hkv, D) = "
-           f"{(b, s, hq, hkv, d)} causal bf16: {ms:.4f} ms, plain "
-           f"{plain:.4f} ms, SDPA backward {lib:.4f} ms, bound {b_ms:.4f} "
-           f"ms ({b_by}; {flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB), "
-           f"{flops / ms / 1e9:.1f} TFLOP/s; by kernel (profiler, ms a "
-           f"call) {_split_text(split)}")
-    rows = [_row("flash_attention_bwd", "src/repro/kernels/"
-                 "flash_attention.py:90", errs[0], ms, plain, lib, b_ms,
-                 b_by)]
-    rows[-1]["kernels_ms"] = split
-    del q, k, v, o, do, qt, kt, vt, out, dot
+    rows = []
+    for (key, shape), err in zip(BWD_ATTN_SHAPES.items(), errs):
+        q, k, v, o, lse, do = attention_inputs(gen, shape)
+
+        def bwd():
+            return fa.flash_attention_bwd(q, k, v, o, lse, do, causal=True)
+        ms = time_ms(bwd, flush)
+        split = kernel_split(bwd)
+        plain = time_ms(lambda: _attn_grads(ref.attention_ref, q, k, v, do,
+                                            causal=True), flush, reps=5)
+        lib = time_ms(sdpa_bwd(q, k, v, do), flush)
+        b_ms, b_by = attention_bound(q, k, do, lse)
+        flops = costs.attention_bwd_flops(costs.attention_pairs(
+            shape[0], shape[1], shape[1], shape[2]), shape[4])
+        path = fa.bwd_path(q.dtype, shape[4])
+        _phase(f"time {key} (B, S, Hq, Hkv, D) = {shape} causal bf16 "
+               f"({path}): {ms:.4f} ms, plain {plain:.4f} ms, SDPA backward "
+               f"{lib:.4f} ms, bound {b_ms:.4f} ms ({b_by}; "
+               f"{flops / 1e9:.1f} GFLOP), {flops / ms / 1e9:.1f} TFLOP/s; "
+               f"by kernel (profiler, ms a call) {_split_text(split)}")
+        name = "flash_attention_bwd" + ("_d256" if shape[4] > 128 else "")
+        rows.append(_row(name, "src/repro/kernels/flash_attention.py:90",
+                         err, ms, plain, lib, b_ms, b_by))
+        rows[-1].update(kernels_ms=split, path=path)
+        del q, k, v, o, lse, do
 
     R, D = configs.get(TRAIN_ARCH).vocab_padded, 4096
     idx = embedding_ids()
@@ -3543,11 +3581,11 @@ def train_rows(errs, flush, gen):
            f"{nbytes / 1e6:.1f} MB); by stage (profiler, ms a call) "
            f"{_split_text(split)}")
     rows.append(_row("burst_gather_bwd", "src/repro/kernels/"
-                     "burst_gather.py:59", errs[1], ms, plain, lib, b_ms,
+                     "burst_gather.py:59", errs[2], ms, plain, lib, b_ms,
                      b_by))
     rows[-1].update(kernels_ms=split, path="one_block")
     del idx, dout, table, idx64, doutf
-    return rows + scan_bwd_rows(errs[2:], flush, gen)
+    return rows + scan_bwd_rows(errs[3:], flush, gen)
 
 
 def _grouped_mm_bwd(x, w, ids, E, dy):
@@ -3781,7 +3819,7 @@ def check_build_report():
     (HMMA/HGMMA lines of ``cuobjdump -sass``) of every kernel.  The bf16
     prefill must run on the tensor cores at every head-size bucket, and
     must not spill at DP <= 128, which covers the served head sizes; the
-    bf16 backward's three passes must run on them at DP 64 and 128."""
+    bf16 backward's three passes must run on them at DP 64, 128 and 256."""
     for name in _build.SOURCES:
         for kernel, r in sorted(_build.kernel_report(name).items()):
             _phase(f"ptxas {name}.cu {kernel}: {r.get('registers')} "
@@ -3842,15 +3880,15 @@ def check_build_report():
             raise AssertionError(f"flash_fwd_bf16<{dp}> spills: {r}")
     _phase("check flash_fwd_bf16: HGMMA in the SASS of every instantiation, "
            "no spill at DP <= 128 ok")
-    # the bf16 backward at DP <= 128 runs its three passes (dV, dK, dQ) on
-    # the tensor cores
-    for dp in (64, 128):
+    # the bf16 backward runs its three passes (dV, dK, dQ) on the tensor
+    # cores at every head-size bucket
+    for dp in (64, 128, 256):
         for kernel in (f"flash_bwd_kv_wg<{dp}, 1>", f"flash_bwd_kv_wg<{dp}, 0>",
                        f"flash_bwd_dq_wg<{dp}>"):
             if not attn.get(kernel, {}).get("hgmma"):
                 raise AssertionError(f"{kernel}: no HGMMA in its SASS")
     _phase("check flash_bwd_kv_wg (dV, dK) / flash_bwd_dq_wg: HGMMA in the "
-           "SASS at DP 64 and 128 ok")
+           "SASS at DP 64, 128 and 256 ok")
 
 
 def check_no_sync(params, cfg, prompts, extra=None):
@@ -5388,10 +5426,10 @@ def main() -> int:
     # training: the backward kernels against their plain versions, the
     # refusals, the f32 step against the CPU, the restart, then the path
     trgen = torch.Generator(device="cuda").manual_seed(22)
-    attn_bwd_err = check_attention_bwd(trgen)
+    attn_bwd_errs = check_attention_bwd(trgen)
     emb_bwd_err, dispatch_bwd_err = check_gather_bwd(trgen)
     moe_bwd_errs = check_moe_gmm_bwd(trgen)
-    train_errs = (attn_bwd_err, emb_bwd_err, *check_scan_bwd(trgen))
+    train_errs = (*attn_bwd_errs, emb_bwd_err, *check_scan_bwd(trgen))
     check_scan_bwd_repeats(trgen)
     check_grad_refusals(trgen)
     for arch in TRAIN_REF_ARCHS:
@@ -5403,10 +5441,12 @@ def main() -> int:
     check_train_big_batch()
     train_launches = dict.fromkeys(COUNTERS, 0)
     train_paths = {"one_block": 0, "multi_block": 0}
+    attn_paths = dict.fromkeys(fa.BWD_PATHS, 0)
     for arch, depth in TRAIN_RUNS:
-        run, paths = train_phase(arch, depth)
+        run, paths, attn = train_phase(arch, depth)
         train_launches = {n: train_launches[n] + run[n] for n in COUNTERS}
         train_paths = {p: train_paths[p] + paths[p] for p in train_paths}
+        attn_paths = {p: n + attn.get(p, 0) for p, n in attn_paths.items()}
     kernels += train_rows(train_errs, flush, trgen)
     kernels += moe_bwd_rows(moe_bwd_errs, dispatch_bwd_err, flush, trgen)
     # the distributed runtime: one rank on NCCL, two sharing the card
@@ -5421,10 +5461,15 @@ def main() -> int:
         if kernel.startswith("burst_gather_bwd"):
             paths = {"train": train_paths[row["path"]],
                      "dist": dist_launches[f"burst_gather_bwd/{row['path']}"]}
+        elif kernel == "flash_attention_bwd_d256":
+            # no serve or dist run has head size 256
+            paths = {"train": attn_paths["wgmma_d256"]}
         else:
             paths = {"serve": launches[kernel],
                      "train": train_launches[kernel],
                      "dist": dist_launches.get(kernel, 0)}
+            if kernel == "flash_attention_bwd":  # the rest: head size <= 128
+                paths["train"] -= attn_paths["wgmma_d256"]
         row["launches"] = sum(paths.values())
         if sum(1 for n in paths.values() if n) > 1:
             row["launches_by_path"] = {k: n for k, n in paths.items() if n}

@@ -39,6 +39,7 @@ _SIGNATURES = {
         "decode_attention_fwd": _ATTN + [_I] * 10 + [_F, _F, _P, _I, _I, _P,
                                                    _P],
         "flash_attention_bwd": [_P] * 10 + [_I] * 11 + [_F, _F, _P],
+        "flash_attention_bwd_launches": [_I],
     },
     "burst_gather": {
         "burst_gather_fwd": [_P, _P, _P, _LL, _LL, _LL, _P, _P],

@@ -65,20 +65,38 @@
 // is the gradient of the forward above, in passes that each own the rows
 // they write (no float atomics), so every run gives the same bits.
 // flash_bwd_delta first writes delta = rowsum(dO o O) and lse log2(e).
-//  * bf16 at DP <= 128: three passes on the tensor cores, each one
-//    warpgroup of 64 own rows and a TMA producer warp, two blocks an SM:
-//    flash_bwd_kv_wg<DP, 1> (dV: S^T = K Q^T, P^T, dV += P^T dO),
-//    flash_bwd_kv_wg<DP, 0> (dK: S^T and dP^T = V dO^T, dS^T, dK += dS^T Q)
-//    and flash_bwd_dq_wg (S = Q K^T, dP = dO V^T, dS, dQ += dS K).  The
-//    score products are wgmma from shared memory; P and dS go into the
-//    second products as bf16 register fragments (dK and dV, summed over g
-//    x Sq rows, take them as a hi + lo pair).  The training shape (B 4, S
-//    1024, 32 / 8 heads, D 128, causal) does 120 GFLOP of products, 0.12
-//    ms at 989 TFLOP/s; the f32 scores between the products are most of
-//    the time, so they run branch-free (softcap and whole tiles chosen at
-//    compile time).
-//  * f32, and bf16 at D > 128: flash_bwd_dkdv and flash_bwd_dq on the FMA
-//    pipes in f32 (the f32 checks cannot take bf16 or TF32 products).
+//  * bf16, every D: three passes on the tensor cores, each one warpgroup
+//    of 64 own rows and a TMA producer warp: flash_bwd_kv_wg<DP, 1> (dV:
+//    S^T = K Q^T, P^T, dV += P^T dO), flash_bwd_kv_wg<DP, 0> (dK: S^T and
+//    dP^T = V dO^T, dS^T, dK += dS^T Q) and flash_bwd_dq_wg (S = Q K^T, dP
+//    = dO V^T, dS, dQ += dS K).  The score products are wgmma from shared
+//    memory; P and dS go into the second products as bf16 register
+//    fragments (dK and dV, summed over g x Sq rows, take them as a hi + lo
+//    pair).  The training shape (B 4, S 1024, 32 / 8 heads, D 128, causal)
+//    does 120 GFLOP of products, 0.12 ms at 989 TFLOP/s; at DP <= 128 the
+//    f32 scores between the products are most of a tile's time, so they
+//    run branch-free (softcap and whole tiles chosen at compile time) and
+//    two blocks an SM hide one's scores behind the other's products.
+//  * bf16 at 128 < D <= 256 (gemma's head size 256) runs the same passes
+//    at DP = 256, one block an SM (BwdWgCfg<256>::BLOCKS).  A pass's 64 x
+//    256 f32 accumulator is 128 registers a thread; with a tile's 2 x 32
+//    scores and their fragments the passes take 197 (dV), 246 (dK) and
+//    232 (dQ) without a spill, past the ~200 that two blocks an SM leave
+//    a thread, and the dK pass's K, V and two-stage ring of Q and dO (194
+//    KB) fit one block only.  Of the designs that keep two tiles in
+//    flight, two consumer warpgroups over a 128-row tile leave no room for
+//    a second stage of the ring beside 128 KB of K and V, and halving the
+//    output's columns over the grid doubles the score products.  This
+//    design reuses the passes whole.  At DP 256 a tile's products take
+//    twice as long while its elementwise work stays the same, so the
+//    products, not the scores, are most of a tile's time, and one block
+//    an SM loses less than it does at DP 128.  gemma3-12b's training shape
+//    (B 4, S 1024, 16 / 8 heads, D 256, causal) does the same products as
+//    granite-8b's.
+//  * f32, every D: flash_bwd_dkdv and flash_bwd_dq on the FMA pipes in f32
+//    (the f32 checks cannot take bf16 or TF32 products).
+// The library counts its backward launches by path
+// (flash_attention_bwd_launches).
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -927,32 +945,6 @@ struct BwdCfg {
       sizeof(float) * (4 * (size_t)R * LD + 2 * (size_t)R * LDP + 2 * R);
 };
 
-// Stage `rows` rows from row0 on of one head of a (B, S, H, D) tensor into
-// shared memory as f32, row stride LD; rows at or past `nvalid` and columns
-// at or past D are zeros.  D is a multiple of 8, so a 16-byte chunk that
-// starts below D ends at or below it.
-template <typename T, int DP, int LD>
-__device__ inline void stage(float* s, const T* base, int rows, int row0,
-                             int nvalid, long long row_stride, int D) {
-  constexpr int V = 16 / sizeof(T);
-  constexpr int CH = DP / V;
-  for (int i = threadIdx.x; i < rows * CH; i += BNT) {
-    const int r = i / CH;
-    const int c = (i % CH) * V;
-    float x[V];
-    if (r < nvalid && c < D) {
-      load16(base + (long long)(row0 + r) * row_stride + c, x);
-    } else {
-#pragma unroll
-      for (int u = 0; u < V; ++u) x[u] = 0.f;
-    }
-#pragma unroll
-    for (int u = 0; u < V; u += 4)
-      *reinterpret_cast<float4*>(s + r * LD + c + u) =
-          make_float4(x[u], x[u + 1], x[u + 2], x[u + 3]);
-  }
-}
-
 // acc[i][j] = a row (ty + 16 i) . b row (tx + 16 j), over DP columns
 template <int DP, int LD, int RI>
 __device__ inline void dots(float (*acc)[RI], const float* a,
@@ -1064,12 +1056,12 @@ flash_bwd_delta(const T* __restrict__ o, const T* __restrict__ dout,
 
 // dQ: block (q tile, query head, batch) over the KV tiles its rows see;
 // dQ += dS K.  The q tile is the slowest axis, longest causal rows first.
-template <typename T, int DP>
+template <int DP>
 __global__ void __launch_bounds__(BNT)
-flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
-             const T* __restrict__ v, const T* __restrict__ dout,
+flash_bwd_dq(const float* __restrict__ q, const float* __restrict__ k,
+             const float* __restrict__ v, const float* __restrict__ dout,
              const float* __restrict__ lse, const float* __restrict__ delta,
-             T* __restrict__ dq, int Sq, int Skv, int Hq, int Hkv, int D,
+             float* __restrict__ dq, int Sq, int Skv, int Hq, int Hkv, int D,
              int causal, int has_window, int window, int has_softcap,
              float softcap, float scale) {
   using C = BwdCfg<DP>;
@@ -1093,10 +1085,10 @@ flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
   if (causal) kend = min(kend, min(q0 + R, Sq));
   const int kbeg = has_window ? max(0, q0 - window + 1) / R * R : 0;
 
-  stage<T, DP, LD>(sQ, q + (long long)b * Sq * qs + (long long)h * D, R, q0,
-                   Sq - q0, qs, D);
-  stage<T, DP, LD>(sO, dout + (long long)b * Sq * qs + (long long)h * D, R,
-                   q0, Sq - q0, qs, D);
+  load_tile<DP, LD, BNT>(sQ, q + (long long)b * Sq * qs + (long long)h * D,
+                         R, q0, Sq - q0, qs, D, 1.f);
+  load_tile<DP, LD, BNT>(sO, dout + (long long)b * Sq * qs + (long long)h * D,
+                         R, q0, Sq - q0, qs, D, 1.f);
   float lq[RI], dl[RI];
 #pragma unroll
   for (int i = 0; i < RI; ++i) {
@@ -1111,12 +1103,12 @@ flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int c = 0; c < CG * 4; ++c) acc[i][c] = 0.f;
 
-  const T* kb = k + (long long)b * Skv * ks + (long long)hk * D;
-  const T* vb = v + (long long)b * Skv * ks + (long long)hk * D;
+  const float* kb = k + (long long)b * Skv * ks + (long long)hk * D;
+  const float* vb = v + (long long)b * Skv * ks + (long long)hk * D;
   for (int kt0 = kbeg; kt0 < kend; kt0 += R) {
     __syncthreads();  // the last tile's sK and sS are read
-    stage<T, DP, LD>(sK, kb, R, kt0, kend - kt0, ks, D);
-    stage<T, DP, LD>(sV, vb, R, kt0, kend - kt0, ks, D);
+    load_tile<DP, LD, BNT>(sK, kb, R, kt0, kend - kt0, ks, D, 1.f);
+    load_tile<DP, LD, BNT>(sV, vb, R, kt0, kend - kt0, ks, D, 1.f);
     __syncthreads();
     float s[RI][RI], dp[RI][RI];
     dots<DP, LD, RI>(s, sQ, sK, ty, tx);
@@ -1143,7 +1135,7 @@ flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = 0; i < RI; ++i) {
     const int qi = q0 + ty + 16 * i;
     if (qi >= Sq) continue;
-    T* row = dq + ((long long)b * Sq + qi) * qs + (long long)h * D;
+    float* row = dq + ((long long)b * Sq + qi) * qs + (long long)h * D;
 #pragma unroll
     for (int cg = 0; cg < CG; ++cg) {
       const int c = cg * 64 + tx * 4;
@@ -1156,15 +1148,15 @@ flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
 
 // dK, dV: block (KV tile, KV head, batch) over the g query heads of its
 // KV head and the q tiles whose rows see its keys; dV += P^T dO and
-// dK += dS^T Q, summed over the group's heads in f32 and rounded once.
-// Scores are held transposed: rows are keys, columns queries.
-template <typename T, int DP>
+// dK += dS^T Q, summed over the group's heads.  Scores are held
+// transposed: rows are keys, columns queries.
+template <int DP>
 __global__ void __launch_bounds__(BNT)
-flash_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
-               const T* __restrict__ v, const T* __restrict__ dout,
+flash_bwd_dkdv(const float* __restrict__ q, const float* __restrict__ k,
+               const float* __restrict__ v, const float* __restrict__ dout,
                const float* __restrict__ lse,
-               const float* __restrict__ delta, T* __restrict__ dk,
-               T* __restrict__ dv, int Sq, int Skv, int Hq, int Hkv, int D,
+               const float* __restrict__ delta, float* __restrict__ dk,
+               float* __restrict__ dv, int Sq, int Skv, int Hq, int Hkv, int D,
                int causal, int has_window, int window, int has_softcap,
                float softcap, float scale) {
   using C = BwdCfg<DP>;
@@ -1191,10 +1183,10 @@ flash_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
   int qend = Sq;
   if (has_window) qend = min(qend, k0 + R - 1 + window);
 
-  stage<T, DP, LD>(sK, k + (long long)b * Skv * ks + (long long)hk * D, R,
-                   k0, Skv - k0, ks, D);
-  stage<T, DP, LD>(sV, v + (long long)b * Skv * ks + (long long)hk * D, R,
-                   k0, Skv - k0, ks, D);
+  load_tile<DP, LD, BNT>(sK, k + (long long)b * Skv * ks + (long long)hk * D,
+                         R, k0, Skv - k0, ks, D, 1.f);
+  load_tile<DP, LD, BNT>(sV, v + (long long)b * Skv * ks + (long long)hk * D,
+                         R, k0, Skv - k0, ks, D, 1.f);
   float dka[RI][CG * 4], dva[RI][CG * 4];
 #pragma unroll
   for (int i = 0; i < RI; ++i)
@@ -1202,13 +1194,13 @@ flash_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
     for (int c = 0; c < CG * 4; ++c) dka[i][c] = dva[i][c] = 0.f;
 
   for (int h = hk * g; h < hk * g + g; ++h) {
-    const T* qb = q + (long long)b * Sq * qs + (long long)h * D;
-    const T* ob = dout + (long long)b * Sq * qs + (long long)h * D;
+    const float* qb = q + (long long)b * Sq * qs + (long long)h * D;
+    const float* ob = dout + (long long)b * Sq * qs + (long long)h * D;
     const long long row0 = ((long long)b * Hq + h) * Sq;
     for (int qt0 = qbeg; qt0 < qend; qt0 += R) {
       __syncthreads();  // the last tile's sQ, sO, sP, sS are read
-      stage<T, DP, LD>(sQ, qb, R, qt0, Sq - qt0, qs, D);
-      stage<T, DP, LD>(sO, ob, R, qt0, Sq - qt0, qs, D);
+      load_tile<DP, LD, BNT>(sQ, qb, R, qt0, Sq - qt0, qs, D, 1.f);
+      load_tile<DP, LD, BNT>(sO, ob, R, qt0, Sq - qt0, qs, D, 1.f);
       for (int t = threadIdx.x; t < R; t += BNT) {
         const int qi = qt0 + t;
         sL[t] = qi < Sq ? lse[row0 + qi] * kLog2e : -INFINITY;
@@ -1257,22 +1249,24 @@ flash_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-// ------------------------------ backward, bf16 at DP <= 128: wgmma + TMA
+// ------------------------------------- backward, bf16: wgmma + TMA
 
 // Tiles of the bf16 backward on the tensor cores: three passes, each a block
 // of one consumer warpgroup owning BM = 64 rows (keys for dV and dK,
 // queries for dQ) and a producer warp whose lane 0 streams the other side
-// through a ring of ST stages in tiles of BN = 64 rows, two blocks an SM.
-// Every tile is DP / 64 panels of 64 rows x 128 bytes in the 128-byte
-// swizzle, as in flash_fwd_bf16, loaded by TMA with D zero-padded to DP.
-// The passes hold one f32 accumulator each: dK and dV in one warpgroup
-// would need ~240 registers a thread, one block an SM, and the elementwise
-// work between the products then has no other warps to hide behind.
+// through a ring of ST stages in tiles of BN = 64 rows, BLOCKS blocks an
+// SM (two at DP <= 128, one at DP 256: see the file's header).  Every tile
+// is DP / 64 panels of 64 rows x 128 bytes in the 128-byte swizzle, as in
+// flash_fwd_bf16, loaded by TMA with D zero-padded to DP.  The passes hold
+// one f32 accumulator each: dK and dV in one warpgroup would need ~240
+// registers a thread at DP 128, one block an SM, and the elementwise work
+// between the products then has no other warps to hide behind.
 template <int DP>
 struct BwdWgCfg {
   static constexpr int BM = 64;
   static constexpr int BN = 64;
   static constexpr int ST = 2;
+  static constexpr int BLOCKS = DP > 128 ? 1 : 2;
   static constexpr int NP = DP / 64;
   static constexpr int THREADS = GNT + 32;
   static constexpr int TILE = 64 * DP * 2;  // bytes of a 64-row tile
@@ -1448,7 +1442,8 @@ __device__ inline void init_ring(uint64_t* full, uint64_t* empty,
 // ~16 bits of each.  The accumulator stays in f32 registers over all the
 // group's heads and is rounded once.
 template <int DP, bool DV>
-__global__ void __launch_bounds__(BwdWgCfg<DP>::THREADS, 2)
+__global__ void __launch_bounds__(BwdWgCfg<DP>::THREADS,
+                                  BwdWgCfg<DP>::BLOCKS)
 flash_bwd_kv_wg(const __grid_constant__ CUtensorMap map_q,
                 const __grid_constant__ CUtensorMap map_k,
                 const __grid_constant__ CUtensorMap map_v,
@@ -1584,7 +1579,8 @@ flash_bwd_kv_wg(const __grid_constant__ CUtensorMap map_q,
 // Q K^T and dP = dO V^T (wgmma from shared memory), dS in registers, dQ +=
 // dS K (wgmma, dS from registers as bf16, K as the MN-major B).
 template <int DP>
-__global__ void __launch_bounds__(BwdWgCfg<DP>::THREADS, 2)
+__global__ void __launch_bounds__(BwdWgCfg<DP>::THREADS,
+                                  BwdWgCfg<DP>::BLOCKS)
 flash_bwd_dq_wg(const __grid_constant__ CUtensorMap map_q,
                 const __grid_constant__ CUtensorMap map_k,
                 const __grid_constant__ CUtensorMap map_v,
@@ -1818,7 +1814,7 @@ int launch_decode(const void* q, const void* k, const void* v, void* o,
 }
 
 
-template <typename T, int DP>
+template <int DP>
 int launch_bwd(const void* q, const void* k, const void* v, const void* o,
                const void* dout, const float* lse, void* dq, void* dk,
                void* dv, float* delta, int B, int Sq, int Skv, int Hq,
@@ -1829,37 +1825,37 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* o,
   static bool configured = false;
   if (!configured) {
     cudaError_t e = cudaFuncSetAttribute(
-        flash_bwd_dq<T, DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        flash_bwd_dq<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)C::smem);
     if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(flash_bwd_dkdv<T, DP>,
+      e = cudaFuncSetAttribute(flash_bwd_dkdv<DP>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)C::smem);
     if (e != cudaSuccess) return (int)e;
     configured = true;
   }
-  const T* tq = static_cast<const T*>(q);
-  const T* tk = static_cast<const T*>(k);
-  const T* tv = static_cast<const T*>(v);
-  const T* tdo = static_cast<const T*>(dout);
+  const float* tq = static_cast<const float*>(q);
+  const float* tk = static_cast<const float*>(k);
+  const float* tv = static_cast<const float*>(v);
+  const float* tdo = static_cast<const float*>(dout);
   const long long rows = (long long)B * Sq * Hq;
-  flash_bwd_delta<T><<<(unsigned)((rows + 7) / 8), 256, 0, stream>>>(
-      static_cast<const T*>(o), tdo, lse, delta, nullptr, rows, Sq, Sq, Hq,
-      D);
+  flash_bwd_delta<float><<<(unsigned)((rows + 7) / 8), 256, 0, stream>>>(
+      static_cast<const float*>(o), tdo, lse, delta, nullptr, rows, Sq, Sq,
+      Hq, D);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   if (Skv > 0) {
-    flash_bwd_dkdv<T, DP><<<dim3((Skv + C::R - 1) / C::R, Hkv, B), BNT,
-                            C::smem, stream>>>(
-        tq, tk, tv, tdo, lse, delta, static_cast<T*>(dk),
-        static_cast<T*>(dv), Sq, Skv, Hq, Hkv, D, causal, has_window, window,
-        has_softcap, softcap, scale);
+    flash_bwd_dkdv<DP><<<dim3((Skv + C::R - 1) / C::R, Hkv, B), BNT,
+                         C::smem, stream>>>(
+        tq, tk, tv, tdo, lse, delta, static_cast<float*>(dk),
+        static_cast<float*>(dv), Sq, Skv, Hq, Hkv, D, causal, has_window,
+        window, has_softcap, softcap, scale);
     if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
   }
-  flash_bwd_dq<T, DP><<<dim3((Sq + C::R - 1) / C::R, Hq, B), BNT, C::smem,
-                        stream>>>(
-      tq, tk, tv, tdo, lse, delta, static_cast<T*>(dq), Sq, Skv, Hq, Hkv, D,
-      causal, has_window, window, has_softcap, softcap, scale);
+  flash_bwd_dq<DP><<<dim3((Sq + C::R - 1) / C::R, Hq, B), BNT, C::smem,
+                     stream>>>(
+      tq, tk, tv, tdo, lse, delta, static_cast<float*>(dq), Sq, Skv, Hq, Hkv,
+      D, causal, has_window, window, has_softcap, softcap, scale);
   return (int)cudaGetLastError();
 }
 
@@ -1870,8 +1866,8 @@ static cudaError_t set_smem(K kernel, size_t bytes) {
                               (int)bytes);
 }
 
-// The bf16 backward at DP <= 128: flash_bwd_delta (delta and lse2 in the
-// padded layout, SqP rows a head), then the dV, dK and dQ passes.
+// The bf16 backward: flash_bwd_delta (delta and lse2 in the padded layout,
+// SqP rows a head), then the dV, dK and dQ passes.
 template <int DP>
 int launch_bwd_wg(const void* q, const void* k, const void* v, const void* o,
                   const void* dout, const float* lse, void* dq, void* dk,
@@ -1925,6 +1921,10 @@ int launch_bwd_wg(const void* q, const void* k, const void* v, const void* o,
       scale);
   return (int)cudaGetLastError();
 }
+
+// flash_attention_bwd's launches so far in this process, by path: 0 the
+// FMA kernels (f32), 1 the wgmma passes at DP <= 128, 2 at DP 256
+long long g_bwd_launches[3] = {0, 0, 0};
 
 }  // namespace
 
@@ -2008,19 +2008,24 @@ extern "C" int flash_attention_bwd(
   q, k, v, o, dout, lse, dq, dk, dv, scratch, B, Sq, Skv, Hq, Hkv, D, causal, \
       has_window, window, has_softcap, softcap, scale, s
   if (dtype == 0) {
+    ++g_bwd_launches[D <= 128 ? 1 : 2];
     if (D <= 64) return launch_bwd_wg<64>(BWD_ARGS);
     if (D <= 128) return launch_bwd_wg<128>(BWD_ARGS);
-    // D > 128 stays on the FMA kernels: at DP = 256 a pass's accumulator
-    // alone is 128 f32 registers a thread, and with the scores and their
-    // fragments a warpgroup needs more than the 168 that two blocks an SM
-    // leave it (ROADMAP section 2)
-    return launch_bwd<__nv_bfloat16, 256>(BWD_ARGS);
+    return launch_bwd_wg<256>(BWD_ARGS);
   }
   if (dtype == 1) {
-    if (D <= 64) return launch_bwd<float, 64>(BWD_ARGS);
-    if (D <= 128) return launch_bwd<float, 128>(BWD_ARGS);
-    return launch_bwd<float, 256>(BWD_ARGS);
+    ++g_bwd_launches[0];
+    if (D <= 64) return launch_bwd<64>(BWD_ARGS);
+    if (D <= 128) return launch_bwd<128>(BWD_ARGS);
+    return launch_bwd<256>(BWD_ARGS);
   }
 #undef BWD_ARGS
   return (int)cudaErrorInvalidValue;
+}
+
+// flash_attention_bwd's launches so far in this process on `path`: 0 the
+// FMA kernels, 1 the wgmma passes at DP <= 128, 2 the wgmma passes at DP
+// 256.
+extern "C" int flash_attention_bwd_launches(int path) {
+  return path >= 0 && path < 3 ? (int)g_bwd_launches[path] : -1;
 }

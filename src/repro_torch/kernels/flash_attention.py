@@ -8,7 +8,8 @@ autograd differentiates.  For CUDA tensors it launches the kernels of
 ``csrc/flash_attention.cu`` or raises: there is no fallback.  Each wrapper
 call adds one to the wrapper's ``launches``.  A decode call launches two
 kernels, a split-KV pass and the combine, on a plan from
-``decode_splits``; a backward call three (delta, dK/dV, dQ).
+``decode_splits``; a backward call four in bf16 (delta, dV, dK, dQ) and
+three in f32 (delta, dK/dV, dQ), on the path ``bwd_path`` names.
 
 A CUDA ``flash_attention`` whose q, k or v requires grad (in grad mode)
 goes through ``_Flash``: its forward also writes each row's log-sum-exp,
@@ -39,6 +40,30 @@ DECODE_MAX_GROUP = 16
 #: rows a head of the backward's padded lse / delta scratch is rounded up
 #: to (``kLsePad`` in csrc/flash_attention.cu: a wgmma block's rows)
 BWD_ROW_PAD = 128
+#: ``flash_attention_bwd``'s paths, by the library's index of its counts
+BWD_PATHS = ("fma", "wgmma", "wgmma_d256")
+
+
+def bwd_path(dtype: torch.dtype, D: int) -> str:
+    """The kernels ``flash_attention_bwd`` launches for ``dtype`` and head
+    size D: "wgmma" (bf16 at D <= 128: ``flash_bwd_kv_wg<DP, 1>``, ``<DP,
+    0>``, ``flash_bwd_dq_wg<DP>`` at DP 64 or 128, two blocks an SM),
+    "wgmma_d256" (bf16 at 128 < D <= 256: the same passes at DP 256, one
+    block an SM) or "fma" (f32: ``flash_bwd_dkdv``, ``flash_bwd_dq``)."""
+    if dtype == torch.float32:
+        return "fma"
+    return "wgmma" if D <= 128 else "wgmma_d256"
+
+
+def bwd_paths() -> dict[str, int]:
+    """``flash_attention_bwd``'s launches so far in this process by path
+    (``BWD_PATHS``), as the library counts them where it dispatches.  Needs
+    the built library: on the card only."""
+    from . import _build
+
+    lib = _build.load("flash_attention")
+    return {p: lib.flash_attention_bwd_launches(i)
+            for i, p in enumerate(BWD_PATHS)}
 
 
 def decode_splits(B: int, Hkv: int, Skv: int, n_sm: int) -> tuple[int, int]:
@@ -225,13 +250,16 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal=True, window=None,
     ``repeat_interleave`` transposes to a sum over the group's query heads:
     dk and dv sum them in f32 and round once.  On the CPU the plain version
     is autograd through ``ref.attention_ref`` (o and lse are not read).
-    On CUDA: the kernels of ``csrc/flash_attention.cu``, two passes (dK
-    and dV, then dQ) with no atomics, so the same bits on every run.  bf16
-    at head_dim <= 128 runs on the tensor cores (``flash_bwd_dkdv_wg``,
+    On CUDA: the kernels of ``csrc/flash_attention.cu`` on the path
+    ``bwd_path`` names, passes that each own the rows they write (no
+    atomics), so the same bits on every run.  bf16 at every head_dim runs
+    on the tensor cores (``flash_bwd_kv_wg`` for dV and for dK,
     ``flash_bwd_dq_wg``: TMA tiles, ``wgmma``, f32 sums, P and dS rounded
-    to bf16 as the second products' operands); f32, and bf16 at head_dim
-    256, on the FMA pipes in f32.  Adds one to
-    ``flash_attention_bwd.launches``.
+    to bf16 as the second products' operands), at 128 < head_dim <= 256
+    zero-padded to 256, one block an SM; f32 on the FMA pipes in f32
+    (``flash_bwd_dkdv``, ``flash_bwd_dq``).  Adds one to
+    ``flash_attention_bwd.launches``; the library counts the launches by
+    path (``bwd_paths``).
     """
     if q.device.type == "cpu":
         with torch.enable_grad():

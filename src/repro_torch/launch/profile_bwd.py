@@ -5,7 +5,11 @@ shapes, split by the kernels each call launches, on one GPU.
       [--only NAME,..]
 
 ``flash_attention_bwd`` at granite-8b's training shape (B 4, S 1024, 32 /
-8 heads, D 128, causal, bf16), ``burst_gather_bwd`` at its embedding
+8 heads, D 128, causal, bf16) and gemma3-12b's (16 / 8 heads, D 256: the
+same products), each with SDPA's backward at that shape (timed here as a
+yardstick, never called by the port), the bound and the library's launches
+by path, then the attention passes' registers and spills;
+``burst_gather_bwd`` at its embedding
 (the first training batch's 4,100 Zipfian ids into the (49152, 4096) bf16
 table), ``mamba2_scan_bwd`` at zamba2-7b's M layers (B 4, S 1024, 112
 heads, P 64, N 64, bf16 x, B and C sliced from one projection: the
@@ -41,6 +45,7 @@ import torch
 from repro_torch import configs
 from repro_torch.data import SyntheticTokens
 from repro_torch.kernels import burst_gather as bg
+from repro_torch.kernels import costs
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import mamba2_scan as m2
 from repro_torch.kernels import moe_gmm as gmm
@@ -49,6 +54,10 @@ from repro_torch.launch.profile_serve import _device_us, _traced
 
 B, S, HQ, HKV, D = 4, 1024, 32, 8, 128
 ARCH = "granite-8b"
+#: the attention backward's training shapes (B, S, Hq, Hkv, D), causal:
+#: granite-8b's under ``flash_attention_bwd``, gemma3-12b's head size 256
+BWD_ATTN_SHAPES = {"flash_attention_bwd": (B, S, HQ, HKV, D),
+               "flash_attention_bwd[gemma3]": (B, S, 16, 8, 256)}
 #: the scans' heads at the train phase's B and S: zamba2-7b's (H, P, N),
 #: rwkv6-1.6b's (H, D)
 M2_HPN, R6_HD = (112, 64, 64), (32, 64)
@@ -123,13 +132,15 @@ def embedding_ids(batch=B, seq=S, device="cuda"):
     return torch.from_numpy(toks).reshape(-1).to(device, torch.int32)
 
 
-def attention_inputs(gen):
-    """q, k, v, do at the training shape, and the forward's o and lse."""
-    q, do = (torch.randn((B, S, HQ, D), generator=gen, device="cuda")
+def attention_inputs(gen, shape=(B, S, HQ, HKV, D)):
+    """q, k, v, do at a training shape (B, S, Hq, Hkv, D), and the
+    forward's o and lse."""
+    b, s, hq, hkv, d = shape
+    q, do = (torch.randn((b, s, hq, d), generator=gen, device="cuda")
              .bfloat16() for _ in range(2))
-    k, v = (torch.randn((B, S, HKV, D), generator=gen, device="cuda")
+    k, v = (torch.randn((b, s, hkv, d), generator=gen, device="cuda")
             .bfloat16() for _ in range(2))
-    lse = torch.empty((B, HQ, S), dtype=torch.float32, device="cuda")
+    lse = torch.empty((b, hq, s), dtype=torch.float32, device="cuda")
     o = fa._launch("flash_attention_fwd", q, k, v, causal=True, window=None,
                    softcap=None, scale=None, q_offset=0, kv_len=None,
                    lse=lse)
@@ -160,6 +171,60 @@ def rwkv6_bwd_inputs(gen, b=B, s=S, hd=R6_HD, dtype=torch.bfloat16):
     w = torch.exp(-torch.exp(z))
     u = 0.3 * torch.randn((h, d), generator=gen, device="cuda")
     return (*(t.to(dtype) for t in (r, k, v, w)), u, None, dy.to(dtype))
+
+
+def sdpa_bwd(q, k, v, do, causal=True):
+    """The backward of ``scaled_dot_product_attention`` (enable_gqa) on
+    the same inputs, as a function of no argument: the library yardstick,
+    never called by the port."""
+    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_(True)
+                  for t in (q, k, v))
+    with torch.enable_grad():
+        out = torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal, enable_gqa=True)
+    dot = do.transpose(1, 2).contiguous()
+    return lambda: torch.autograd.grad(out, (qt, kt, vt), dot,
+                                       retain_graph=True)
+
+
+def attention_bound(q, k, do, lse, causal=True):
+    """(ms, "bytes" or "operations") of the attention backward's bound:
+    the five products of its (query, key) pairs, 2 x 5 D flops a pair,
+    against q, k, v, o, dO, lse read and dq, dk, dv written once."""
+    b, s, hq, d = q.shape
+    flops = costs.attention_bwd_flops(
+        costs.attention_pairs(b, s, k.shape[1], hq, causal=causal), d)
+    nbytes = q.element_size() * (3 * q.numel() + 2 * do.numel()
+                                 + 4 * k.numel()) + 4 * lse.numel()
+    return costs.bound(flops, nbytes)
+
+
+def attention_bwd(out, gen, flush, reps):
+    """``flash_attention_bwd`` at each of ``BWD_ATTN_SHAPES`` into
+    ``out``: ms, kernels_ms, sdpa_ms, bound_ms and bound_by, and the
+    library's launches by path over the timed calls (``fa.bwd_paths``,
+    where the measured checkout has it); then the attention backward's
+    kernels' registers and spills."""
+    from repro_torch.kernels import _build
+
+    paths = getattr(fa, "bwd_paths", None)
+    for name, shape in BWD_ATTN_SHAPES.items():
+        q, k, v, o, lse, do = attention_inputs(gen, shape)
+
+        def attn():
+            return fa.flash_attention_bwd(q, k, v, o, lse, do, causal=True)
+        before = paths() if paths else None
+        row = {"shape": shape, "ms": time_ms(attn, flush, reps),
+               "kernels_ms": kernel_split(attn),
+               "sdpa_ms": time_ms(sdpa_bwd(q, k, v, do), flush, reps)}
+        row["bound_ms"], row["bound_by"] = attention_bound(q, k, do, lse)
+        if paths:
+            row["paths"] = {p: n - before[p] for p, n in paths().items()}
+        out[name] = row
+        del q, k, v, o, lse, do
+    out["flash_attention_bwd_kernels"] = {
+        k: v for k, v in _build.kernel_report("flash_attention").items()
+        if k.startswith("flash_bwd")}
 
 
 def moe_bwd_inputs(gen, K, N, tke=MOE_TKE):
@@ -224,13 +289,7 @@ def main(argv=None):
     out = {"device": torch.cuda.get_device_name(0)}
 
     if "flash_attention_bwd" in only:
-        q, k, v, o, lse, do = attention_inputs(gen)
-
-        def attn():
-            return fa.flash_attention_bwd(q, k, v, o, lse, do, causal=True)
-        out["flash_attention_bwd"] = {"ms": time_ms(attn, flush, args.reps),
-                                      "kernels_ms": kernel_split(attn)}
-        del q, k, v, o, lse, do
+        attention_bwd(out, gen, flush, args.reps)
 
     if "burst_gather_bwd" in only:
         R = configs.get(ARCH).vocab_padded
@@ -263,12 +322,17 @@ def main(argv=None):
                           row["kernels_ms"].items())
         alone = "".join(f"; {k} alone {v:.4f} ms" for k, v in
                         row.get("ms_alone", {}).items())
+        if "sdpa_ms" in row:
+            alone += (f"; SDPA backward {row['sdpa_ms']:.4f} ms, bound "
+                      f"{row['bound_ms']:.4f} ms ({row['bound_by']}); "
+                      f"launches by path {row.get('paths')}")
         print(f"{name}: {row['ms']:.4f} ms a call; by kernel (profiler, "
               f"ms a call): {parts}{alone}")
-    for kernel, r in out.get("moe_gmm_kernels", {}).items():
-        print(f"ptxas moe_gmm.cu {kernel}: {r.get('registers')} registers, "
-              f"spill stores {r.get('spill_stores')} B, spill loads "
-              f"{r.get('spill_loads')} B, HGMMA {r.get('hgmma')}")
+    for source in ("flash_attention", "moe_gmm"):
+        for kernel, r in out.get(f"{source}_kernels", {}).items():
+            print(f"ptxas {source}.cu {kernel}: {r.get('registers')} "
+                  f"registers, spill stores {r.get('spill_stores')} B, spill "
+                  f"loads {r.get('spill_loads')} B, HGMMA {r.get('hgmma')}")
     print(json.dumps(out))
 
 

@@ -59,10 +59,12 @@ def _np(x):
     return np.asarray(jnp.asarray(x, jnp.float32))
 
 
-def _models(arch, dtype):
+def _models(arch, dtype, **over):
     """(JAX config, JAX params, port config, port params with grads on),
-    the same weights, widened to f32 on both sides for "f32"."""
-    jcfg, tcfg = jconfigs.get_reduced(arch), configs.get_reduced(arch)
+    the same weights, widened to f32 on both sides for "f32"; ``over``
+    replaces fields of both reduced configs alike."""
+    jcfg = dataclasses.replace(jconfigs.get_reduced(arch), **over)
+    tcfg = dataclasses.replace(configs.get_reduced(arch), **over)
     jparams = jlm.init_params(jcfg, jax.random.PRNGKey(0))
     if "X" in jcfg.layer_pattern:
         for i, ch in enumerate(jcfg.layer_pattern):
@@ -179,13 +181,22 @@ def test_five_steps_match_jitted_train_step(dtype):
 
 
 #: one reduced model of each family that trains on the CPU: the SSM
-#: hybrid, the RNN, the MoE and the encoder-decoder with its frames
-FAMILIES = ["zamba2-7b", "rwkv6-1.6b", "granite-moe-3b-a800m",
-            "whisper-tiny"]
+#: hybrid, the RNN, the MoE, the encoder-decoder with its frames and
+#: gemma's two (softcaps and post-norms; 5:1 local:global), and gemma3 at
+#: its published head size 256 (both reduced configs widened to it, one
+#: local and one global layer): case -> (arch, config fields replaced)
+FAMILIES = {"zamba2-7b": ("zamba2-7b", {}),
+            "rwkv6-1.6b": ("rwkv6-1.6b", {}),
+            "granite-moe-3b-a800m": ("granite-moe-3b-a800m", {}),
+            "whisper-tiny": ("whisper-tiny", {}),
+            "gemma2-27b": ("gemma2-27b", {}),
+            "gemma3-12b": ("gemma3-12b", {}),
+            "gemma3-12b-d256": ("gemma3-12b", dict(
+                head_dim=256, n_layers=2, layer_pattern="LG"))}
 
 
-@pytest.mark.parametrize("arch", FAMILIES)
-def test_family_forward_loss_and_chunked_ce_match_jax(arch, monkeypatch):
+@pytest.mark.parametrize("case", list(FAMILIES))
+def test_family_forward_loss_and_chunked_ce_match_jax(case, monkeypatch):
     """In f32 (where the MoE routes no token otherwise): ``forward``'s
     logits and aux, ``loss_fn`` and its gradients, and ``chunked_ce`` over
     the same hidden states, targets and mask (padded to 8 chunks).
@@ -194,9 +205,10 @@ def test_family_forward_loss_and_chunked_ce_match_jax(arch, monkeypatch):
     cast to it (``_encode`` in the JAX package, ``_frontend`` here), and in
     bf16 the JAX package's following norm and residual round to bf16 where
     the port's f32 ones do not (logits 3e-4 apart)."""
+    arch, over = FAMILIES[case]
     monkeypatch.setattr(jlm, "PDTYPE", jnp.float32)
     monkeypatch.setattr(lm, "PDTYPE", torch.float32)
-    jcfg, jparams, tcfg, params = _models(arch, "f32")
+    jcfg, jparams, tcfg, params = _models(arch, "f32", **over)
     jb, tb = _batch(jcfg, seed=4)
     jlogits, jaux = jax.jit(lambda p, b: jlm.forward(
         p, jcfg, b["tokens"], extra=b.get("extra")))(jparams, jb)

@@ -537,15 +537,39 @@ def test_gather_bwd_multi_block_sum_is_the_sequential_f32_sum(N, R, kind):
 # the bf16 passes on the tensor cores (flash_bwd_kv_wg, flash_bwd_dq_wg)
 # ---------------------------------------------------------------------------
 
-def _wg_tiles():
-    """``BwdWgCfg``'s BM (a warpgroup's own rows) and BN (rows of a
-    streamed tile), and ``kLsePad``, from csrc/flash_attention.cu."""
-    src = open(os.path.join(_CSRC, "flash_attention.cu")).read()
-    cfg = src[src.index("struct BwdWgCfg {"):]
-    bm = int(re.search(r"static constexpr int BM = (\d+);", cfg).group(1))
-    bn = int(re.search(r"static constexpr int BN = (\d+);", cfg).group(1))
-    pad = int(re.search(r"constexpr int kLsePad = (\d+);", src).group(1))
-    return bm, bn, pad
+def _c_value(expr, **names):
+    """A constant expression of the CUDA source (integers, names, + - * /
+    and one ``a ? b : c``) evaluated in Python with ``names``."""
+    m = re.fullmatch(r"(.+?)\?(.+):(.+)", expr)
+    if m:
+        cond, yes, no = m.groups()
+        return _c_value(yes if _c_value(cond, **names) else no, **names)
+    return eval(expr.replace("/", "//"), {"__builtins__": {}}, names)
+
+
+def _wg_cfg(dp):
+    """``BwdWgCfg<DP>``'s constants from csrc/flash_attention.cu at
+    ``dp``: BM (a warpgroup's own rows), BN (rows of a streamed tile), ST
+    (stages), BLOCKS (blocks an SM), the passes' shared memory (smem_dv,
+    smem_dk, smem_dq, bytes), and the file's ``kLsePad`` and
+    ``kMaxSmem``."""
+    src = _code(open(os.path.join(_CSRC, "flash_attention.cu")).read())
+    body = src[src.index("struct BwdWgCfg {"):]
+    body = body[:body.index("};")]
+    out = {"DP": dp, "GNT": 128}
+    for name, expr in re.findall(
+            r"static constexpr (?:int|size_t) (\w+) =\s*([^;]+);", body):
+        out[name] = _c_value(" ".join(expr.split()), **out)
+    for name in ("kLsePad", "kMaxSmem"):
+        out[name] = int(re.search(rf"constexpr int {name} = (\d+);",
+                                  src).group(1))
+    return out
+
+
+def _wg_tiles(dp=128):
+    """``BwdWgCfg<DP>``'s BM and BN, and ``kLsePad``."""
+    cfg = _wg_cfg(dp)
+    return cfg["BM"], cfg["BN"], cfg["kLsePad"]
 
 
 def _bf16(x):
@@ -630,7 +654,9 @@ def _flash_bwd_wg_model(q, k, v, do, *, causal, window, softcap, scale, BM,
 
 #: (B, Sq, Skv, Hq, Hkv, D), kwargs: 64-row tiles cut by the causal
 #: diagonal, windows narrower and wider than a tile, gemma2's softcap with
-#: its scale, Sq != Skv both ways, a ragged head size and a group of 16
+#: its scale, Sq != Skv both ways, a ragged head size and a group of 16;
+#: the same modes at D 256 (gemma's head size, the passes at DP 256) and
+#: at a ragged D between 128 and 256 (zero-padded to DP 256)
 WG_CASES = {
     "causal-ragged-d24": ((1, 150, 150, 4, 2, 24), dict(causal=True)),
     "window-40": ((1, 200, 200, 2, 1, 32), dict(causal=True, window=40)),
@@ -640,6 +666,14 @@ WG_CASES = {
     "cross-70x130": ((2, 70, 130, 4, 1, 16), dict(causal=False)),
     "causal-130x70": ((1, 130, 70, 2, 2, 16), dict(causal=True)),
     "group-16": ((1, 130, 130, 16, 1, 8), dict(causal=True)),
+    "d256-window-40": ((1, 150, 150, 2, 1, 256),
+                       dict(causal=True, window=40)),
+    "d256-softcap": ((1, 130, 130, 4, 2, 256),
+                     dict(causal=True, softcap=50.0, scale=1 / 12)),
+    "d256-cross-70x130": ((1, 70, 130, 2, 1, 256), dict(causal=False)),
+    "d256-group-16": ((1, 130, 130, 16, 1, 256), dict(causal=True)),
+    "ragged-d200-window-100": ((1, 150, 150, 4, 2, 200),
+                               dict(causal=True, window=100)),
 }
 
 
@@ -658,7 +692,7 @@ def test_flash_bwd_wgmma_model_matches_the_plain_backward(case):
         np.float32)).bfloat16() for _ in range(2))
     full = dict(causal=kw["causal"], window=kw.get("window"),
                 softcap=kw.get("softcap"), scale=kw.get("scale", d ** -0.5))
-    bm, bn, _ = _wg_tiles()
+    bm, bn, _ = _wg_tiles(-(-d // 64) * 64 if d > 128 else 128)
     got, seen = _flash_bwd_wg_model(q, k, v, do, BM=bm, BN=bn, **full)
     want = fa.flash_attention_bwd(q, k, v, None, None, do, **kw)
     for name, a, w in zip(("dq", "dk", "dv"), got, want):
@@ -673,8 +707,132 @@ def test_flash_bwd_wgmma_model_matches_the_plain_backward(case):
 def test_flash_bwd_row_pad_is_the_kernels():
     """The wrapper pads the lse / delta scratch to the kernels' kLsePad,
     a whole number of the passes' 64-row blocks."""
-    bm, bn, pad = _wg_tiles()
-    assert fa.BWD_ROW_PAD == pad and pad % bm == 0 and pad % bn == 0
+    for dp in (64, 128, 256):
+        bm, bn, pad = _wg_tiles(dp)
+        assert fa.BWD_ROW_PAD == pad and pad % bm == 0 and pad % bn == 0
+
+
+#: shared memory of an SM (228 KB) and what the card reserves a block
+SM_SMEM, BLOCK_RESERVED = 233472, 1024
+
+
+@pytest.mark.parametrize("dp", [64, 128, 256])
+def test_flash_bwd_wgmma_blocks_fit_an_sm(dp):
+    """Each bf16 pass's shared memory (from ``BwdWgCfg``'s own formulas)
+    fits a block, and ``BLOCKS`` of them an SM; at DP 256 the dK and dQ
+    passes (a resident 64 x 256 pair, a two-stage ring of two) leave room
+    for one block only, at DP <= 128 for two."""
+    cfg = _wg_cfg(dp)
+    smem = [cfg[k] for k in ("smem_dv", "smem_dk", "smem_dq")]
+    assert all(b <= cfg["kMaxSmem"] for b in smem)
+    assert cfg["BLOCKS"] * (max(smem) + BLOCK_RESERVED) <= SM_SMEM
+    assert cfg["BLOCKS"] == (1 if dp > 128 else 2)
+    if dp > 128:
+        assert 2 * (max(smem) + BLOCK_RESERVED) > SM_SMEM
+
+
+def _dispatch():
+    """The branches of ``flash_attention_bwd``'s C entry point: for each
+    dtype code, [(largest D or None, launcher, DP)] in order, and the
+    path index its launches count on, as a function of D."""
+    text = _code(open(os.path.join(_CSRC, "flash_attention.cu")).read())
+    body = text[text.index('extern "C" int flash_attention_bwd('):]
+    body = body[:body.index("#undef BWD_ARGS")]
+    out = {}
+    for code, branch in re.findall(r"if \(dtype == (\d)\) \{(.*?)\n  \}",
+                                   body, re.S):
+        launches = [(None if lim is None or lim == "" else int(lim), fn,
+                     int(dp)) for lim, fn, dp in re.findall(
+            r"(?:if \(D <= (\d+)\) )?return (launch_\w+)<(?:float, )?(\d+)>",
+            branch)]
+        counter = re.search(r"\+\+g_bwd_launches\[([^\]]+)\];",
+                            branch).group(1)
+        out[int(code)] = launches, counter
+    return text, out
+
+
+def _c_path(counter, D):
+    return fa.BWD_PATHS[_c_value(counter, D=D)]
+
+
+def test_flash_bwd_dispatch_is_the_sources():
+    """From csrc/flash_attention.cu: bf16 (dtype 0) at every D up to 256
+    launches the wgmma passes (``launch_bwd_wg``: ``flash_bwd_kv_wg`` and
+    ``flash_bwd_dq_wg`` only), 128 < D <= 256 at DP 256 and counted on
+    "wgmma_d256"; f32 (dtype 1) the FMA kernels (``launch_bwd``:
+    ``flash_bwd_dkdv`` and ``flash_bwd_dq`` only); the wrapper's
+    ``bwd_path`` names the same path, and the ctypes code of each dtype is
+    the one the source branches on."""
+    text, branches = _dispatch()
+    assert fa._DTYPES == {torch.bfloat16: 0, torch.float32: 1}
+    for code, dtype in ((0, torch.bfloat16), (1, torch.float32)):
+        launches, counter = branches[code]
+        for D in range(8, 257, 8):
+            lim, fn, dp = next(x for x in launches
+                               if x[0] is None or D <= x[0])
+            assert fn == ("launch_bwd_wg" if code == 0 else "launch_bwd")
+            assert dp == (64 if D <= 64 else 128 if D <= 128 else 256)
+            assert _c_path(counter, D) == fa.bwd_path(dtype, D)
+    assert fa.bwd_path(torch.bfloat16, 200) == "wgmma_d256"
+    assert fa.bwd_path(torch.bfloat16, 128) == "wgmma"
+    assert fa.bwd_path(torch.float32, 256) == "fma"
+    for launcher, kernels, never in (
+            ("launch_bwd_wg", {"flash_bwd_kv_wg", "flash_bwd_dq_wg",
+                               "flash_bwd_delta"},
+             {"flash_bwd_dkdv", "flash_bwd_dq"}),
+            ("launch_bwd", {"flash_bwd_dkdv", "flash_bwd_dq",
+                            "flash_bwd_delta"},
+             {"flash_bwd_kv_wg", "flash_bwd_dq_wg"})):
+        start = re.search(rf"^int {launcher}\(", text, re.M).start()
+        body = text[start:text.index("\n}\n", start)]
+        launched = set(re.findall(r"(flash_bwd_\w+)(?:<[^<>]*>)?\s*<<<",
+                                  body))
+        assert launched == kernels and not launched & never, launcher
+
+
+@pytest.mark.parametrize("dtype,D,path", [
+    (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 112, "wgmma"),
+    (torch.bfloat16, 200, "wgmma_d256"), (torch.bfloat16, 256, "wgmma_d256"),
+    (torch.float32, 64, "fma"), (torch.float32, 256, "fma")])
+def test_flash_bwd_cuda_branch_passes_dtype_and_head_size(monkeypatch,
+                                                          dtype, D, path):
+    """The CUDA branch of ``flash_attention_bwd`` (through a faked library
+    on meta tensors) passes the dtype's code and D, on which the library
+    picks ``path`` (``test_flash_bwd_dispatch_is_the_sources``), and
+    counts one launch; ``bwd_paths`` reads the library's counts by
+    ``BWD_PATHS`` index."""
+    import contextlib
+    import types
+
+    from repro_torch.kernels import _build
+    calls = []
+
+    class Lib:
+        def flash_attention_bwd(self, *args):
+            calls.append(args)
+            return 0
+
+        def flash_attention_bwd_launches(self, path):
+            return 10 + path
+    monkeypatch.setattr(shape_only, "active", lambda *tensors: False)
+    monkeypatch.setattr(_build, "load", lambda name: Lib())
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda: types.SimpleNamespace(cuda_stream=0))
+    meta = dict(device="meta", dtype=dtype)
+    q, o, do = (torch.empty((2, 70, 4, D), **meta) for _ in range(3))
+    k, v = (torch.empty((2, 90, 2, D), **meta) for _ in range(2))
+    lse = torch.empty((2, 4, 70), device="meta", dtype=torch.float32)
+    n = fa.flash_attention_bwd.launches
+    dq, dk, dv = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=False)
+    assert dq.shape == q.shape and dk.shape == dv.shape == k.shape
+    # B, Sq, Skv, Hq, Hkv, D, dtype
+    assert len(calls) == 1 and calls[0][10:17] == (2, 70, 90, 4, 2, D,
+                                                    fa._DTYPES[dtype])
+    assert fa.flash_attention_bwd.launches == n + 1
+    assert fa.bwd_path(dtype, D) == path
+    assert fa.bwd_paths() == {"fma": 10, "wgmma": 11, "wgmma_d256": 12}
 
 
 # ---- the scans' backward: which path, and what the sources call ----------
