@@ -1,0 +1,21 @@
+"""prefill_ms.serve: device milliseconds a traced ``generate`` call of the
+program's span ``serve.prefill`` (the prefill's ``lm.step`` to its
+synchronize): the mean of its ``dev_ms`` (CUDA events at its ends) over
+the spans whose host interval lies inside the device-only traced window.
+Left out unless the window holds one root span ``serve.generate`` per
+traced call.  Source: the program's span; moves ``serve_tokens_per_s``."""
+from repro_torch.obs import trace
+
+SPAN, ROOT = "serve.prefill", "serve.generate"
+
+
+def read(r):
+    if r.kind != "serve" or r.trace is None:
+        return None
+    t = r.trace
+    spans = [e for e in trace.events() if e["dur_ns"] is not None
+             and t.start <= e["t_ns"] and e["t_ns"] + e["dur_ns"] <= t.end]
+    if sum(e["name"] == ROOT and not e["parent"] for e in spans) != t.units:
+        return None
+    ms = [e["dev_ms"] for e in spans if e["name"] == SPAN and "dev_ms" in e]
+    return sum(ms) / len(ms) if len(ms) == t.units else None

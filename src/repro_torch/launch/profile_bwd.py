@@ -50,7 +50,7 @@ from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import mamba2_scan as m2
 from repro_torch.kernels import moe_gmm as gmm
 from repro_torch.kernels import rwkv6_scan as r6
-from repro_torch.launch.profile_serve import _device_us, _traced
+from repro_torch.launch.profile_serve import _device_ops, _traced
 
 B, S, HQ, HKV, D = 4, 1024, 32, 8, 128
 ARCH = "granite-8b"
@@ -117,10 +117,9 @@ def kernel_split(fn, reps=10) -> dict[str, float]:
     fn()
     prof, _ = _traced(lambda: [fn() for _ in range(reps)])
     split: dict[str, float] = {}
-    for e in prof.key_averages():
-        if e.device_type.name == "CUDA" and _device_us(e) > 0:
-            key = _short(e.key)
-            split[key] = split.get(key, 0.0) + _device_us(e) / reps / 1e3
+    for name, start, end in _device_ops(prof):
+        key = _short(name)
+        split[key] = split.get(key, 0.0) + (end - start) / reps / 1e6
     return split
 
 

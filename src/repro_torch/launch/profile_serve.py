@@ -22,6 +22,7 @@ import argparse
 import time
 
 import torch
+from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from repro_torch import configs
@@ -31,22 +32,39 @@ from repro_torch.model import lm
 B, PROMPT, STEPS, TOP = 4, 512, 4, 12
 
 
-def _device_us(evt) -> float:
-    for attr in ("device_time_total", "cuda_time_total"):
-        if hasattr(evt, attr):
-            return float(getattr(evt, attr))
-    return 0.0
+def _device_ops(prof) -> list[tuple[str, int, int]]:
+    """(name, start ns, end ns) of every operation the profiler recorded
+    on the device; the device mirrors of annotations (``record_function``,
+    the phase spans) are no operation and are left out."""
+    return [(e.name(), e.start_ns(), e.start_ns() + e.duration_ns())
+            for e in prof.profiler.kineto_results.events()
+            if e.device_type() != DeviceType.CPU
+            and not getattr(e, "is_user_annotation", lambda: False)()]
+
+
+def _union_ns(intervals) -> int:
+    """The length of the union of (start, end) intervals."""
+    total, reach = 0, float("-inf")
+    for a, b in sorted(intervals):
+        if b > reach:
+            total += b - max(a, reach)
+            reach = b
+    return total
 
 
 def _report(name: str, prof, wall_s: float, top: int = TOP) -> None:
-    rows = [(e.key, _device_us(e), e.count) for e in prof.key_averages()
-            if _device_us(e) > 0 and e.device_type.name == "CUDA"]
-    rows.sort(key=lambda r: -r[1])
-    busy_ms = sum(r[1] for r in rows) / 1e3
+    ops = _device_ops(prof)
+    by_name: dict[str, list] = {}
+    for key, a, b in ops:
+        row = by_name.setdefault(key, [0, 0])
+        row[0] += b - a
+        row[1] += 1
+    rows = sorted(by_name.items(), key=lambda kv: -kv[1][0])
+    busy_ms = _union_ns((a, b) for _, a, b in ops) / 1e6
     print(f"{name}: wall {wall_s * 1e3:.2f} ms, device busy {busy_ms:.2f} ms "
           f"({100 * busy_ms / (wall_s * 1e3):.1f} %)")
-    for key, us, count in rows[:top]:
-        print(f"  {us / 1e3:9.3f} ms  {100 * us / 1e3 / busy_ms:5.1f} %  "
+    for key, (ns, count) in rows[:top]:
+        print(f"  {ns / 1e6:9.3f} ms  {100 * ns / 1e6 / busy_ms:5.1f} %  "
               f"x{count:<5d} {key[:90]}")
 
 

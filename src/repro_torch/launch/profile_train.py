@@ -10,9 +10,12 @@ whole number of the pattern's groups, at least one: zamba2-7b takes 27),
 at B 4 x S 1024, then runs ``launch.train``'s step
 (loss, backward, clip, AdamW) on ``SyntheticTokens(seed=0)`` batches: two
 untraced warm-up steps, then two steps under ``torch.profiler``.  It
-prints the wall time, the device-busy share and the device time summed by
-kernel name, largest first.  Every architecture trains on the card
-(arctic-480b only at a depth that fits: ~960 GB whole).
+prints the wall time, the device-busy share (the union of the device
+operations' intervals), the device time summed by kernel name, largest
+first, and the device ms a step of the step's phases (the spans
+``train.forward``, ``train.backward``, ``train.optimizer``).  Every
+architecture trains on the card (arctic-480b only at a depth that fits:
+~960 GB whole).
 """
 from __future__ import annotations
 
@@ -26,9 +29,11 @@ from repro_torch.data import SyntheticTokens
 from repro_torch.launch import train
 from repro_torch.launch.profile_serve import _report, _traced
 from repro_torch.model import lm
+from repro_torch.obs import trace
 from repro_torch.optim import adamw_init
 
 WARMUP, STEPS, LAYERS, B, S = 2, 2, 8, 4, 1024
+PHASES = ("train.forward", "train.backward", "train.optimizer")
 
 
 def main(argv=None):
@@ -59,7 +64,12 @@ def main(argv=None):
     print(f"{cfg.name} on {torch.cuda.get_device_name(0)}: "
           f"{sum(p.numel() for p in params.parameters()) / 1e9:.3f} B "
           f"params, B {B} x S {S}")
+    trace.clear()
     _report(f"train {STEPS} steps", *_traced(steps), top=20)
+    spans = trace.drain()
+    for phase in PHASES:
+        ms = [e["dev_ms"] for e in spans if e["name"] == phase]
+        print(f"  {phase}: {sum(ms) / len(ms):.3f} ms a step on the device")
 
 
 if __name__ == "__main__":

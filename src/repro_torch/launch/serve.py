@@ -24,6 +24,7 @@ import torch
 from repro_torch import configs
 from repro_torch.configs.base import ArchConfig
 from repro_torch.model import lm
+from repro_torch.obs import trace
 
 
 @dataclasses.dataclass
@@ -63,29 +64,36 @@ def generate(params, cfg: ArchConfig, prompts: torch.Tensor, gen: int, *,
              max_seq: int | None = None, extra=None) -> Generation:
     """Greedy prefill of ``prompts`` (B, P), then ``gen`` decode steps.
     ``extra`` (the stub frontend's inputs) goes to ``lm.init_cache``,
-    which builds the memory before the prefill's clock starts."""
+    which builds the memory before the prefill's clock starts.
+
+    Under ``torch.profiler`` (or ``obs.trace.enable``) it records the span
+    ``serve.generate`` around the call, and in it ``serve.prefill`` and
+    ``serve.decode``, each over its clock's interval."""
     B, P = prompts.shape
     device = prompts.device
-    cache = lm.init_cache(params, cfg, B, max_seq=max_seq or P + gen,
-                          device=device, extra=extra)
-    _sync(device)
-    t0 = time.perf_counter()
-    logits, cache = lm.step(params, cfg, cache, prompts)
-    _sync(device)
-    prefill_s = time.perf_counter() - t0
+    with trace.span("serve.generate"):
+        cache = lm.init_cache(params, cfg, B, max_seq=max_seq or P + gen,
+                              device=device, extra=extra)
+        _sync(device)
+        with trace.span("serve.prefill"):
+            t0 = time.perf_counter()
+            logits, cache = lm.step(params, cfg, cache, prompts)
+            _sync(device)
+            prefill_s = time.perf_counter() - t0
 
-    steps, out = [logits], []
-    t0 = time.perf_counter()
-    tok = torch.argmax(logits, -1)[:, None].to(torch.int32)
-    for _ in range(gen):
-        out.append(tok)
-        logits, cache = lm.step(params, cfg, cache, tok)
-        steps.append(logits)
-        tok = torch.argmax(logits, -1)[:, None].to(torch.int32)
-    _sync(device)
-    decode_s = time.perf_counter() - t0
-    tokens = torch.cat(out, dim=1) if out else prompts[:, :0]
-    return Generation(tokens, torch.stack(steps), prefill_s, decode_s)
+        steps, out = [logits], []
+        with trace.span("serve.decode"):
+            t0 = time.perf_counter()
+            tok = torch.argmax(logits, -1)[:, None].to(torch.int32)
+            for _ in range(gen):
+                out.append(tok)
+                logits, cache = lm.step(params, cfg, cache, tok)
+                steps.append(logits)
+                tok = torch.argmax(logits, -1)[:, None].to(torch.int32)
+            _sync(device)
+            decode_s = time.perf_counter() - t0
+        tokens = torch.cat(out, dim=1) if out else prompts[:, :0]
+        return Generation(tokens, torch.stack(steps), prefill_s, decode_s)
 
 
 def main(argv=None):

@@ -33,6 +33,7 @@ from repro_torch.ckpt import latest_step, restore_checkpoint, save_checkpoint
 from repro_torch.configs.base import ArchConfig
 from repro_torch.data import ShardedLoader, SyntheticTokens
 from repro_torch.model import lm
+from repro_torch.obs import trace
 from repro_torch.optim import (adamw_init, adamw_update, clip_by_global_norm,
                                cosine_schedule)
 
@@ -61,16 +62,25 @@ def train_step(params: lm.LM, cfg: ArchConfig, opt: dict, tokens,
     global norm 1, then AdamW.  A parameter the loss does not reach
     (zamba2's second shared block in a one-H pattern) takes a zero
     gradient, as under ``jax.grad``.  Returns (loss, grad norm), 0-d
-    tensors on the params' device."""
-    named = dict(params.named_parameters())
-    loss = lm.loss_fn(params, cfg, {"tokens": tokens})
-    loss.backward()
-    grads = {k: torch.zeros_like(p) if p.grad is None else p.grad
-             for k, p in named.items()}
-    grads, gn = clip_by_global_norm(grads, 1.0)
-    adamw_update(named, grads, opt, lr=lr)
-    for p in named.values():
-        p.grad = None
+    tensors on the params' device.
+
+    Under ``torch.profiler`` (or ``obs.trace.enable``) it records the span
+    ``train.step`` and, tiling it, ``train.forward``, ``train.backward``
+    and ``train.optimizer`` (the zero fills, the clip, AdamW and the
+    reset of ``.grad``)."""
+    with trace.span("train.step"):
+        named = dict(params.named_parameters())
+        with trace.span("train.forward"):
+            loss = lm.loss_fn(params, cfg, {"tokens": tokens})
+        with trace.span("train.backward"):
+            loss.backward()
+        with trace.span("train.optimizer"):
+            grads = {k: torch.zeros_like(p) if p.grad is None else p.grad
+                     for k, p in named.items()}
+            grads, gn = clip_by_global_norm(grads, 1.0)
+            adamw_update(named, grads, opt, lr=lr)
+            for p in named.values():
+                p.grad = None
     return loss.detach(), gn
 
 

@@ -9,8 +9,12 @@
   sweep-cache) is now a view over this registry, and the worker pool
   ships one registry delta home instead of three bespoke merges.
 * :mod:`repro_torch.obs.trace` — nestable spans with cross-process parent
-  tokens, Chrome/Perfetto ``trace_event`` export, and the ``sim.obs``
-  BENCH block that ``check_regression.py`` gates.
+  tokens and Chrome/Perfetto ``trace_event`` export.  The FPGA flow
+  (search, floorplan, simulate) records them under :func:`trace.enable`;
+  ``launch/train.py::train_step`` and ``launch/serve.py::generate``
+  record their phases (``train.forward``, ``serve.prefill``, ...) under
+  a running ``torch.profiler`` too, on the profiler's clock and with
+  each phase's device time.
 
 Command line (``python -m repro_torch.obs``)::
 
@@ -36,21 +40,6 @@ Quick tour — count something, trace something, export:
 >>> obs.trace.disable(); obs.metrics.restore(snap)
 """
 
-import os as _os
-
 from . import metrics, trace
 
-__all__ = ["metrics", "trace", "bench_obs_block"]
-
-
-def bench_obs_block(total_wall_s: float, trace_path: str | None = None,
-                    ) -> dict:
-    """The driver-side exit glue: compute the ``sim.obs`` BENCH payload
-    and, when a ``--trace`` path was given, export the Perfetto JSON next
-    to the BENCH JSON and record its basename as ``trace_file`` (the
-    regression gate resolves it relative to the BENCH file)."""
-    block = trace.bench_block(total_wall_s)
-    if trace_path:
-        trace.write_chrome(trace_path)
-        block["trace_file"] = _os.path.basename(trace_path)
-    return block
+__all__ = ["metrics", "trace"]

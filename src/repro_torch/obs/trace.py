@@ -12,14 +12,19 @@ a forest that can be re-assembled after worker events are shipped home:
 * the worker returns :func:`drain` output with its result and the
   parent :func:`absorb`\\ s it — same shape as the registry delta merge.
 
-Tracing is **off by default** (``span`` is then a no-op context
-manager); drivers call :func:`enable` around instrumented runs.
+Spans record while :func:`enable` is on, or while a ``torch.profiler``
+runs; otherwise ``span`` is a flag check.  Under the profiler each span
+also opens a ``torch.profiler.record_function`` of its name, so the
+profiler's host trace carries it as a user annotation.
 
-Timestamps come from one anchor pair captured at import: epoch µs plus
-a ``perf_counter_ns`` origin.  All spans in a process share the anchor,
-so intervals nest exactly (no wall-clock steps mid-run), and
-fork-started workers inherit it, so cross-process timestamps land on a
-common axis.
+Timestamps (``t_ns``, ``dur_ns``) are CLOCK_REALTIME ns
+(``time.time_ns``), the clock the profiler stamps its host and device
+events on, so a span can be laid over the profiler's trace;
+fork-started workers read the same clock.  Where CUDA is initialised a
+recording span also records a CUDA event on the current stream at each
+end; reading the buffer (:func:`events`, :func:`drain`,
+:func:`to_chrome`) waits for them and gives the span ``dev_ms``, its
+device interval in ms.  Nothing synchronises while spans are recorded.
 
 >>> from repro_torch.obs import trace
 >>> trace.enable(clear=True)
@@ -39,24 +44,48 @@ from __future__ import annotations
 import itertools
 import json
 import os
+import sys
 import threading
 import time
 from contextlib import contextmanager
 from typing import Any, Iterator
-
-# Shared timebase: epoch anchor + monotonic offset (see module docstring).
-_T0_EPOCH_NS = time.time_ns()
-_T0_PERF_NS = time.perf_counter_ns()
 
 _ENABLED = False
 _EVENTS: list[dict[str, Any]] = []
 _IDS = itertools.count(1)
 _END_SEQ = itertools.count(1)
 _LOCAL = threading.local()
+#: span id -> (open record_function or None, CUDA start event or None)
+_OPEN: dict[str, tuple[Any, Any]] = {}
+#: (record, start event, end event) of closed spans not yet given dev_ms
+_PENDING: list[tuple[dict[str, Any], Any, Any]] = []
 
 
-def _now_ns() -> int:
-    return _T0_EPOCH_NS + (time.perf_counter_ns() - _T0_PERF_NS)
+def _profiler():
+    """``torch.autograd.profiler`` while a ``torch.profiler`` runs, else
+    None (no torch imported means no profiler running)."""
+    prof = sys.modules.get("torch.autograd.profiler")
+    return prof if prof is not None and prof._is_profiler_enabled else None
+
+
+def _device_event():
+    """A timed CUDA event recorded on the current stream, or None where
+    CUDA is not initialised."""
+    torch = sys.modules.get("torch")
+    if torch is None or not torch.cuda.is_initialized():
+        return None
+    ev = torch.cuda.Event(enable_timing=True)
+    ev.record()
+    return ev
+
+
+def _resolve() -> None:
+    """Give each closed span's record its ``dev_ms`` (waits for its end
+    event)."""
+    for rec, start, stop in _PENDING:
+        stop.synchronize()
+        rec["dev_ms"] = start.elapsed_time(stop)
+    _PENDING.clear()
 
 
 def _stack() -> list[str]:
@@ -73,6 +102,7 @@ def enable(clear: bool = False) -> None:
     global _ENABLED
     if clear:
         _EVENTS.clear()
+        _PENDING.clear()
         _stack().clear()
     _ENABLED = True
 
@@ -83,21 +113,25 @@ def disable() -> None:
 
 
 def enabled() -> bool:
+    """Whether :func:`enable` is on (a running profiler aside)."""
     return _ENABLED
 
 
 def clear() -> None:
     _EVENTS.clear()
+    _PENDING.clear()
     _stack().clear()
 
 
 def events() -> list[dict[str, Any]]:
     """Copy of the span buffer (list of span record dicts)."""
+    _resolve()
     return [dict(e) for e in _EVENTS]
 
 
 def drain() -> list[dict[str, Any]]:
     """Return and clear the buffer — what a worker ships to its parent."""
+    _resolve()
     out = [dict(e) for e in _EVENTS]
     _EVENTS.clear()
     return out
@@ -111,9 +145,20 @@ def absorb(worker_events: list[dict[str, Any]]) -> None:
 # -- span recording --------------------------------------------------
 
 def begin(name: str, **args: Any) -> dict[str, Any] | None:
-    """Open a span; returns the record (close with :func:`end`)."""
-    if not _ENABLED:
+    """Open a span; returns the record (close with :func:`end`), or None
+    where spans do not record."""
+    prof = _profiler()
+    if not (_ENABLED or prof):
         return None
+    t_ns = time.time_ns()
+    annotation = None
+    if prof:
+        annotation = prof.record_function(name)
+        annotation.__enter__()
+        # the profiler stamps the annotation's start midway through the
+        # call that opens it (its end as the closing call returns)
+        t_ns = (t_ns + time.time_ns()) // 2
+    start = _device_event()
     stack = _stack()
     parent = stack[-1] if stack else getattr(_LOCAL, "base", None)
     rec = {
@@ -122,20 +167,29 @@ def begin(name: str, **args: Any) -> dict[str, Any] | None:
         "name": name,
         "pid": os.getpid(),
         "tid": threading.get_ident() % 0xFFFFFFFF,
-        "t_ns": _now_ns(),
+        "t_ns": t_ns,
         "dur_ns": None,
         "end_seq": None,
         "args": {k: v for k, v in args.items() if v is not None},
     }
     _EVENTS.append(rec)
     stack.append(rec["id"])
+    if annotation is not None or start is not None:
+        _OPEN[rec["id"]] = (annotation, start)
     return rec
 
 
 def end(rec: dict[str, Any] | None) -> None:
     if rec is None:
         return
-    rec["dur_ns"] = _now_ns() - rec["t_ns"]
+    annotation, start = _OPEN.pop(rec["id"], (None, None))
+    if annotation is not None:
+        annotation.__exit__(None, None, None)
+    rec["dur_ns"] = time.time_ns() - rec["t_ns"]
+    # the end event after the stamp: under the profiler recording it put
+    # the end 50-170 µs later past a synchronize (H100)
+    if start is not None:
+        _PENDING.append((rec, start, _device_event()))
     rec["end_seq"] = next(_END_SEQ)
     stack = _stack()
     if stack and stack[-1] == rec["id"]:
@@ -182,8 +236,7 @@ def attach(token: str) -> None:
 def begin_worker(token: str, *, enable_tracing: bool) -> None:
     """Reset inherited trace state at worker entry (fork-safe)."""
     global _ENABLED
-    _EVENTS.clear()
-    _stack().clear()
+    clear()
     attach(token)
     _ENABLED = enable_tracing
 
@@ -194,11 +247,12 @@ def to_chrome(span_events: list[dict[str, Any]] | None = None,
               *, process_names: dict[int, str] | None = None) -> dict:
     """Render span records as a Chrome ``trace_event`` document.
 
-    Each closed span becomes a matched B/E pair (the explicit form the
-    regression gate validates); unclosed spans are skipped, and the
-    :func:`bench_block` ``unclosed`` count is how they surface.  A
+    Each closed span becomes a matched B/E pair (the explicit form
+    :func:`validate_chrome` checks); unclosed spans are skipped.  A
     metadata ("M") ``process_name`` event labels each pid.
     """
+    if span_events is None:
+        _resolve()
     spans = _EVENTS if span_events is None else span_events
     my_pid = os.getpid()
     names = dict(process_names or {})
@@ -295,49 +349,7 @@ def validate_chrome(doc: dict) -> list[str]:
     return errors
 
 
-# -- BENCH block and summaries ---------------------------------------
-
-def bench_block(total_wall_s: float,
-                span_events: list[dict[str, Any]] | None = None) -> dict:
-    """The ``sim.obs`` BENCH payload the regression gate inspects.
-
-    ``stage_coverage`` is the fraction of ``total_wall_s`` accounted
-    for by *stage* spans — the depth-1 children of root spans (or the
-    roots themselves in a flat trace).  Worker spans are parented
-    under parent-process spans after :func:`absorb`, so they never
-    double-count into coverage.
-    """
-    spans = _EVENTS if span_events is None else span_events
-    closed = [e for e in spans if e.get("dur_ns") is not None]
-    ids = {e["id"] for e in spans}
-    unclosed = len(spans) - len(closed)
-    orphans = sum(1 for e in spans
-                  if e.get("parent") and e["parent"] not in ids)
-    by_name: dict[str, dict[str, float]] = {}
-    for e in closed:
-        agg = by_name.setdefault(e["name"], {"count": 0, "wall_s": 0.0})
-        agg["count"] += 1
-        agg["wall_s"] += e["dur_ns"] / 1e9
-    roots = [e for e in closed if not e.get("parent")]
-    root_ids = {e["id"] for e in roots}
-    stages = [e for e in closed if e.get("parent") in root_ids]
-    basis = stages or roots
-    covered_s = sum(e["dur_ns"] for e in basis) / 1e9
-    coverage = (covered_s / total_wall_s) if total_wall_s > 0 else 0.0
-    return {
-        "enabled": _ENABLED if span_events is None else True,
-        "spans": len(closed),
-        "unclosed": unclosed,
-        "orphans": orphans,
-        "pids": len({e["pid"] for e in spans}) if spans else 0,
-        "stage_coverage": round(min(coverage, 1.0), 4),
-        "covered_wall_s": round(covered_s, 6),
-        "wall_s": round(total_wall_s, 6),
-        "by_name": {k: {"count": v["count"],
-                        "wall_s": round(v["wall_s"], 6)}
-                    for k, v in sorted(by_name.items())},
-    }
-
+# -- summaries -------------------------------------------------------
 
 def summarize(doc: dict, top: int = 15) -> str:
     """Plain-text top-N table (by total wall time) for a Chrome trace."""

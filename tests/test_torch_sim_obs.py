@@ -2,7 +2,7 @@
 reference's: after one traced ``simulate_batch`` run (backends ``event``
 and ``numpy``), the counter groups and their values, the span names and
 their nesting and ``validate_chrome``'s verdict are the reference's; the
-registry's snapshot / delta / merge semantics, ``bench_obs_block`` and the
+registry's snapshot / delta / merge semantics and the
 ``python -m repro_torch.obs`` command line too."""
 import contextlib
 import json
@@ -130,24 +130,24 @@ def test_registry_semantics_equal_the_reference():
 
 
 def test_bench_block_and_command_line_equal_the_reference(tmp_path):
-    docs = {}
+    """The command line over each package's own trace file (the port has
+    no BENCH block: nothing of it reads one)."""
+    paths = {}
     for name, obs in (("ref", robs), ("port", pobs)):
         obs.trace.enable(clear=True)
         for i in range(3):
             with obs.trace.span("outer", i=i), obs.trace.span("inner"):
                 pass
-        path = tmp_path / f"{name}.json"
-        block = obs.bench_obs_block(1.0, str(path))
+        paths[name] = tmp_path / f"{name}.json"
+        obs.trace.write_chrome(str(paths[name]))
         obs.trace.disable()
-        docs[name] = (sorted(block), block["trace_file"], path)
-    assert docs["port"][0] == docs["ref"][0]
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
     for cmd in ("validate", "summarize"):
         outs = []
         for name, module in (("ref", "repro.obs"),
                              ("port", "repro_torch.obs")):
             out = subprocess.run(
-                [sys.executable, "-m", module, cmd, str(docs[name][2])],
+                [sys.executable, "-m", module, cmd, str(paths[name])],
                 env=env, capture_output=True, text=True, timeout=120)
             outs.append((out.returncode, out.stdout.splitlines()[:1]
                          if cmd == "validate" else
@@ -158,4 +158,4 @@ def test_bench_block_and_command_line_equal_the_reference(tmp_path):
                             "name": "x"}]}
     assert pobs.trace.validate_chrome(bad) == robs.trace.validate_chrome(bad)
     assert pobs.trace.validate_chrome(bad)
-    assert json.loads(docs["port"][2].read_text())["traceEvents"]
+    assert json.loads(paths["port"].read_text())["traceEvents"]
